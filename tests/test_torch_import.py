@@ -1,0 +1,67 @@
+"""The torch port imports no JAX and nothing of the JAX package."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = "hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch"
+JAX_PKG = "hardwareawareoptimalquantumcircuitcuttingandknitting_tpu"
+
+
+def _port_modules():
+    for path in sorted((ROOT / PORT).rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        yield path, ".".join(parts)
+
+
+def test_importing_every_port_module_loads_no_jax():
+    mods = [name for _, name in _port_modules()]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m == 'jaxlib' "
+        f"or m == {JAX_PKG!r} or m.startswith({JAX_PKG + '.'!r}))\n"
+        "print(len(sys.modules), bad)\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _imported_names(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_sources_name_no_jax_import():
+    files = [p for p, _ in _port_modules()] + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    offending = []
+    for path in files:
+        for name in _imported_names(path):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", JAX_PKG):
+                offending.append((str(path.relative_to(ROOT)), name))
+    assert not offending, offending
+
+
+def test_port_has_no_networkx_dependency():
+    """The card's machine has no networkx: the port's zoo must not need
+    it."""
+    offending = [
+        str(p.relative_to(ROOT)) for p, _ in _port_modules()
+        if any(n.split(".")[0] == "networkx" for n in _imported_names(p))
+    ]
+    assert not offending, offending
