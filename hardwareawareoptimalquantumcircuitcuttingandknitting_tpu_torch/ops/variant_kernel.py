@@ -19,8 +19,8 @@ Three layers:
   for ``sm_90a`` at first use into ``build/``, loaded with ``ctypes``) and
   counts the launch; on CPU tensors it runs :func:`plain_variant_rows`;
 * :func:`plain_variant_rows`, the plain PyTorch version of the same
-  function (same op list, same per-block runs and checkpoints, same
-  epilogue), used on the CPU and as the kernel's reference on the card.
+  function (same op list and epilogue, every label replayed in full with
+  no staging), used on the CPU and as the kernel's reference on the card.
 
 What bounds the kernel on an H100 and what its design does about it is
 written at the top of the CUDA source.
@@ -310,48 +310,18 @@ def _epilogue_plain(st, ws, dp: DevicePlan):
     return (sq.reshape(b, hdim, 1 << d) * fac[:, :, None]).sum(dim=1)
 
 
-def plain_variant_rows(dp: DevicePlan, entries, wstack, stage,
-                       labels_per_cta: int | None = None) -> torch.Tensor:
-    """The plain PyTorch version of the kernel, on any device.  Labels are
-    split into contiguous runs of ``labels_per_cta`` (one run per CUDA
-    block); each run keeps its own per-segment checkpoints, its first
-    label replays in full and later ones from their stage — the kernel's
-    own schedule, batched over runs."""
+def plain_variant_rows(dp: DevicePlan, entries, wstack) -> torch.Tensor:
+    """The plain PyTorch version of the kernel, on any device: every label
+    of the chunk replays the whole suffix from the shared prefix in one
+    batch, then the epilogue.  No runs, no checkpoints and no stages — the
+    staged schedule only skips work whose result it already holds, so the
+    rows do not depend on it."""
     plan = dp.plan
     c = entries.shape[0]
-    span = labels_per_cta or c
-    runs = math.ceil(c / span)
-    n_seg = len(plan.segments)
-    big = 1 << plan.n
-    dev = entries.device
-    out = torch.empty((c, plan.out_width), dtype=torch.float32, device=dev)
-    ck = [torch.zeros((runs, 2, big), dtype=torch.float32, device=dev)
-          for _ in range(n_seg)]
-    prefix = dp.prefix.to(dev)
-    for pos in range(span):
-        lab = torch.arange(runs, device=dev) * span + pos
-        run_ids = torch.nonzero(lab < c).flatten()
-        lab = lab[run_ids]
-        if lab.numel() == 0:
-            break
-        s = stage.to(dev)[lab].long()
-        if pos == 0:
-            s = torch.zeros_like(s)  # no valid checkpoints yet
-        for i, (a, b) in enumerate(plan.segments):
-            sel = torch.nonzero(s <= i).flatten()
-            if sel.numel() == 0:
-                continue
-            rsel = run_ids[sel]
-            st = (prefix.expand(sel.numel(), 2, big) if i == 0
-                  else ck[i - 1][rsel])
-            ent = entries[lab[sel]]
-            for row in plan.ops[a:b]:
-                st = _apply_op_plain(st, row, dp, ent)
-            ck[i][rsel] = st
-        fin = (ck[-1][run_ids] if n_seg
-               else prefix.expand(lab.numel(), 2, big))
-        out[lab] = _epilogue_plain(fin, wstack[lab], dp)
-    return out
+    st = dp.prefix.to(entries.device).expand(c, 2, 1 << plan.n)
+    for row in plan.ops:
+        st = _apply_op_plain(st, row, dp, entries)
+    return _epilogue_plain(st, wstack, dp)
 
 
 # ---------------------------------------------------------------------------
@@ -470,12 +440,13 @@ def variant_rows(dp: DevicePlan, entries, wstack, stage,
     the hand-written kernel (counted in ``variant_rows.launches``); CPU
     tensors run :func:`plain_variant_rows`.  ``entries [C, entry_stride]``
     (from :meth:`DevicePlan.gather_entries`), ``wstack [C, n_w, 2]`` f32,
-    ``stage [C]`` int32."""
+    ``stage [C]`` int32 (the kernel's resume schedule).  ``labels_per_cta``
+    overrides the kernel's run length (default: one run per SM)."""
     if entries.is_cuda:
         return _launch(dp, entries, wstack, stage, labels_per_cta)
     if entries.device.type != "cpu":
         raise ValueError(f"unsupported device {entries.device}")
-    return plain_variant_rows(dp, entries, wstack, stage, labels_per_cta)
+    return plain_variant_rows(dp, entries, wstack)
 
 
 variant_rows.launches = 0
@@ -488,7 +459,6 @@ variant_rows.launches = 0
 def make_folded_chunk_kernel(
     virt: VirtualCircuit, frag_name: str, chunk: int, keep_clbits=None,
     z_clbits=None, staged: bool = True, device=None,
-    labels_per_cta: int | None = None,
 ):
     """``(rows_fn, kept_positions)``: ``rows_fn(vidx_chunk)`` maps a
     ``[chunk, num_vgates]`` block of per-label variant indices (global
@@ -538,7 +508,7 @@ def make_folded_chunk_kernel(
             wstack = torch.ones((vidx_chunk.shape[0], 1, 2),
                                 dtype=torch.float32, device=dev)
         return variant_rows(dp, dp.gather_entries(vidx_chunk), wstack,
-                            dp.stages(vidx_chunk), labels_per_cta)
+                            dp.stages(vidx_chunk))
 
     rows_fn.plan = dp
     return rows_fn, kept
@@ -546,7 +516,7 @@ def make_folded_chunk_kernel(
 
 def make_chunk_kernel(
     virt: VirtualCircuit, frag_name: str, chunk: int, staged: bool = True,
-    device=None, labels_per_cta: int | None = None,
+    device=None,
 ):
     """``(rows_fn, positions)``: ``rows_fn(vidx_chunk)`` maps a ``[chunk,
     num_vgates]`` label block to full-width kernel rows marginalised onto
@@ -564,7 +534,7 @@ def make_chunk_kernel(
         c = vidx_chunk.shape[0]
         ones = torch.ones((c, 1, 2), dtype=torch.float32, device=dev)
         rows = variant_rows(dp, dp.gather_entries(vidx_chunk), ones,
-                            dp.stages(vidx_chunk), labels_per_cta)
+                            dp.stages(vidx_chunk))
         return marginalize_flat(rows, plan.n, sources)
 
     rows_fn.plan = dp
@@ -576,16 +546,20 @@ def make_chunk_kernel(
 # ---------------------------------------------------------------------------
 
 def effective_stages(stage: np.ndarray, labels_per_cta: int) -> np.ndarray:
-    """The stages the kernel runs: the given ones, with the first label of
-    every block's run forced to 0."""
+    """The stages the CUDA kernel runs: the given ones, with the first
+    label of every block's run forced to 0 (the function itself needs a
+    full replay only at row 0, where the stage array already says 0)."""
     s = np.asarray(stage, np.int64).copy()
     s[::labels_per_cta] = 0
     return s
 
 
-def work_counts(plan: VariantPlan, stage_eff: np.ndarray, n_w: int) -> dict:
-    """Work of one chunk with these effective stages (data-dependent: only
-    the replayed segments count).
+def work_counts(plan: VariantPlan, stage: np.ndarray, n_w: int) -> dict:
+    """Work of one chunk replayed from these stages (data-dependent: only
+    the replayed segments count).  The function's own stage array
+    (:meth:`DevicePlan.stages`) gives the roofline work;
+    :func:`effective_stages` gives what the CUDA kernel's per-block runs
+    replay.
 
     ``bytes``/``flops`` define the roofline bound: the bytes the function
     must move (each input read once, each output written once) and the
@@ -595,7 +569,7 @@ def work_counts(plan: VariantPlan, stage_eff: np.ndarray, n_w: int) -> dict:
     is the state traffic this design adds on top: every replayed gate
     reads and writes the ``[2, 2^n]`` f32 state once, the epilogue reads
     it once."""
-    c = len(stage_eff)
+    c = len(stage)
     big = 1 << plan.n
     is_1q = plan.ops[:, 0] == 1 if len(plan.ops) else np.zeros(0, bool)
     per_op = np.where(is_1q, 14, 30) * big
@@ -606,7 +580,7 @@ def work_counts(plan: VariantPlan, stage_eff: np.ndarray, n_w: int) -> dict:
         return np.cumsum(xs[::-1])[::-1].tolist() + [0]
 
     cost_tail, ops_tail = tail(seg_cost), tail(seg_ops)
-    idx = [min(int(s), len(seg_cost)) for s in stage_eff]
+    idx = [min(int(s), len(seg_cost)) for s in stage]
     gate_flops = sum(cost_tail[i] for i in idx)
     gate_passes = sum(ops_tail[i] for i in idx)
     epi = (3 + len(plan.fold[0]) + 2 if plan.fold is not None else 3) * big

@@ -1,10 +1,10 @@
 """The torch port's variant kernel, plain version, against the JAX Pallas
 kernel (ops/pallas_variant.py, interpret mode on the CPU).
 
-On the CPU the port's wrapper runs its plain PyTorch version, which keeps
-the CUDA kernel's schedule: contiguous per-block label runs with their own
-checkpoints, the first label of every run replayed in full.  Tolerance
-2e-6, the JAX kernel tests' own (f32, different summation order)."""
+On the CPU the port's wrapper runs its plain PyTorch version, which
+replays every label in full; the CUDA kernel's staged schedule is held to
+it on the card (test_torch_kernel_cuda.py).  Tolerance 2e-6, the JAX
+kernel tests' own (f32, different summation order)."""
 import numpy as np
 import pytest
 import torch
@@ -30,7 +30,7 @@ def _rows_both(jvirt, tvirt, name, chunk, rows_of, **kw):
         jvirt, name, chunk, interpret=True, staged=False, **kw
     )
     t_fn, t_pos = vk.make_folded_chunk_kernel(
-        tvirt, name, chunk, device="cpu", labels_per_cta=3, **kw
+        tvirt, name, chunk, device="cpu", **kw
     )
     assert t_pos == j_pos
     vidx, total, padded = label_table(tvirt, chunk)
@@ -72,66 +72,54 @@ def test_folded_kernel_sup_fragment_rows():
 
 
 @pytest.mark.parametrize("order", ["natural", "shuffled"])
-@pytest.mark.parametrize("labels_per_cta", [1, 3, 8])
-def test_folded_kernel_staged_matches_unstaged_any_order(order,
-                                                         labels_per_cta):
-    """Staged checkpoints are exact for any label order and any block
-    split: runs of 3 start mid-chunk (rows 3 and 6 of every chunk of 8),
-    where the per-label stage array says "resume" but the block has no
-    checkpoint yet (mirrors test_folded_kernel_staged_matches_unstaged_
-    any_order)."""
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+def test_folded_kernel_staged_matches_unstaged_any_order(order, chunk):
+    """The port's staged and unstaged plans give the JAX staged kernel's
+    rows for any label order and any chunk split: chunks of 1 and 3 start
+    where the stage array would otherwise say "resume", and the JAX kernel
+    forces a full replay there (mirrors test_folded_kernel_staged_matches_
+    unstaged_any_order).  The CUDA kernel's own block runs are held to the
+    plain version in test_torch_kernel_cuda.py."""
     import jax.numpy as jnp
 
     jvirt, tvirt = chain_cut_pair(8)
-    chunk = 8
     j_fn, _ = j_make_folded_chunk_kernel(jvirt, "frag0", chunk,
-                                         interpret=True, staged=False)
-    s_fn, _ = vk.make_folded_chunk_kernel(
-        tvirt, "frag0", chunk, device="cpu", labels_per_cta=labels_per_cta
-    )
-    u_fn, _ = vk.make_folded_chunk_kernel(
-        tvirt, "frag0", chunk, device="cpu", staged=False,
-        labels_per_cta=labels_per_cta,
-    )
+                                         interpret=True, staged=True)
+    s_fn, _ = vk.make_folded_chunk_kernel(tvirt, "frag0", chunk,
+                                          device="cpu")
+    u_fn, _ = vk.make_folded_chunk_kernel(tvirt, "frag0", chunk,
+                                          device="cpu", staged=False)
     assert s_fn.plan.plan.staged and len(s_fn.plan.plan.segments) == 2
     vidx, total, padded = label_table(tvirt, chunk)
     arr = vidx if order == "natural" else shuffled(vidx, total, 7)
-    saw_resume_at_run_start = False
     for c0 in range(0, padded, chunk):
         blk = torch.as_tensor(arr[c0:c0 + chunk], dtype=torch.int64)
-        stage = s_fn.plan.stages(blk).numpy()
-        saw_resume_at_run_start |= bool(
-            (stage[labels_per_cta::labels_per_cta] > 0).any()
-        )
+        assert s_fn.plan.stages(blk)[0].item() == 0
         want = np.asarray(j_fn(jnp.asarray(arr[c0:c0 + chunk])))
         np.testing.assert_allclose(s_fn(blk).numpy(), want, atol=ATOL)
         np.testing.assert_allclose(u_fn(blk).numpy(), want, atol=ATOL)
-    if labels_per_cta < chunk:
-        assert saw_resume_at_run_start
 
 
 def test_forced_full_replay_at_run_start_is_needed():
-    """A run starting mid-chunk (row 3 of 8 with runs of 3) has no
-    checkpoints yet although the stage array says "resume": its effective
-    stage is 0, and the staged rows equal a full replay and a single run
-    over the whole chunk."""
-    jvirt, tvirt = chain_cut_pair(8)
-    fn, _ = vk.make_folded_chunk_kernel(tvirt, "frag0", 8, device="cpu",
-                                        labels_per_cta=3)
+    """A CUDA block's run that starts mid-chunk (rows 3 and 6 of 8 with
+    runs of 3) has no checkpoints although the stage array says "resume":
+    effective_stages forces those rows to 0, at a cost in replayed work
+    over the function's own stage array (which needs a full replay only
+    at row 0)."""
+    _, tvirt = chain_cut_pair(8)
+    fn, _ = vk.make_folded_chunk_kernel(tvirt, "frag0", 8, device="cpu")
     dp = fn.plan
-    vidx, total, _ = label_table(tvirt, 8)
-    blk = torch.as_tensor(shuffled(vidx, total, 7)[:8], dtype=torch.int64)
-    ent = dp.gather_entries(blk)
-    ws = torch.ones((8, 2, 2))
-    stage = dp.stages(blk)
-    good = vk.plain_variant_rows(dp, ent, ws, stage, labels_per_cta=3)
-    full = vk.plain_variant_rows(dp, ent, ws, torch.zeros_like(stage),
-                                 labels_per_cta=3)
-    np.testing.assert_allclose(good.numpy(), full.numpy(), atol=ATOL)
-    # one run over the chunk + the stage array as given == the reference
-    one = vk.plain_variant_rows(dp, ent, ws, stage, labels_per_cta=8)
-    np.testing.assert_allclose(one.numpy(), full.numpy(), atol=ATOL)
-    assert vk.effective_stages(stage.numpy(), 3)[3] == 0
+    vidx, _, _ = label_table(tvirt, 8)
+    stage = dp.stages(torch.as_tensor(vidx[:8], dtype=torch.int64)).numpy()
+    assert stage[0] == 0 and stage[3] > 0
+    eff = vk.effective_stages(stage, 3)
+    assert (eff[[0, 3, 6]] == 0).all()
+    assert (eff[[1, 2, 4, 5, 7]] == stage[[1, 2, 4, 5, 7]]).all()
+    own = vk.work_counts(dp.plan, stage, 2)
+    kern = vk.work_counts(dp.plan, eff, 2)
+    assert kern["flops"] > own["flops"]
+    assert kern["pass_bytes"] > own["pass_bytes"]
+    assert kern["bytes"] == own["bytes"]
 
 
 @pytest.mark.parametrize("staged", [True, False])
@@ -146,7 +134,7 @@ def test_chunk_kernel_rows_match_jax(staged):
     j_fn, j_pos = j_make_chunk_kernel(jvirt, "frag0", chunk, interpret=True,
                                       staged=False)
     t_fn, t_pos = vk.make_chunk_kernel(tvirt, "frag0", chunk, device="cpu",
-                                       staged=staged, labels_per_cta=3)
+                                       staged=staged)
     assert t_pos == j_pos
     vidx, total, padded = label_table(tvirt, chunk)
     arr = shuffled(vidx, total, 3)
