@@ -7,12 +7,16 @@ JAX package: the host layers it needs are its own copies.
 
 Layers (this slice: the ``engine="pallas"`` exact path):
   circuit/   — typed circuit IR + gate library
-  models/    — supremacy and GHZ generators
+  models/    — supremacy, Sycamore, hardware-efficient-ansatz and GHZ
+               generators
   cutter/    — optimal joint wire+gate cut search (pure-Python solver) and
                the rewrite into fragments
   virt/      — QPD virtual-gate tables and fragment bookkeeping
-  ops/       — the variant kernel (csrc/variant_kernel.cu) and its plain
-               PyTorch version, the streamed label scan, the uncut oracle
+  plans/     — stored cut plans (solve once, cut many)
+  ops/       — the variant kernel (csrc/variant_kernel.cu, fragments of up
+               to 20 qubits) and the segmented blocked kernel
+               (csrc/blocked_kernel.cu, 21..24 qubits), each with its plain
+               PyTorch version; the streamed label scan; the uncut oracle
   run.py, evaluate.py — the entry point and the fidelity harness
   convert.py — circuits across packages, tables onto devices
 

@@ -1,10 +1,12 @@
-"""Benchmark circuit zoo facade: the supremacy and GHZ generators.
+"""Benchmark circuit zoo facade: the supremacy, Sycamore, hardware-
+efficient-ansatz and GHZ generators.
 
 Behavioral port of benchmarks/helper_functions.py's ``generate_circ``
-(supremacy branch, with the connectivity retry loop) and ``genCirc``
-(short names ``sup`` and ``ghz``).  The other generators are not ported
-yet (ROADMAP H100 port, queue A, "other zoo generators"); this module
-imports no graph library, so it loads where ``networkx`` is absent.
+(supremacy, sycamore and hwea branches, with the connectivity retry loop)
+and ``genCirc`` (short names ``sup``, ``syc``, ``hwe`` and ``ghz``).  The
+other generators are not ported yet (ROADMAP H100 port, queue A, "other
+zoo generators"); this module imports no graph library, so it loads where
+``networkx`` is absent.
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ import numpy as np
 
 from ..circuit.circuit import Circuit
 from ..utils.logger import get_logger
+from .hwea import gen_hwea
 from .supremacy import gen_supremacy
+from .sycamore import gen_sycamore
 
 _NOT_PORTED = (
     "is not ported to the torch package yet: ROADMAP H100 port, queue A, "
@@ -41,8 +45,9 @@ def generate_circ(
     connected_only: bool = False,
     seed=None,
 ) -> Circuit | None:
-    """helper_functions.generate_circ parity (66-127), supremacy only."""
-    if circuit_type != "supremacy":
+    """helper_functions.generate_circ parity (66-127): the supremacy,
+    sycamore and hwea branches."""
+    if circuit_type not in ("supremacy", "sycamore", "hwea"):
         raise NotImplementedError(f"circuit type {circuit_type!r} {_NOT_PORTED}")
     random.seed(seed)
     if seed is not None:
@@ -50,9 +55,15 @@ def generate_circ(
     full_circ = None
     num_trials = 100
     while num_trials:
-        i, j = factor_int(num_qubits)
-        if abs(i - j) <= 2:
-            full_circ = gen_supremacy(i, j, depth * 8, regname=reg_name)
+        if circuit_type == "supremacy":
+            i, j = factor_int(num_qubits)
+            if abs(i - j) <= 2:
+                full_circ = gen_supremacy(i, j, depth * 8, regname=reg_name)
+        elif circuit_type == "sycamore":
+            i, j = factor_int(num_qubits)
+            full_circ = gen_sycamore(i, j, depth, regname=reg_name)
+        else:
+            full_circ = gen_hwea(num_qubits, depth, regname=reg_name)
 
         if full_circ is not None and full_circ.num_tensor_factors() == 1:
             break
@@ -78,16 +89,19 @@ def generate_ghz(n_qubits: int) -> Circuit:
 
 def genCirc(circ_name: str, n_qubits: int, depth: int,
             seed=None) -> Circuit:
-    """Reference benchmark.py's genCirc dispatch for ``sup`` and ``ghz``.
-    ``seed`` pins the generator RNG for reproducible instances."""
+    """Reference benchmark.py's genCirc dispatch for ``sup``, ``syc``,
+    ``hwe`` and ``ghz``.  ``seed`` pins the generator RNG for reproducible
+    instances."""
     log = get_logger(__name__)
     if seed is not None:
         random.seed(seed)
-    if circ_name == "sup":
-        circ = generate_circ(n_qubits, depth, "supremacy", seed=seed)
+    kinds = {"sup": "supremacy", "syc": "sycamore", "hwe": "hwea"}
+    if circ_name in kinds:
+        kind = kinds[circ_name]
+        circ = generate_circ(n_qubits, depth, kind, seed=seed)
         if circ is None:
             raise ValueError(
-                f"supremacy generator cannot realize n_qubits={n_qubits} "
+                f"{kind} generator cannot realize n_qubits={n_qubits} "
                 f"depth={depth}"
             )
         circ.measure_all()

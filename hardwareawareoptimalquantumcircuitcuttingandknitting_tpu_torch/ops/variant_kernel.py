@@ -28,13 +28,7 @@ written at the top of the CUDA source.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,6 +36,7 @@ import torch
 
 from ..convert import resolve_device, to_device
 from ..virt.virtual_circuit import VirtualCircuit
+from .kernel_build import KernelLibrary, check_tensor
 from .statevector import apply_matrix_host, apply_slices, marginalize_flat
 from .variant_engine import _slot_tables, _fuse_slot_ops
 
@@ -50,12 +45,10 @@ from .variant_engine import _slot_tables, _fuse_slot_ops
 # not on-chip memory.  Wider fragments need the segmented blocked kernel.
 MAX_QUBITS = 20
 _BLOCKED_ITEM = (
-    "ROADMAP H100 port, queue B, kernel 4 (ops/pallas_blocked.py "
-    "segmented blocked kernel)"
+    "the segmented blocked kernel serves 21..24 qubits "
+    "(ops/blocked_kernel.make_blocked_chunk_kernel; ROADMAP H100 port, "
+    "queue B, kernel 4)"
 )
-
-_CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-_BUILD = pathlib.Path(__file__).resolve().parent.parent.parent / "build"
 
 
 def _to_complex(block: np.ndarray) -> np.ndarray:
@@ -83,15 +76,75 @@ def _plan_ops(virt: VirtualCircuit, frag_name: str):
     return ops[:first], ops[first:], prog
 
 
+class OpTable:
+    """Accumulates a kernel's op table: rows ``(nq, ja, jb, coef)`` over
+    flat bits (``ja`` = the gate-index MSB), the fixed-coefficient pool
+    and the per-slot entry tables.  ``coef >= 0`` is an offset into the
+    pool (re ``[m*m]`` then im ``[m*m]``), ``coef < 0`` is ``-1 -
+    offset`` into the label's entry row (the concatenated per-slot ``[2,
+    m, m]`` entries).  One table format serves every circuit, so one
+    build of a kernel does too."""
+
+    def __init__(self, prog, specs):
+        self._prog = prog
+        self._fused_tabs = _slot_tables(prog, specs, fused=True)
+        self.ops: list = []
+        self.fixed: list = []
+        self.entry_tables: list = []   # per slot [nI, 2*m*m] float32
+        self.entry_gids: list = []     # per slot: global vgate id
+        self.entry_stride = 0          # floats per label entry row
+        self.slot_rows: list = []      # op rows that are slots
+
+    def add(self, op, js) -> None:
+        """Append ``("u", complex mat, axes)`` or ``("slot", slot_id,
+        axes)`` acting on flat bits ``js``."""
+        if len(js) not in (1, 2):
+            raise NotImplementedError(
+                f"{len(js)}-qubit op in the fused suffix: the kernels "
+                "apply 1q and 2q gates only"
+            )
+        ja, jb = js[0], (js[1] if len(js) == 2 else 0)
+        if op[0] == "u":
+            mat = np.asarray(op[1], complex)
+            coef = len(self.fixed)
+            self.fixed.extend(mat.real.astype(np.float32).ravel())
+            self.fixed.extend(mat.imag.astype(np.float32).ravel())
+        else:
+            self.slot_rows.append(len(self.ops))
+            tab = self._fused_tabs[op[1]][0]  # [nI, 2, m, 2, m] real blocks
+            cx = np.stack([_to_complex(t) for t in tab])  # [nI, m, m]
+            ent = np.stack([cx.real, cx.imag], axis=1).astype(np.float32)
+            self.entry_tables.append(ent.reshape(ent.shape[0], -1))
+            self.entry_gids.append(self._prog.slots[op[1]].vgate_idx)
+            coef = -1 - self.entry_stride
+            self.entry_stride += self.entry_tables[-1].shape[1]
+        self.ops.append((len(js), ja, jb, coef))
+
+    def ops_array(self) -> np.ndarray:
+        return np.asarray(self.ops, np.int32).reshape(-1, 4)
+
+    def fixed_array(self) -> np.ndarray:
+        return np.asarray(self.fixed, np.float32)
+
+
+def gather_slot_entries(entry_tables, entry_gids, vidx_chunk):
+    """``[C, entry_stride]`` per-label slot entries for a ``[C,
+    num_vgates]`` block of variant indices (global vgate columns), from
+    per-slot device tables; ``[C, 1]`` zeros when there is no slot."""
+    if not entry_tables:
+        return torch.zeros((vidx_chunk.shape[0], 1), dtype=torch.float32,
+                           device=vidx_chunk.device)
+    return torch.cat([
+        tab[vidx_chunk[:, gid]] for tab, gid in zip(entry_tables, entry_gids)
+    ], dim=1).contiguous()
+
+
 @dataclass
 class VariantPlan:
     """Host build of one fragment's kernel (the JAX ``_build_call``).
 
-    ``ops`` rows are ``(nq, ja, jb, coef)`` over FLAT bits (``ja`` = the
-    gate-index MSB): ``coef >= 0`` is an offset into ``fixed``,
-    ``coef < 0`` is ``-1 - offset`` into the label's entry row (the
-    concatenated per-slot ``[2, m, m]`` entries, re block then im
-    block).  ``segments`` are op ranges: one per slot when staged, else
+    ``ops``, ``fixed`` and the entry tables are an :class:`OpTable`'s.
+    ``segments`` are op ranges: one per slot when staged, else
     one covering the whole suffix (none when the fragment has no slot).
     ``fold`` is None (full rows) or ``(wbits, zmask, d)``."""
 
@@ -163,33 +216,10 @@ def build_plan(virt: VirtualCircuit, frag_name: str, fold=None,
             st, op[1], tuple(n - 1 - flat_of_q[q] for q in op[2]), n
         )
 
-    fused_tabs = _slot_tables(prog, specs, fused=True)
-    ops, fixed = [], []
-    entry_tables, entry_gids, seg_starts = [], [], []
-    entry_off = 0
-    for i, op in enumerate(suffix):
-        js = [flat_of_q[q] for q in op[2]]
-        if len(js) not in (1, 2):
-            raise NotImplementedError(
-                f"{len(js)}-qubit op in the fused suffix: the variant kernel "
-                "applies 1q and 2q gates only"
-            )
-        ja, jb = js[0], (js[1] if len(js) == 2 else 0)
-        if op[0] == "u":
-            mat = np.asarray(op[1], complex)
-            coef = len(fixed)
-            fixed.extend(mat.real.astype(np.float32).ravel())
-            fixed.extend(mat.imag.astype(np.float32).ravel())
-        else:
-            seg_starts.append(i)
-            tab = fused_tabs[op[1]][0]  # [nI, 2, m, 2, m] real blocks
-            cx = np.stack([_to_complex(t) for t in tab])  # [nI, m, m]
-            ent = np.stack([cx.real, cx.imag], axis=1).astype(np.float32)
-            entry_tables.append(ent.reshape(ent.shape[0], -1))
-            entry_gids.append(prog.slots[op[1]].vgate_idx)
-            coef = -1 - entry_off
-            entry_off += entry_tables[-1].shape[1]
-        ops.append((len(js), ja, jb, coef))
+    table = OpTable(prog, specs)
+    for op in suffix:
+        table.add(op, [flat_of_q[q] for q in op[2]])
+    ops, seg_starts = table.ops, table.slot_rows
 
     assert not seg_starts or seg_starts[0] == 0, "suffix must start at a slot"
     if not seg_starts:
@@ -200,11 +230,10 @@ def build_plan(virt: VirtualCircuit, frag_name: str, fold=None,
         segments = [(0, len(ops))]
     return VariantPlan(
         n=n, prefix=st,
-        ops=np.asarray(ops, np.int32).reshape(-1, 4),
-        fixed=np.asarray(fixed, np.float32),
-        segments=segments, entry_tables=entry_tables,
-        entry_gids=entry_gids, entry_stride=entry_off, fold=fold_desc,
-        staged=staged,
+        ops=table.ops_array(), fixed=table.fixed_array(),
+        segments=segments, entry_tables=table.entry_tables,
+        entry_gids=table.entry_gids, entry_stride=table.entry_stride,
+        fold=fold_desc, staged=staged,
     )
 
 
@@ -233,14 +262,8 @@ class DevicePlan:
     def gather_entries(self, vidx_chunk: torch.Tensor) -> torch.Tensor:
         """``[C, entry_stride]`` per-label slot entries for a ``[C,
         num_vgates]`` block of variant indices (global vgate columns)."""
-        c = vidx_chunk.shape[0]
-        if not self.entry_tables:
-            return torch.zeros((c, 1), dtype=torch.float32,
-                               device=self.device)
-        return torch.cat([
-            tab[vidx_chunk[:, gid]]
-            for tab, gid in zip(self.entry_tables, self.plan.entry_gids)
-        ], dim=1).contiguous()
+        return gather_slot_entries(self.entry_tables, self.plan.entry_gids,
+                                   vidx_chunk)
 
     def stages(self, vidx_chunk: torch.Tensor) -> torch.Tensor:
         """Per-label resume stage: the first chain-order slot whose variant
@@ -265,15 +288,15 @@ class DevicePlan:
 # The plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _apply_op_plain(state, row, dp: DevicePlan, entries):
+def apply_op_plain(state, row, n: int, fixed: np.ndarray, entries):
+    """One op-table row applied to ``state [B, 2, 2^n]`` with
+    ``apply_slices`` (flat bit j is qubit n-1-j)."""
     nq, ja, jb, coef = (int(v) for v in row)
-    plan = dp.plan
-    n = plan.n
     m = 1 << nq
     js = (ja, jb)[:nq]
     axes = tuple(n - 1 - j for j in js)  # flat bit j <-> qubit n-1-j
     if coef >= 0:
-        blk = plan.fixed[coef:coef + 2 * m * m]
+        blk = fixed[coef:coef + 2 * m * m]
         ur = lambda r, c: float(blk[r * m + c])  # noqa: E731
         ui = lambda r, c: float(blk[m * m + r * m + c])  # noqa: E731
     else:
@@ -320,7 +343,7 @@ def plain_variant_rows(dp: DevicePlan, entries, wstack) -> torch.Tensor:
     c = entries.shape[0]
     st = dp.prefix.to(entries.device).expand(c, 2, 1 << plan.n)
     for row in plan.ops:
-        st = _apply_op_plain(st, row, dp, entries)
+        st = apply_op_plain(st, row, plan.n, plan.fixed, entries)
     return _epilogue_plain(st, wstack, dp)
 
 
@@ -328,49 +351,16 @@ def plain_variant_rows(dp: DevicePlan, entries, wstack) -> torch.Tensor:
 # The CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
-class _Library:
-    """The built shared library and its ptxas report (built once per
-    process, at first launch)."""
-
-    lib = None
-    log = ""
-    path = None
-
-
-def build_library():
-    """Build ``csrc/variant_kernel.cu`` with ``nvcc`` for ``sm_90a`` into
-    ``build/`` (named by the source's hash, so an edit rebuilds) and load
-    it.  Returns the ``ctypes`` library."""
-    if _Library.lib is not None:
-        return _Library.lib
-    src = _CSRC / "variant_kernel.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    so = _BUILD / f"libvariant_kernel_{digest}.so"
-    if not so.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-        os.close(fd)
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, str(src)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}"
-            )
-        os.replace(tmp, so)
-        _Library.log = res.stdout + res.stderr
-    lib = ctypes.CDLL(str(so))
+def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.variant_rows_launch.argtypes = [p] * 10 + [i] * 11 + [p]
     lib.variant_rows_launch.restype = i
-    lib.variant_kernel_error_string.argtypes = [i]
-    lib.variant_kernel_error_string.restype = ctypes.c_char_p
     lib.variant_kernel_max_weights.restype = i
-    _Library.lib, _Library.path = lib, so
-    return lib
+
+
+# csrc/variant_kernel.cu, built for sm_90a at first launch
+LIBRARY = KernelLibrary("variant_kernel", _bind,
+                        "variant_kernel_error_string")
 
 
 def default_labels_per_cta(c: int, device) -> int:
@@ -380,29 +370,17 @@ def default_labels_per_cta(c: int, device) -> int:
     return max(1, math.ceil(c / sms))
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def _launch(dp: DevicePlan, entries, wstack, stage, labels_per_cta):
-    lib = build_library()
+    lib = LIBRARY.load()
     plan = dp.plan
     dev = entries.device
     c = entries.shape[0]
     n_w = wstack.shape[1]
     n_wbits = len(plan.fold[0]) if plan.fold is not None else 0
-    _check(entries, "entries", torch.float32,
-           (c, max(1, plan.entry_stride)), dev)
-    _check(wstack, "wstack", torch.float32, (c, n_w, 2), dev)
-    _check(stage, "stage", torch.int32, (c,), dev)
+    check_tensor(entries, "entries", torch.float32,
+                 (c, max(1, plan.entry_stride)), dev)
+    check_tensor(wstack, "wstack", torch.float32, (c, n_w, 2), dev)
+    check_tensor(stage, "stage", torch.int32, (c,), dev)
     for name in ("prefix", "ops", "fixed", "seg_start", "wbits"):
         if getattr(dp, name).device != dev:
             raise ValueError(f"plan table {name} is not on {dev}")
@@ -427,8 +405,7 @@ def _launch(dp: DevicePlan, entries, wstack, stage, labels_per_cta):
     )
     if rc != 0:
         raise RuntimeError(
-            "variant kernel launch failed: "
-            + lib.variant_kernel_error_string(rc).decode()
+            "variant kernel launch failed: " + LIBRARY.error_text(rc)
         )
     variant_rows.launches += 1
     return out
@@ -469,11 +446,14 @@ def make_folded_chunk_kernel(
     set, ``z_clbits`` contracts every data bit ((+1, -1) on the support,
     summed elsewhere; kept is then []).  Output bit j carries
     ``kept_positions[j]`` (little-endian, ascending).  ``rows_fn.plan`` is
-    the :class:`DevicePlan`."""
+    the :class:`DevicePlan`.  Returns None past the kernel's width gate
+    (``MAX_QUBITS``), where the blocked kernel takes over."""
     from .knit import fold_weights
 
     dev = resolve_device(device)
     prog = virt.programs[frag_name]
+    if prog.num_sim_qubits > MAX_QUBITS:
+        return None
     positions = sorted(prog.clbit_sources)
     frag_weights = fold_weights(virt, frag_name)
     w_entries = []
@@ -522,8 +502,10 @@ def make_chunk_kernel(
     num_vgates]`` label block to full-width kernel rows marginalised onto
     the written clbits, ``[chunk, 2^len(positions)]`` (the JAX
     ``make_chunk_kernel`` row contract).  ``rows_fn.plan`` is the
-    :class:`DevicePlan`."""
+    :class:`DevicePlan`.  Returns None past the kernel's width gate."""
     dev = resolve_device(device)
+    if virt.programs[frag_name].num_sim_qubits > MAX_QUBITS:
+        return None
     plan = build_plan(virt, frag_name, staged=staged)
     dp = DevicePlan(plan, dev)
     prog = virt.programs[frag_name]

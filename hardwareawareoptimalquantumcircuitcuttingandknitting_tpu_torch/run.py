@@ -2,7 +2,13 @@
 
 Port of the JAX package's ``run.run_virtual_circuit`` for
 ``engine="pallas"``: the streamed label scan with every fragment's rows
-from the variant kernel (ops/variant_kernel.py), exact (``shots=None``).
+from a hand-written kernel, exact (``shots=None``).  Fragments of up to 20
+simulated qubits run the fold-fused variant kernel
+(ops/variant_kernel.py), 21..24 qubits the segmented blocked kernel
+(ops/blocked_kernel.py); past 24 the call raises naming the sharded
+engine's ROADMAP item.  At widths where the full distribution cannot
+exist (2^40 outcomes), ask for a marginal (``keep_clbits``) or use
+``ops.streamed.streamed_expectation_z``.
 """
 from __future__ import annotations
 
@@ -45,11 +51,12 @@ def run_virtual_circuit(
     """Simulate every QPD label of every fragment, knit and (``project``)
     project onto the simplex.  ``engine="pallas"`` is the only engine of
     this package (the JAX package's default is "auto"): the streamed scan
-    over global label chunks of ``chunk_size``, every fragment's rows from
-    the variant kernel with the fold in-kernel, so sim and knit fuse and
-    ``RunTimeInfo.knit_time`` is 0.  ``keep_clbits``: marginal knit.
-    ``device``: None = "cuda" (raises without a card); "cpu" runs the
-    kernel's plain PyTorch version.  ``run_time`` ends after the result
+    over global label chunks of ``chunk_size`` (capped by the widest
+    fragment's state size), every fragment's rows from its kernel and
+    folded per chunk, so sim and knit fuse and ``RunTimeInfo.knit_time``
+    is 0.  ``keep_clbits``: marginal knit.  ``device``: None = "cuda"
+    (raises without a card); "cpu" runs the kernels' plain PyTorch
+    versions.  ``run_time`` ends after the result
     reached the host."""
     if engine in _NOT_PORTED:
         raise NotImplementedError(

@@ -182,7 +182,7 @@ def test_port_refuses_what_it_does_not_carry():
     """Unported generators, qasm and gamma mode say which ROADMAP item
     ports them."""
     with pytest.raises(NotImplementedError, match="zoo generators"):
-        t_gen_circ("hwe", 8, 1)
+        t_gen_circ("aqft", 8, 1)
     circ = t_gen_circ("ghz", 4, 1)
     with pytest.raises(NotImplementedError, match="qasm"):
         circ.to_qasm()

@@ -65,3 +65,44 @@ def test_port_has_no_networkx_dependency():
         if any(n.split(".")[0] == "networkx" for n in _imported_names(p))
     ]
     assert not offending, offending
+
+
+def test_stored_plans_load_without_jax():
+    """The package's stored cut plans (JSON beside ``plans/__init__.py``)
+    load through the port's own loader, in a process that never imports
+    JAX or the JAX package."""
+    code = (
+        "import sys\n"
+        f"from {PORT}.plans import load_plan, stored_plans\n"
+        "names = stored_plans()\n"
+        "assert 'hwe40_d2_p2_q21' in names, names\n"
+        "for n in names:\n"
+        "    plan = load_plan(n)\n"
+        "    assert plan.num_partitions >= 2 and plan.cuts, n\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') "
+        f"or m == {JAX_PKG!r} or m.startswith({JAX_PKG + '.'!r}))\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_kernel_libraries_build_nothing_at_import():
+    """Every CUDA source the port binds exists in the checkout, and
+    importing the modules starts no compiler and loads no library."""
+    code = (
+        "import subprocess\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a process was started at import')\n"
+        "subprocess.Popen = subprocess.run = refuse\n"
+        f"from {PORT}.ops import blocked_kernel, variant_kernel\n"
+        "for mod in (blocked_kernel, variant_kernel):\n"
+        "    lib = mod.LIBRARY\n"
+        "    assert lib.source.is_file(), lib.source\n"
+        "    assert lib.lib is None and lib.path is None\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr

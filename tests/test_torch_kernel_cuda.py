@@ -1,4 +1,4 @@
-"""The variant kernel on the card against its plain PyTorch version.
+"""The CUDA kernels on the card against their plain PyTorch versions.
 
 This file imports only the torch port (no JAX), so it also runs on the
 card's machine: ``python -m pytest -m cuda tests/test_torch_kernel_cuda.py``.
@@ -14,6 +14,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.circuit.circ
     Register,
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+    blocked_kernel as bk,
     variant_kernel as vk,
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.variant_engine import (  # noqa: E501
@@ -94,3 +95,70 @@ def test_kernel_matches_plain_on_card(card, epilogue, staged, span):
     torch.cuda.synchronize()
     assert vk.variant_rows.launches == before + 1
     assert (got - want).abs().max().item() <= TOL
+
+
+def _deep_chain(nbig: int = 14):
+    """A 16-qubit fragment whose suffix is long: entangling layers after
+    each of two cuts, so small windows give many segments."""
+    cut = Circuit([Register("frag0", nbig), Register("frag1", 2)], nbig + 2)
+    cut.h(0)
+    for i in range(nbig - 1):
+        cut.cx(i, i + 1)
+    cut.append(Instruction("vgate", [nbig - 1, nbig],
+                           op=VirtualGateOp("cz")))
+    for i in range(nbig - 1):
+        cut.ry(0.3 + 0.05 * i, i)
+        cut.cx(i, i + 1)
+    cut.append(Instruction("vgate", [0, nbig],
+                           op=VirtualGateOp("cp", params=(0.7,))))
+    for i in range(0, nbig - 2, 2):
+        cut.cz(i, i + 2)
+        cut.rx(0.2 + 0.1 * i, i + 1)
+    cut.cx(nbig, nbig + 1)
+    for q in range(nbig + 2):
+        cut.measure(q, q)
+    return VirtualCircuit(cut)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [8, 13, 14])
+@pytest.mark.parametrize("labels", [1, 3, 36])
+def test_blocked_kernel_matches_plain_on_card(card, window, labels):
+    """Every segment launch counted; rows against the plain version and,
+    marginalised, against the variant kernel's rows."""
+    virt = _deep_chain()
+    assert virt.programs["frag0"].num_sim_qubits >= 15
+    blk = _block(virt, labels, 2).to(card)
+    fn, pos = bk.make_blocked_chunk_kernel(virt, "frag0", labels,
+                                           window=window, force=True,
+                                           device=card)
+    dp = fn.plan
+    assert dp.plan.w == window
+    if window == 8:
+        assert len(dp.plan.segments) >= 3
+    ent = dp.gather_entries(blk)
+    before = bk.blocked_rows.launches
+    got = bk.blocked_rows(dp, ent)
+    torch.cuda.synchronize()
+    assert bk.blocked_rows.launches == before + len(dp.plan.segments)
+    want = bk.plain_blocked_rows(dp, ent)
+    assert (got - want).abs().max().item() <= TOL
+    v_fn, v_pos = vk.make_chunk_kernel(virt, "frag0", labels, device=card)
+    assert v_pos == pos
+    assert (fn(blk) - v_fn(blk)).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+def test_blocked_kernel_refuses_a_wrong_state(card):
+    """On a CUDA tensor the wrapper launches or raises: a state of the
+    wrong shape is refused before any launch."""
+    virt = _deep_chain()
+    fn, _ = bk.make_blocked_chunk_kernel(virt, "frag0", 3, window=8,
+                                         force=True, device=card)
+    dp = fn.plan
+    ent = dp.gather_entries(_block(virt, 3, 2).to(card))
+    bad = torch.zeros((2, 2, 1 << dp.plan.n), device=card)
+    before = bk.blocked_rows.launches
+    with pytest.raises(ValueError, match="shape"):
+        bk.apply_segment(dp, 0, bad, ent)
+    assert bk.blocked_rows.launches == before

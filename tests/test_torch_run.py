@@ -1,7 +1,9 @@
 """The torch port end to end on the CPU against the JAX package's
 ``engine="pallas"`` (its kernel in interpret mode where a fragment fits
-it), and the uncut oracles against each other.  Distributions within
-1e-6 (f32 sums in another order), fidelity > 1 - 1e-6."""
+it), and the uncut oracles against each other: through the variant
+kernel's route, and with every fragment forced through the segmented
+blocked kernel's route (unfolded rows, folded in torch).  Distributions
+within 1e-6 (f32 sums in another order), fidelity > 1 - 1e-6."""
 import subprocess
 import sys
 
@@ -18,18 +20,49 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.ops.statevector im
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.ops.streamed import (  # noqa: E501
     streamed_expectation_z as j_expectation_z,
 )
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.cutter.cutter import (  # noqa: E501
+    Cutter as JCutter,
+)
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.cutter.solver import (  # noqa: E501
+    plan_signature as j_plan_signature,
+)
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.models.zoo import (  # noqa: E501
+    genCirc as j_gen_circ,
+)
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.run import (
     run_virtual_circuit as j_run,
+)
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.convert import (  # noqa: E501
+    circuit_to_instructions,
+)
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.cutter.cutter import (  # noqa: E501
+    Cutter,
+)
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.cutter.solver import (  # noqa: E501
+    plan_signature,
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.evaluate import (  # noqa: E501
     compare_original_with_cut,
     hellinger_fidelity,
 )
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.models.zoo import (  # noqa: E501
+    genCirc,
+)
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+    blocked_kernel as bk,
+    variant_kernel as vk,
+)
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.statevector import (  # noqa: E501
+    Distribution,
     simulate_circuit,
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.streamed import (  # noqa: E501
     make_streamed_knit,
+    streamed_expectation_z,
+)
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.plans import (  # noqa: E501
+    load_plan,
+    stored_plans,
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.run import (  # noqa: E501
     run_virtual_circuit,
@@ -98,6 +131,158 @@ def test_z_contraction_matches_jax():
     assert abs(float(step(xs).reshape(())) - want) < 1e-6
 
 
+@pytest.fixture
+def narrow_variant_gate(monkeypatch):
+    """The variant kernel's width gate lowered to 6 qubits, so the test
+    circuits' 8..9-qubit fragments take the unforced blocked route."""
+    monkeypatch.setattr(vk, "MAX_QUBITS", 6)
+    monkeypatch.setattr(bk, "MAX_QUBITS", 6)
+
+
+@pytest.mark.parametrize("keep", [None, [0, 3, 5, 10]])
+@pytest.mark.parametrize("window", [4, 6])
+def test_forced_blocked_route_matches_jax(window, keep):
+    """Every fragment through the blocked kernel's route: the full
+    distribution and a marginal against the JAX engine="pallas"."""
+    jc, tc, jv, tv, chunk = _pair("sup12_p2q7")
+    want, _ = j_run(jv, engine="pallas", chunk_size=chunk, keep_clbits=keep,
+                    project=False)
+    step, xs, meta = make_streamed_knit(tv, chunk, keep_clbits=keep,
+                                        device="cpu", blocked_window=window)
+    assert set(meta["fragment_kernels"].values()) == {"blocked"}
+    assert all(meta["pallas_fragments"].values())
+    assert all(len(dp.plan.segments) >= 2
+               for dp in meta["fragment_plans"].values())
+    assert meta["positions"] == want.bit_positions
+    got = Distribution(step(xs).numpy(), meta["positions"], tv.num_clbits)
+    np.testing.assert_allclose(got.values, want.values, atol=1e-6)
+    if keep is None:
+        assert hellinger_fidelity(simulate_circuit(tc, device="cpu"), got) \
+            > 1 - 1e-6
+        assert j_fidelity(j_simulate(jc), got.to_dict()) > 1 - 1e-6
+
+
+def test_width_routing_matches_jax(narrow_variant_gate):
+    """Past the variant kernel's gate the entry point routes to the
+    blocked kernel by itself and says so."""
+    jc, tc, jv, tv, chunk = _pair("sup12_p2q7")
+    want, _ = j_run(jv, engine="pallas", chunk_size=chunk)
+    got, _ = run_virtual_circuit(tv, engine="pallas", chunk_size=chunk,
+                                 device="cpu")
+    np.testing.assert_allclose(got.values, want.values, atol=1e-6)
+    _, _, meta = make_streamed_knit(tv, chunk, device="cpu")
+    assert set(meta["fragment_kernels"].values()) == {"blocked"}
+
+
+def test_past_the_blocked_gate_names_the_sharded_engine(
+        narrow_variant_gate, monkeypatch):
+    monkeypatch.setattr(bk, "MAX_BLOCKED_QUBITS", 7)
+    _, _, _, tv, chunk = _pair("sup12_p2q7")
+    with pytest.raises(NotImplementedError, match="sharded"):
+        run_virtual_circuit(tv, chunk_size=chunk, device="cpu")
+
+
+@pytest.mark.parametrize("route", ["variant", "blocked"])
+def test_streamed_expectation_z_matches_jax(route, request):
+    if route == "blocked":
+        request.getfixturevalue("narrow_variant_gate")
+    jc, tc, jv, tv, chunk = _pair("sup12_p2q7")
+    zc = [1, 4, 9]
+    want = j_expectation_z(jv, zc, chunk=chunk, pallas_variant=True)
+    got = streamed_expectation_z(tv, zc, chunk=chunk, device="cpu")
+    assert abs(got - want) < 1e-6
+    # and equal to the observable of the knitted distribution
+    dist, _ = run_virtual_circuit(tv, chunk_size=chunk, project=False,
+                                  device="cpu")
+    sign = np.ones(len(dist.values))
+    for c in zc:
+        j = dist.bit_positions.index(c)
+        sign *= 1 - 2 * ((np.arange(len(sign)) >> j) & 1)
+    assert abs(got - float(np.sum(dist.values * sign))) < 1e-6
+
+
+def test_streamed_expectation_z_rejects_unmeasured_support():
+    """ghz's measure_all writes the SECOND clbit register: a support bit
+    in the first is never measured (the JAX ValueError)."""
+    jc, tc, jv, tv, chunk = _pair("ghz10_p2q5")
+    with pytest.raises(ValueError, match="never measured"):
+        j_expectation_z(jv, [0, 11], chunk=chunk)
+    with pytest.raises(ValueError, match="never measured"):
+        streamed_expectation_z(tv, [0, 11], chunk=chunk, device="cpu")
+    assert abs(streamed_expectation_z(tv, [10, 19], chunk=chunk,
+                                      device="cpu") - 1.0) < 1e-6
+
+
+@pytest.mark.parametrize("kw", [
+    dict(noise=object()), dict(trajectories=4), dict(share_prefix=True),
+    dict(dtype=torch.bfloat16),
+])
+def test_streamed_expectation_z_refusals(kw):
+    _, _, _, tv, chunk = _pair("ghz10_p2q5")
+    with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
+        streamed_expectation_z(tv, [10], chunk=chunk, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("name,n,depth", [("hwe", 16, 3), ("hwe", 40, 2),
+                                          ("syc", 12, 2), ("syc", 36, 1)])
+def test_gen_circ_matches_jax(name, n, depth):
+    """The copied generators give the JAX circuits instruction for
+    instruction under the same seed."""
+    want = circuit_to_instructions(j_gen_circ(name, n, depth, seed=0))
+    got = circuit_to_instructions(genCirc(name, n, depth, seed=0))
+    assert got[:3] == want[:3]
+    assert len(got[3]) == len(want[3])
+    for a, b in zip(got[3], want[3]):
+        assert a == b
+
+
+def test_stored_hwe40_plan_is_the_jax_cutters_plan():
+    """The plan stored in the package (solved once by the port's solver)
+    equals what the JAX cutter returns for the same circuit, and cuts
+    hwe-40 into two 22-qubit fragments over 36 labels."""
+    assert "hwe40_d2_p2_q21" in stored_plans()
+    plan = load_plan("hwe40_d2_p2_q21")
+    kw = dict(maxNPartitions=2, maxNQubitsPerPartition=21, maxNQpdCuts=5,
+              maxNCuts=5, maxCutsPerPartitions=5)
+    jcut = JCutter(j_gen_circ("hwe", 40, 2, seed=0), **kw)
+    assert jcut.solve()
+    assert plan_signature(plan) == j_plan_signature(jcut.plan)
+    cutter = Cutter(genCirc("hwe", 40, 2, seed=0), **kw)
+    cutter.use_plan(plan)
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.virt.virtual_circuit import (  # noqa: E501
+        VirtualCircuit,
+    )
+
+    virt = VirtualCircuit(cutter.getResultCircs()[3])
+    assert [virt.programs[r.name].num_sim_qubits
+            for r in virt.fragments] == [22, 22]
+    assert [vg.spec.num_instantiations for vg in virt.vgates] == [6, 6]
+    with pytest.raises(FileNotFoundError, match="stored"):
+        load_plan("no_such_plan")
+
+
+def test_saved_plan_round_trips_through_use_plan(tmp_path):
+    """A plan made by the port's own solver, saved and adopted by a fresh
+    cutter, cuts the circuit the same way."""
+    circ = genCirc("hwe", 12, 2, seed=0)
+    kw = dict(maxNPartitions=2, maxNQubitsPerPartition=7, maxNQpdCuts=3,
+              maxNCuts=3, maxCutsPerPartitions=3)
+    first = Cutter(circ, **kw)
+    assert first.solve()
+    first.save_plan(tmp_path / "plan.json")
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.cutter.plan import (  # noqa: E501
+        CutPlan,
+    )
+
+    second = Cutter(circ, **kw)
+    second.use_plan(CutPlan.load(tmp_path / "plan.json"))
+    assert plan_signature(second.plan) == plan_signature(first.plan)
+    assert (circuit_to_instructions(second.getResultCircs()[3])
+            == circuit_to_instructions(first.getResultCircs()[3]))
+    assert (second.nWireCuts, second.nGateCuts) == (first.nWireCuts,
+                                                    first.nGateCuts)
+
+
 def test_compare_original_with_cut():
     jc, tc, jv, tv, chunk = _pair("ghz10_p2q5")
     res = compare_original_with_cut(tc, tv._circuit, chunk_size=chunk,
@@ -117,6 +302,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
         simulate_circuit(tc)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_streamed_knit(tv, chunk)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        streamed_expectation_z(tv, [10], chunk=chunk)
 
 
 @pytest.mark.parametrize("engine", ["auto", "xla", "streamed", "sharded",
