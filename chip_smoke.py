@@ -3,8 +3,8 @@
 
 Phases (any failure exits non-zero without the result line):
 
-1. build   — ``nvcc`` builds csrc/variant_kernel.cu and
-             csrc/blocked_kernel.cu for sm_90a, side by side;
+1. build   — ``nvcc`` builds csrc/variant_kernel.cu, csrc/blocked_kernel.cu
+             and csrc/collapse_kernel.cu for sm_90a, side by side;
 2. kernel  — the variant kernel against its plain PyTorch version on the
              card, at sup-20 (seed 0, P2 Q10, 5/5/5 cuts) fragments and
              chunk 504: folded+staged, folded unstaged, full rows, and
@@ -15,26 +15,50 @@ Phases (any failure exits non-zero without the result line):
              third witness), and hwe-40's two 22-qubit fragments at the
              default window (14) and at 13, all 36 labels in chunks of
              16; <= 1e-5;
-4. main    — genCirc("sup", 20, 1, seed=0) -> Cutter -> VirtualCircuit ->
+4. collapse — the collapse kernel against its plain version on one block
+             of sampled labels, of the size the sampled engine's scan
+             launches for that epilogue (4096 labels, or what 512 MiB of
+             full rows hold), with numpy draws from a fixed seed:
+             qft-16's two fragments (15 qubits and 1 qubit, 15 collapse
+             sites each) as full rows, as the marginal on clbits 0..3 and
+             as the Z columns of five z-sets, and both endpoints of a
+             wire cut (ghz-18, P2 Q10, one wire cut) as full rows; picked
+             bits equal (a flip only within 1e-6 of its threshold, counted
+             apart), <= 1e-5;
+5. main    — genCirc("sup", 20, 1, seed=0) -> Cutter -> VirtualCircuit ->
              run_virtual_circuit(engine="pallas", chunk_size=504) on cuda,
              Hellinger fidelity against the uncut oracle > 1 - 1e-5, with
              the kernels' launch counts read around the run; ghz-24 (P2,
              Q12) the same way; sup-20 once more with every fragment
              forced through the blocked kernel (window 13), same oracle;
-5. wide    — hwe-40 (depth 2, seed 0, P2 Q21, stored cut plan; two
+6. sampled — sup-20 through the sampled engine's scan in ancilla mode (the
+             variant kernel's full rows on a main path): all 7776 labels
+             with their exact sampling mass reproduce the exact knit of
+             engine="pallas" within 1e-6, and the kernel's full rows equal
+             the plain version's on the scan's own first and last block.
+             qft-16 (h and rz(uniform(0,
+             2 pi), default_rng(5)) on each of 16 qubits, library_qft(16),
+             all measured; Cutter(P2, Q15, gammaMode=True): 15 cp cuts):
+             120000 samples, lhs, control variate, through
+             run_virtual_circuit(engine="sampled", keep_clbits=[0..3]) and
+             sampled_expectation_z on five z-sets; every marginal bin and
+             every <Z_S> within 5 reported standard errors (floor 1e-3)
+             of the 2^16 oracle, a second call builds no plan, and one
+             block knitted from the plain version agrees within 1e-5;
+7. wide    — hwe-40 (depth 2, seed 0, P2 Q21, stored cut plan; two
              22-qubit fragments): the 20-clbit marginal through
              run_virtual_circuit(engine="pallas", keep_clbits=...) and
              <Z...Z> through streamed_expectation_z; the marginal sums to
              1, the two agree, the marginal knitted from the plain version
              agrees, and the blocked kernel was launched segments x chunks
-             times per fragment.  ghz-40 (P2 Q20, cut on the host): the
+             times per fragment.  ghz-40 (P2 Q20, stored cut plan): the
              marginal is 1/2 on all-zeros and all-ones, <Z> on an even
              support is 1;
-6. where the time goes — host build of the scan, the run without the
+8. where the time goes — host build of the scan, the run without the
              simplex projection, and a torch.profiler trace (device time
-             by kernel, device idle share of the wall) for sup-20, ghz-24
-             and hwe-40;
-7. report  — one JSON line of kernels (launches, error, times, bound), the
+             by kernel, device idle share of the wall) for sup-20, ghz-24,
+             hwe-40 and qft-16 (there also the host's label sampling);
+9. report  — one JSON line of kernels (launches, error, times, bound), the
              card's name and power limit, and the contract's last line.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Details go to
@@ -62,7 +86,16 @@ TPU_KERNEL = ("hardwareawareoptimalquantumcircuitcuttingandknitting_tpu/"
               "ops/pallas_variant.py:577")
 TPU_BLOCKED = ("hardwareawareoptimalquantumcircuitcuttingandknitting_tpu/"
                "ops/pallas_blocked.py:168")
+TPU_COLLAPSE = ("hardwareawareoptimalquantumcircuitcuttingandknitting_tpu/"
+                "ops/pallas_variant.py:1165")
 HWE_CHUNK = 512      # capped by auto_chunk to 16 labels at 22 qubits
+QFT_SAMPLES = 120000
+QFT_SEED = 17
+QFT_KEEP = [0, 1, 2, 3]
+QFT_Z_SETS = [{0}, {8}, {15}, {0, 1, 2, 3}, set(range(16))]
+WIRE_SAMPLES = 4096      # sampling budget behind the wire cut's label rows
+STDERRS = 5.0            # sampled estimate against the oracle
+STDERR_FLOOR = 1e-3
 
 
 def _card_line() -> str:
@@ -368,11 +401,13 @@ def _kernel_row(report, name):
 def _reset_counts():
     _port("ops.blocked_kernel").blocked_rows.launches = 0
     _port("ops.variant_kernel").variant_rows.launches = 0
+    _port("ops.collapse_kernel").collapse_rows.launches = 0
 
 
 def _counts():
     return {"blocked": _port("ops.blocked_kernel").blocked_rows.launches,
-            "variant": _port("ops.variant_kernel").variant_rows.launches}
+            "variant": _port("ops.variant_kernel").variant_rows.launches,
+            "collapse": _port("ops.collapse_kernel").collapse_rows.launches}
 
 
 def phase_forced_sup20(circ, virt, report, window=13):
@@ -409,7 +444,7 @@ def phase_forced_sup20(circ, virt, report, window=13):
     print(f"main sup20 forced blocked (window {window}): launches={counts} "
           f"expected={expect} scan_s={wall:.4f} fidelity={fid!r}",
           flush=True)
-    if counts != {"blocked": expect, "variant": 0}:
+    if counts != {"blocked": expect, "variant": 0, "collapse": 0}:
         raise RuntimeError(f"forced blocked route launched {counts}, "
                            f"expected {expect} blocked launches only")
     if not fid > FID_MIN:
@@ -549,10 +584,10 @@ def phase_wide(label, virt, report, analytic, kernel_row=None):
          f"fragment widths {widths} are within the variant kernel's gate")
     need(np.isfinite(values).all() and values.shape == (1 << len(keep),),
          "marginal not finite or of the wrong shape")
-    need(counts == {"blocked": expect, "variant": 0},
+    need(counts == {"blocked": expect, "variant": 0, "collapse": 0},
          f"launched {counts}, expected {expect} blocked launches only")
     need(z_counts == counts, f"expectation launched {z_counts}")
-    need(plain_counts == {"blocked": 0, "variant": 0},
+    need(plain_counts == {"blocked": 0, "variant": 0, "collapse": 0},
          f"the plain knit launched kernels: {plain_counts}")
     need(all(meta["pallas_fragments"].values())
          and set(meta["fragment_kernels"].values()) == {"blocked"},
@@ -576,6 +611,440 @@ def phase_wide(label, virt, report, analytic, kernel_row=None):
     if kernel_row is not None:
         row = _kernel_row(report, kernel_row)
         row["launches"] = counts["blocked"]
+        row["on_main_path"] = True
+
+
+def _cut_qft16():
+    """(circuit, VirtualCircuit) of the sampled engine's flagship: an
+    ``h`` and an ``rz(uniform(0, 2 pi))`` from ``default_rng(5)`` on each
+    of 16 qubits, ``library_qft(16)``, all measured, cut 15|1 by the
+    gamma-mode solver.  The solved plan must equal the stored one."""
+    import math
+
+    import numpy as np
+
+    Circuit = _port("circuit.circuit").Circuit
+    plan_signature = _port("cutter.solver").plan_signature
+    rng = np.random.default_rng(5)
+    circ = Circuit(16, 16)
+    for q in range(16):
+        circ.h(q)
+        circ.rz(float(rng.uniform(0, 2 * math.pi)), q)
+    for ins in _port("models.qft").library_qft(16).instructions:
+        circ.instructions.append(ins.copy())
+    for q in range(16):
+        circ.measure(q, q)
+    cutter = _port("cutter.cutter").Cutter(
+        circ, maxNPartitions=2, maxNQubitsPerPartition=15, gammaMode=True
+    )
+    if not cutter.solve():
+        raise RuntimeError("no gamma-mode cut plan for qft-16")
+    stored = _port("plans").load_plan("qft16_prepped_p2_q15_gamma")
+    if plan_signature(cutter.plan) != plan_signature(stored):
+        raise RuntimeError("the solver's qft-16 plan is not the stored one")
+    virt = _port("virt.virtual_circuit").VirtualCircuit(
+        cutter.getResultCircs()[3]
+    )
+    return circ, virt
+
+
+def _cut_ghz18_wire():
+    """ghz-18 cut into 2 partitions of at most 10 qubits with exactly one
+    wire cut: one endpoint measures (a collapse site), one prepares."""
+    circ = _port("models.zoo").genCirc("ghz", 18, 1)
+    cutter = _port("cutter.cutter").Cutter(
+        circ, maxNPartitions=2, maxNQubitsPerPartition=10,
+        forceNWireCuts=1, maxNQpdCuts=3, maxNCuts=3,
+    )
+    if not cutter.solve():
+        raise RuntimeError("no wire-cut plan for ghz-18")
+    virt = _port("virt.virtual_circuit").VirtualCircuit(
+        cutter.getResultCircs()[3]
+    )
+    return circ, virt
+
+
+def _sampled_labels(virt, samples, seed):
+    """The sampled engine's own label rows for a budget: unique labels,
+    the measuring ones replicated per sample, and their masses."""
+    import numpy as np
+
+    tq = _port("ops.qpd_sampling")
+    uniq, counts = tq.sample_label_counts(virt, samples, seed, method="lhs")
+    lab, fc = tq._expand_measuring_counts(virt, uniq,
+                                          counts.astype(np.float64))
+    return uniq, lab, fc / samples
+
+
+def _label_block_of(lab_all, count, seed=0):
+    """``count`` of the label rows, picked with a seed, in their order."""
+    import numpy as np
+
+    count = min(count, len(lab_all))
+    pick = np.sort(np.random.default_rng(seed).choice(
+        len(lab_all), count, replace=False))
+    return lab_all[pick]
+
+
+def phase_collapse(label, virt, lab_all, modes, report):
+    """The collapse kernel against its plain version on every fragment of
+    ``virt`` in collapse mode: one block of the sampled label rows
+    ``lab_all`` at the size the sampled engine's scan launches for that
+    epilogue (``qpd_sampling._label_block``), numpy draws from a fixed
+    seed, the scalars the sampled engine itself builds.  ``modes``:
+    epilogue name -> keywords of the row function."""
+    import numpy as np
+    import torch
+
+    ck = _port("ops.collapse_kernel")
+    tq = _port("ops.qpd_sampling")
+    to_block = _port("convert").sampled_block_to_device
+    names = [r.name for r in virt.fragments]
+    for mode, kw in modes.items():
+        lab_np = _label_block_of(
+            lab_all, tq._label_block(virt, [True] * len(names), **kw))
+        c = lab_np.shape[0]
+        calls = []
+        err, near, far, sites, measuring = 0.0, 0, 0, {}, 0
+        work = {"bytes": 0, "flops": 0, "pass_bytes": 0}
+        for fi, name in enumerate(names):
+            built = tq._collapse_row_builder_pallas(virt, name, device=DEV,
+                                                    **kw)
+            if built is None:
+                raise RuntimeError(f"{label}/{mode}/{name}: no kernel")
+            fn, _, ns, _ = built
+            dp = fn.rows_fn.plan
+            u = np.random.default_rng(7 + 7919 * fi).random(
+                (c, max(1, ns))).astype(np.float32)
+            lab, u_dev = to_block(lab_np, u, DEV)
+            ent, cscal = dp.gather_entries(lab), fn.scalars(lab, u_dev)
+            got, bits = ck.collapse_rows(dp, ent, cscal)
+            want, wbits, margins = ck.plain_collapse_rows(
+                dp, ent, cscal, with_margins=True)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"{label}/{mode}/{name}: non-finite rows")
+            agree, n_near, n_far = ck.compare_picks(bits, wbits, margins)
+            near, far = near + n_near, far + n_far
+            if bool(agree.any()):
+                err = max(err, (got - want)[agree].abs().max().item())
+            on = int((cscal[:, :, 1] > 0).sum())
+            measuring += on
+            wk = ck.work_counts(dp.plan, c, on)
+            for key in work:
+                work[key] += wk[key]
+            sites[name] = {"n": dp.plan.n, "sites": ns, "ops": len(dp.plan.ops)}
+            calls.append((dp, ent, cscal))
+            del got, want, margins
+        ms = _time_ms(lambda: [ck.collapse_rows(*a) for a in calls], reps=5)
+        plain_ms = _time_ms(
+            lambda: [ck.plain_collapse_rows(*a) for a in calls], reps=1,
+            warm=1,
+        )
+        bound_ms, bound_by = _bound(work)
+        report.setdefault("kernels", []).append({
+            "name": f"collapse_rows/{label}_{mode}",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/collapse_kernel.cu",
+            "replaces": TPU_COLLAPSE,
+            "launches": None,  # filled from the main path's run
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            "on_main_path": False,  # set by the path that launches it
+            "work": work,
+            "labels": c,
+            "fragments": sites,
+            "measuring_sites": measuring,
+            "picks_flipped_near_threshold": near,
+            "picks_flipped_far": far,
+        })
+        print(f"collapse {label}/{mode}: fragments={sites} labels={c} "
+              f"measuring_sites={measuring} max_abs_err={err:.3e} "
+              f"picks flipped near a threshold={near} far={far} | one "
+              f"block through {len(names)} fragments: ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} "
+              f"({bound_by}; {work['bytes'] / 1e6:.3f} MB, "
+              f"{work['flops'] / 1e9:.3f} GFLOP); state passes "
+              f"{work['pass_bytes'] / 1e9:.3f} GB = "
+              f"{work['pass_bytes'] / ms / 1e6:.1f} GB/s", flush=True)
+        if far:
+            raise RuntimeError(f"{label}/{mode}: {far} labels took another "
+                               "branch far from its threshold")
+        if not err <= TOL:
+            raise RuntimeError(f"{label}/{mode}: kernel vs plain "
+                               f"{err:.3e} > {TOL}")
+
+
+@contextlib.contextmanager
+def _plain_collapse():
+    """Within: the sampled scan takes its collapse rows from the plain
+    PyTorch version instead of the kernel (the wrapper itself never does
+    that on a CUDA tensor)."""
+    ck = _port("ops.collapse_kernel")
+    kernel = ck.collapse_rows
+    ck.collapse_rows = ck.plain_collapse_rows
+    try:
+        yield
+    finally:
+        ck.collapse_rows = kernel
+
+
+def phase_sampled_sup20(virt, report):
+    """The variant kernel's full rows on a main path: the sampled engine's
+    scan over sup-20 in ancilla mode.  Every label with its exact sampling
+    mass reproduces the exact knit (the identity the estimator is
+    unbiased against), held to engine="pallas"'s unprojected result."""
+    import numpy as np
+    import torch
+
+    tq = _port("ops.qpd_sampling")
+    ve = _port("ops.variant_engine")
+    run_virtual_circuit = _port("run").run_virtual_circuit
+    specs = [vg.spec for vg in virt.vgates]
+    strides, n_inst, total = ve.label_strides(specs, range(len(specs)))
+    vidx = ve.variant_index_table(range(len(specs)), strides, n_inst, total)
+    mass = np.ones(total)
+    for g, spec in enumerate(specs):
+        m = tq._variant_magnitudes(spec)
+        mass *= (m / m.sum())[vidx[:, g]]
+    flags = tq._collapse_flags(virt, "auto")
+    block = tq._label_block(virt, flags)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    est = tq._estimate(virt, vidx, mass, collapse=flags, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    exact, _ = run_virtual_circuit(virt, engine="pallas", chunk_size=CHUNK,
+                                   project=False, device=DEV)
+    err = float(np.abs(np.asarray(est.values, np.float64)
+                       - np.asarray(exact.values, np.float64)).max())
+    expect = -(-total // block) * len(virt.fragments)
+    # the kernel's full rows against the plain version at the launch
+    # shapes of this path: its first block and its short last one
+    vk = _port("ops.variant_kernel")
+    rows_err = 0.0
+    for fn in next(iter(virt._scan_step_cache.values()))["row_fns"]:
+        dp = fn.rows_fn.plan
+        for rows in (vidx[:block], vidx[(total - 1) // block * block:]):
+            blk = torch.as_tensor(rows, device=DEV, dtype=torch.int64)
+            ones = torch.ones((len(rows), 1, 2), device=DEV)
+            ent = dp.gather_entries(blk)
+            got = vk.variant_rows(dp, ent, ones, dp.stages(blk))
+            want = vk.plain_variant_rows(dp, ent, ones)
+            rows_err = max(rows_err, (got - want).abs().max().item())
+    report["sampled_sup20"] = {
+        "labels": total, "collapse_flags": flags, "block": block,
+        "launches": counts, "expected_launches": expect, "wall_s": wall,
+        "mass_sum": float(mass.sum()), "max_abs_err_vs_exact_knit": err,
+        "full_rows_max_abs_err_at_path_blocks": rows_err,
+    }
+    print(f"main sampled sup20 (ancilla mode, full grid): labels={total} "
+          f"block={block} launches={counts} expected={expect} "
+          f"wall_s={wall:.4f} max_abs_err_vs_exact_knit={err:.3e} "
+          f"full rows vs plain at blocks of {block} and "
+          f"{total - (total - 1) // block * block}: {rows_err:.3e}",
+          flush=True)
+    if any(flags):
+        raise RuntimeError(f"sup-20 went to collapse mode: {flags}")
+    if counts != {"blocked": 0, "variant": expect, "collapse": 0}:
+        raise RuntimeError(f"sampled sup-20 launched {counts}, expected "
+                           f"{expect} variant launches only")
+    if est.bit_positions != exact.bit_positions or not err <= 1e-6:
+        raise RuntimeError(f"full-grid identity off by {err:.3e}")
+    if not rows_err <= TOL:
+        raise RuntimeError(f"full rows vs plain {rows_err:.3e} > {TOL}")
+    row = _kernel_row(report, "variant_rows/full_rows_staged")
+    row["launches"] = counts["variant"]
+    row["on_main_path"] = True
+
+
+def phase_main_qft16(circ, virt, report):
+    """This slice's path at full width: qft-16 through the sampled engine
+    (both fragments in collapse mode), the marginal and the Z panel held
+    to the 2^16 oracle by their own standard errors."""
+    import numpy as np
+    import torch
+
+    tq = _port("ops.qpd_sampling")
+    run_virtual_circuit = _port("run").run_virtual_circuit
+    simulate_circuit = _port("ops.statevector").simulate_circuit
+    flags = tq._collapse_flags(virt, "auto")
+    over = tq.sampling_overhead(virt)
+    knit_kw = dict(seed=QFT_SEED, keep_clbits=QFT_KEEP, method="lhs",
+                   control_variate=True, device=DEV)
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    dist, _ = run_virtual_circuit(
+        virt, shots=QFT_SAMPLES, engine="sampled", seed=QFT_SEED,
+        sample_method="lhs", sample_cv=True, keep_clbits=QFT_KEEP,
+        project=False, device=DEV,
+    )
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = _counts()
+    cache = virt._scan_step_cache
+    built = {k: list(map(id, v["row_fns"])) for k, v in cache.items()}
+
+    # the same estimate again, now with its standard errors: the same
+    # seed feeds the same labels and draws, and no plan is built
+    _reset_counts()
+    t0 = time.perf_counter()
+    est, se = tq.sampled_knit(virt, QFT_SAMPLES, with_stderr=True, **knit_kw)
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    rebuilt = {k: list(map(id, v["row_fns"]))
+               for k, v in cache.items()} != built
+    rerun_err = float(np.abs(np.asarray(est.values)
+                             - np.asarray(dist.values)).max())
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    z_est, z_se = tq.sampled_expectation_z(
+        virt, QFT_Z_SETS, QFT_SAMPLES, seed=QFT_SEED + 1, method="lhs",
+        with_stderr=True, control_variate=True, device=DEV,
+    )
+    torch.cuda.synchronize()
+    z_s = time.perf_counter() - t0
+    z_counts = _counts()
+
+    # the oracle: the uncut circuit at 2^16 (bit j of the index = clbit j)
+    probs = np.asarray(simulate_circuit(circ, device=DEV).values, np.float64)
+    idx = np.arange(len(probs))
+    key = np.zeros(len(probs), np.int64)
+    for j, c in enumerate(QFT_KEEP):
+        key |= ((idx >> c) & 1) << j
+    oracle_m = np.bincount(key, weights=probs, minlength=1 << len(QFT_KEEP))
+    oracle_z = []
+    for s_z in QFT_Z_SETS:
+        par = np.zeros(len(probs), np.int64)
+        for c in s_z:
+            par ^= (idx >> c) & 1
+        oracle_z.append(float(((1 - 2 * par) * probs).sum()))
+    est_v = np.asarray(est.values, np.float64)
+    m_dev = np.abs(est_v - oracle_m) / np.maximum(se, STDERR_FLOOR)
+    z_dev = np.abs(np.asarray(z_est) - np.asarray(oracle_z)) / np.maximum(
+        z_se, STDERR_FLOOR)
+
+    # where the host's share goes: label sampling, and the scan's build
+    t0 = time.perf_counter()
+    uniq, lab_all, mass = _sampled_labels(virt, QFT_SAMPLES, QFT_SEED)
+    sample_s = time.perf_counter() - t0
+    block = tq._label_block(virt, flags, keep_clbits=QFT_KEEP)
+    t0 = time.perf_counter()
+    tq._build_scan(virt, flags, QFT_KEEP, None, DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    # one block of the same labels and draws at the size the path
+    # launches (a leading block of the label rows draws the leading rows
+    # of the same stream), knitted from the kernel and from the plain
+    # version
+    head = min(block, len(lab_all))
+    scan_kw = dict(keep_clbits=QFT_KEEP, flags=flags,
+                   collapse_seed=QFT_SEED * 31 + 17, block=head,
+                   second_moment=True, control_stats=True, device=DEV)
+    k_est = tq._scan_core(virt, lab_all[:head], mass[:head], **scan_kw)
+    k_bits = [fn.rows_fn.last_bits.clone()
+              for fn in next(iter(cache.values()))["row_fns"]]
+    _reset_counts()
+    with _plain_collapse():
+        p_est = tq._scan_core(virt, lab_all[:head], mass[:head], **scan_kw)
+        p_bits = [fn.rows_fn.last_bits.clone()
+                  for fn in next(iter(cache.values()))["row_fns"]]
+    plain_counts = _counts()
+    plain_err = max(
+        float(np.abs(np.asarray(k_est[0].values)
+                     - np.asarray(p_est[0].values)).max()),
+        float(np.abs(k_est[1] - p_est[1]).max()),
+    )
+    flipped = sum(int((a != b).any(dim=1).sum())
+                  for a, b in zip(k_bits, p_bits))
+    prof = _profile(lambda: tq.sampled_knit(virt, QFT_SAMPLES,
+                                            with_stderr=True, **knit_kw))
+
+    n_blocks = -(-len(lab_all) // block)
+    expect = n_blocks * len(virt.fragments)
+    out = {
+        "cuts": len(virt.vgates), "gamma_total": over["gamma_total"],
+        "kappa": over["kappa"], "samples": QFT_SAMPLES,
+        "fragment_data_qubits": [virt.programs[r.name].num_data_qubits
+                                 for r in virt.fragments],
+        "fragment_sim_qubits": [virt.programs[r.name].num_sim_qubits
+                                for r in virt.fragments],
+        "collapse_flags": flags, "unique_labels": len(uniq),
+        "expanded_labels": len(lab_all), "block": block,
+        "n_blocks": n_blocks, "launches": counts,
+        "expected_launches": expect, "z_launches": z_counts,
+        "first_call_s": first_s, "second_call_s": second_s,
+        "expectation_z_s": z_s, "label_sampling_s": sample_s,
+        "scan_build_s": build_s, "second_call_rebuilt_a_plan": rebuilt,
+        "rerun_max_abs_err": rerun_err,
+        "marginal": est_v.tolist(), "marginal_stderr": se.tolist(),
+        "oracle_marginal": oracle_m.tolist(),
+        "marginal_worst_stderrs": float(m_dev.max()),
+        "z": np.asarray(z_est).tolist(), "z_stderr": z_se.tolist(),
+        "oracle_z": oracle_z, "z_worst_stderrs": float(z_dev.max()),
+        "plain_block_labels": head, "plain_knit_max_abs_err": plain_err,
+        "plain_block_picks_flipped": flipped,
+    }
+    out.update(prof)
+    report["qft16"] = out
+    print(f"main qft16: cuts={out['cuts']} gamma={over['gamma_total']:.4f} "
+          f"fragments data={out['fragment_data_qubits']} "
+          f"sim={out['fragment_sim_qubits']} collapse={flags} "
+          f"samples={QFT_SAMPLES} unique_labels={len(uniq)} "
+          f"expanded_labels={len(lab_all)} block={block} x{n_blocks} "
+          f"launches={counts} expected={expect} z_launches={z_counts} "
+          f"first_call_s={first_s:.4f} second_call_s={second_s:.4f} "
+          f"expectation_z_s={z_s:.4f} label_sampling_s={sample_s:.4f} "
+          f"scan_build_s={build_s:.4f} rebuilt={rebuilt} "
+          f"marginal worst {m_dev.max():.2f} stderrs (max stderr "
+          f"{se.max():.2e}), z worst {z_dev.max():.2f} stderrs (max stderr "
+          f"{z_se.max():.2e}) plain_knit_err={plain_err:.3e} "
+          f"picks_flipped={flipped} device_busy_ms={out['device_busy_ms']} "
+          f"idle_share={out['device_idle_share']}", flush=True)
+    print(f"  marginal {np.round(est_v, 5).tolist()}\n  oracle   "
+          f"{np.round(oracle_m, 5).tolist()}\n  z {np.round(z_est, 5).tolist()}"
+          f" oracle {np.round(oracle_z, 5).tolist()}", flush=True)
+    for row in out["device_ms_by_kernel"][:5]:
+        print(f"  device {row['ms']:.3f} ms x{row['calls']}: "
+              f"{row['kernel']}", flush=True)
+
+    def need(ok, what):
+        if not ok:
+            raise RuntimeError(f"qft16: {what}")
+
+    need(flags == [True, True], f"collapse flags {flags}")
+    need(np.isfinite(est_v).all() and est_v.shape == (1 << len(QFT_KEEP),)
+         and dist.bit_positions == QFT_KEEP,
+         "marginal not finite or of the wrong shape")
+    need(counts == {"blocked": 0, "variant": 0, "collapse": expect},
+         f"launched {counts}, expected {expect} collapse launches only")
+    need(z_counts["collapse"] > 0 and not z_counts["variant"],
+         f"<Z> launched {z_counts}")
+    need(plain_counts == {"blocked": 0, "variant": 0, "collapse": 0},
+         f"the plain knit launched kernels: {plain_counts}")
+    need(not rebuilt and len(cache) == 2,
+         f"the second call built a plan ({len(cache)} cache entries)")
+    need(rerun_err <= 1e-6, f"the second call differs by {rerun_err:.3e}")
+    need(float(m_dev.max()) <= STDERRS,
+         f"a marginal bin lies {m_dev.max():.2f} stderrs from the oracle")
+    need(float(z_dev.max()) <= STDERRS,
+         f"a <Z_S> lies {z_dev.max():.2f} stderrs from the oracle")
+    need(plain_err <= TOL, f"plain knit differs by {plain_err:.3e} "
+         f"({flipped} picks flipped)")
+    for mode, n in (("marginal", counts["collapse"]),
+                    ("z", z_counts["collapse"])):
+        row = _kernel_row(report, f"collapse_rows/qft16_{mode}")
+        row["launches"] = n
         row["on_main_path"] = True
 
 
@@ -672,7 +1141,7 @@ def phase_main(label, circ, virt, report, timed_reps=1):
           f"launches={launches} first_run_s={first_s:.4f} "
           f"warm_wall_s={[round(w, 4) for w in walls]} fidelity={fid!r}",
           flush=True)
-    if not launches > 0 or counts["blocked"]:
+    if not launches > 0 or counts["blocked"] or counts["collapse"]:
         raise RuntimeError(f"{label}: launched {counts}, expected the "
                            "variant kernel only")
     if not fid > FID_MIN:
@@ -754,7 +1223,8 @@ def main() -> int:
 
     def build():
         libs = [_port("ops.variant_kernel").LIBRARY,
-                _port("ops.blocked_kernel").LIBRARY]
+                _port("ops.blocked_kernel").LIBRARY,
+                _port("ops.collapse_kernel").LIBRARY]
         t0 = time.perf_counter()
         _port("ops.kernel_build").build_all(libs)
         report["build_s"] = time.perf_counter() - t0
@@ -771,9 +1241,9 @@ def main() -> int:
         return 1
     cuts = {}
 
-    def cut(key, *args, **kw):
+    def cut(key, *args, build=_cut, **kw):
         def run():
-            cuts[key] = _cut(*args, **kw)
+            cuts[key] = build(*args, **kw)
         phase("cut_" + key, run)
         return key in cuts
 
@@ -788,6 +1258,21 @@ def main() -> int:
         phase("main_sup20_forced_blocked", phase_forced_sup20, circ, virt,
               report)
         phase("breakdown_sup20", phase_breakdown, "sup20", virt, report)
+        phase("sampled_sup20", phase_sampled_sup20, virt, report)
+    if cut("qft16", build=_cut_qft16):
+        circ, virt = cuts["qft16"]
+        modes = {"rows": {}, "marginal": {"keep_clbits": QFT_KEEP},
+                 "z": {"z_sets": QFT_Z_SETS}}
+        phase("collapse_qft16", lambda: phase_collapse(
+            "qft16", virt, _sampled_labels(virt, QFT_SAMPLES, QFT_SEED)[1],
+            modes, report))
+        phase("main_qft16", phase_main_qft16, circ, virt, report)
+    if cut("ghz18_wire", build=_cut_ghz18_wire):
+        _, virt = cuts["ghz18_wire"]
+        phase("collapse_ghz18_wire", lambda: phase_collapse(
+            "ghz18_wire", virt,
+            _sampled_labels(virt, WIRE_SAMPLES, 3)[1], {"rows": {}},
+            report))
     if cut("ghz24", "ghz", 24, 12, None):
         circ, virt = cuts["ghz24"]
         phase("main_ghz24", phase_main, "ghz24", circ, virt, report, 1)
@@ -805,7 +1290,7 @@ def main() -> int:
               blocks, report, False)
         phase("main_hwe40", phase_wide, "hwe40", virt, report, False,
               "blocked_rows/hwe40")
-    if cut("ghz40", "ghz", 40, 20, None):
+    if cut("ghz40", "ghz", 40, 20, None, stored_plan="ghz40_p2_q20"):
         phase("main_ghz40", phase_wide, "ghz40", cuts["ghz40"][1], report,
               True)
 
@@ -825,7 +1310,7 @@ def main() -> int:
             # comparison phase alone
             row["launches"] = (report["sup20"]["launches"]
                                if row["on_main_path"] else 0)
-        for key in ("work", "kernel_work", "segments"):
+        for key in ("work", "kernel_work", "segments", "fragments"):
             row.pop(key, None)
         kernels.append(row)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -5,8 +5,11 @@ them.  A circuit crosses between the two packages as plain Python and
 numpy data (:func:`circuit_to_instructions` reads any object with the
 ``Circuit`` attributes, :func:`circuit_from_instructions` rebuilds this
 package's ``Circuit``), so both packages can start from one object
-without either importing the other.  Host tables become device tensors
-through :func:`to_device`.
+without either importing the other.  A cut plan crosses as its JSON text
+(:func:`plan_from_other`; the same text ``Cutter.save_plan`` writes and
+``plans.load_plan`` reads), and a sampled label block with its collapse
+draws as numpy arrays (:func:`sampled_block_to_device`), unchanged.  Host
+tables become device tensors through :func:`to_device`.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import numpy as np
 import torch
 
 from .circuit.circuit import Circuit, Instruction, Register
+from .cutter.plan import CutPlan
 from .virt.virtual_gates import VirtualGateOp, WireCutMark
 
 
@@ -121,3 +125,19 @@ def circuit_from_instructions(num_qubits: int, num_clbits: int, regs: dict,
             None if cond is None else tuple(cond),
         ))
     return circ
+
+
+def plan_from_other(plan) -> CutPlan:
+    """This package's :class:`CutPlan` from any plan object with a
+    ``to_json()`` (this package's or the JAX package's): assignment, cuts
+    and metrics cross as JSON text, gamma-mode plans (float ``S``)
+    included."""
+    return CutPlan.from_json(plan.to_json())
+
+
+def sampled_block_to_device(labels, draws, device):
+    """A sampled label block and its collapse draws, made with numpy, as
+    the tensors the row functions take: ``labels [L, G]`` -> int64,
+    ``draws [L, n_sites]`` -> float32, values unchanged."""
+    return (to_device(np.asarray(labels), device, torch.int64),
+            to_device(np.asarray(draws, np.float32), device))

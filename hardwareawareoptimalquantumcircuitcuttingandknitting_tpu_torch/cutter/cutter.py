@@ -91,12 +91,6 @@ class Cutter:
         # TRUE QPD 1-norm (gamma(cp(theta)) -> 1 for small theta) instead
         # of the reference's flat 6/8 multipliers (Cutter.py:452-471) —
         # opt-in; the parity table stays the default
-        if gammaMode:
-            raise NotImplementedError(
-                "gammaMode (cutter/gamma.py) is not ported to the torch "
-                "package yet: ROADMAP H100 port, queue A, 'native solver "
-                "and gamma.py'"
-            )
         cost_kwargs = {}
         if costModel is not None:
             # utils.config.CostModel (or duck-typed equivalent): replaces

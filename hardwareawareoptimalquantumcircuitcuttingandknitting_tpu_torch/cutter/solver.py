@@ -342,13 +342,12 @@ def plan_signature(plan: CutPlan) -> tuple:
 
 
 def solve(graph: CutGraph, cfg: SolverConfig) -> CutPlan | None:
-    """Solve with the pure-Python search.  The native C++ solver and the
-    angle-aware gamma search are not ported yet (ROADMAP "H100 port",
-    queue A: native solver and ``gamma.py``)."""
+    """Solve with the angle-aware gamma search (``cfg.gamma_mode``,
+    cutter/gamma.py) or the pure-Python parity search.  The native C++
+    solver is not ported yet (ROADMAP "H100 port", queue A: native
+    solver)."""
     if cfg.gamma_mode:
-        raise NotImplementedError(
-            "gamma_mode (cutter/gamma.py) is not ported to the torch "
-            "package yet: ROADMAP H100 port, queue A, 'native solver and "
-            "gamma.py'"
-        )
+        from .gamma import solve_gamma
+
+        return solve_gamma(graph, cfg)
     return solve_python(graph, cfg)

@@ -1,12 +1,12 @@
 """Benchmark circuit zoo facade: the supremacy, Sycamore, hardware-
-efficient-ansatz and GHZ generators.
+efficient-ansatz, QFT / AQFT and GHZ generators.
 
 Behavioral port of benchmarks/helper_functions.py's ``generate_circ``
-(supremacy, sycamore and hwea branches, with the connectivity retry loop)
-and ``genCirc`` (short names ``sup``, ``syc``, ``hwe`` and ``ghz``).  The
-other generators are not ported yet (ROADMAP H100 port, queue A, "other
-zoo generators"); this module imports no graph library, so it loads where
-``networkx`` is absent.
+(supremacy, sycamore, hwea, qft and aqft branches, with the connectivity
+retry loop) and ``genCirc`` (short names ``sup``, ``syc``, ``hwe``,
+``qft``, ``aqft`` and ``ghz``).  The other generators are not ported yet
+(ROADMAP H100 port, queue A, "other zoo generators"); this module imports
+no graph library, so it loads where ``networkx`` is absent.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import numpy as np
 from ..circuit.circuit import Circuit
 from ..utils.logger import get_logger
 from .hwea import gen_hwea
+from .qft import library_qft
 from .supremacy import gen_supremacy
 from .sycamore import gen_sycamore
 
@@ -46,8 +47,8 @@ def generate_circ(
     seed=None,
 ) -> Circuit | None:
     """helper_functions.generate_circ parity (66-127): the supremacy,
-    sycamore and hwea branches."""
-    if circuit_type not in ("supremacy", "sycamore", "hwea"):
+    sycamore, hwea, qft and aqft branches."""
+    if circuit_type not in ("supremacy", "sycamore", "hwea", "qft", "aqft"):
         raise NotImplementedError(f"circuit type {circuit_type!r} {_NOT_PORTED}")
     random.seed(seed)
     if seed is not None:
@@ -62,8 +63,19 @@ def generate_circ(
         elif circuit_type == "sycamore":
             i, j = factor_int(num_qubits)
             full_circ = gen_sycamore(i, j, depth, regname=reg_name)
-        else:
+        elif circuit_type == "hwea":
             full_circ = gen_hwea(num_qubits, depth, regname=reg_name)
+        elif circuit_type == "qft":
+            full_circ = library_qft(
+                num_qubits, approximation_degree=0, do_swaps=False
+            )
+        else:
+            approximation_degree = int(math.log(num_qubits, 2) + 2)
+            full_circ = library_qft(
+                num_qubits,
+                approximation_degree=num_qubits - approximation_degree,
+                do_swaps=False,
+            )
 
         if full_circ is not None and full_circ.num_tensor_factors() == 1:
             break
@@ -90,12 +102,13 @@ def generate_ghz(n_qubits: int) -> Circuit:
 def genCirc(circ_name: str, n_qubits: int, depth: int,
             seed=None) -> Circuit:
     """Reference benchmark.py's genCirc dispatch for ``sup``, ``syc``,
-    ``hwe`` and ``ghz``.  ``seed`` pins the generator RNG for reproducible
+    ``hwe``, ``qft``, ``aqft`` and ``ghz``.  ``seed`` pins the generator RNG for reproducible
     instances."""
     log = get_logger(__name__)
     if seed is not None:
         random.seed(seed)
-    kinds = {"sup": "supremacy", "syc": "sycamore", "hwe": "hwea"}
+    kinds = {"sup": "supremacy", "syc": "sycamore", "hwe": "hwea",
+             "qft": "qft", "aqft": "aqft"}
     if circ_name in kinds:
         kind = kinds[circ_name]
         circ = generate_circ(n_qubits, depth, kind, seed=seed)

@@ -2,10 +2,13 @@
 variant-index convention.
 
 Port of the JAX package's ``ops/variant_engine.py`` helpers that the
-``engine="pallas"`` slice needs (``_slot_tables``, ``label_strides``,
-``variant_index_table``, ``_fuse_slot_ops``).  Pure numpy.  The batched
-default engine (``make_sim_fn``, ``run_all_fragments``) is not ported yet
-(ROADMAP H100 port, queue A, "other engines").
+kernel-backed engines need (``_slot_tables``, ``label_strides``,
+``variant_index_table``, ``label_weight_bounds``, ``_fuse_slot_ops``) and
+of the host side of collapse mode (:func:`collapse_stream`: what
+``make_sim_fn(collapse=True, fuse_qubits=2)`` plans there, at full width
+and without a simulation closure).  Pure numpy.  The batched default
+engine (``make_sim_fn``, ``run_all_fragments``) is not ported yet (ROADMAP
+H100 port, queue A, "other engines").
 """
 from __future__ import annotations
 
@@ -125,6 +128,65 @@ def variant_index_table(
     for i, g in enumerate(order):
         out[:, i] = labels // strides[g] % n_inst[g]
     return out
+
+
+def label_weight_bounds(specs, gstride: dict, n_inst: dict,
+                        total: int) -> np.ndarray:
+    """[total] certified per-label contribution bounds: the L1 change of
+    the knitted distribution from dropping label ``l`` is at most
+    ``prod_g max_b |coef_g[v_g(l), b]|`` — each fragment's conditional
+    rows carry unit mass, so the per-vgate fold is bounded by its
+    largest-|coefficient| outcome.  The stratified sampler ranks labels
+    by it (ops/qpd_sampling.stratified_split)."""
+    w = np.ones(total, dtype=np.float64)
+    lab = np.arange(total, dtype=np.int64)
+    for g, spec in enumerate(specs):
+        wg = np.max(np.abs(np.asarray(spec.coef, np.float64)), axis=1)
+        w *= wg[(lab // gstride[g]) % n_inst[g]]
+    return w
+
+
+def collapse_stream(virt, frag_name: str):
+    """Host side of collapse mode for one fragment: ``(prefix_ops,
+    suffix_steps, active, positions, sources)``.
+
+    Every ``slot_meas`` (the CX onto the slot's deferral ancilla) becomes
+    ``("collapse", slot_id, (qubit,))``: the vgate measurement collapses
+    in the simulation instead, so no ancilla ever appears in an op and
+    the state stays at the qubits that do (``active``, ascending; the
+    state width is ``len(active)``).  Fixed-gate runs between the
+    structural ops fuse to 1q/2q blocks.  The stream splits at the first
+    structural op: ``prefix_ops`` are ``("u", complex mat, axes)`` shared
+    by every label; ``suffix_steps`` mix those with ``("slot_pre" |
+    "slot_post" | "collapse", slot_id, axes)``.  Axes are fragment
+    qubits.  ``positions`` are the DATA clbits the fragment writes,
+    ascending (the vgate clbits are contracted at the collapse sites),
+    ``sources`` their qubits; a source outside ``active`` saw no op and
+    reads as a deterministic 0."""
+    from .fusion import fused_stream
+
+    prog = virt.programs[frag_name]
+    source_ops = [
+        ("collapse", op[1], (op[2][0],)) if op[0] == "slot_meas" else op
+        for op in prog.ops
+    ]
+    skeleton, mats = fused_stream(source_ops, max_qubits=2)
+    ops = []
+    bi = 0
+    for op in skeleton:
+        if op[0] == "u":
+            ops.append(("u", np.asarray(mats[bi], complex), op[1]))
+            bi += 1
+        else:
+            ops.append(op)
+    active = sorted({q for op in ops for q in op[2]})
+    clbit_sources = {
+        c: q for c, q in prog.clbit_sources.items() if c < virt.num_clbits
+    }
+    positions = sorted(clbit_sources)
+    sources = [clbit_sources[c] for c in positions]
+    first = next((i for i, op in enumerate(ops) if op[0] != "u"), len(ops))
+    return ops[:first], ops[first:], active, positions, sources
 
 
 def _fuse_slot_ops(prog_ops: list) -> list:

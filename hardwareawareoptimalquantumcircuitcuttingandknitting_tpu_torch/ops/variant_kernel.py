@@ -82,12 +82,17 @@ class OpTable:
     and the per-slot entry tables.  ``coef >= 0`` is an offset into the
     pool (re ``[m*m]`` then im ``[m*m]``), ``coef < 0`` is ``-1 -
     offset`` into the label's entry row (the concatenated per-slot ``[2,
-    m, m]`` entries).  One table format serves every circuit, so one
+    m, m]`` entries).  A row with ``nq == 0`` is a collapse site on flat
+    bit ``ja`` whose per-label scalars sit at site index ``jb`` (the
+    collapse kernel alone reads such rows; ``sites`` lists their slot
+    ids in row order).  One table format serves every circuit, so one
     build of a kernel does too."""
 
     def __init__(self, prog, specs):
         self._prog = prog
-        self._fused_tabs = _slot_tables(prog, specs, fused=True)
+        self._specs = specs
+        self._tabs: dict = {}          # fused? -> _slot_tables(...)
+        self.sites: list = []          # slot id per collapse row
         self.ops: list = []
         self.fixed: list = []
         self.entry_tables: list = []   # per slot [nI, 2*m*m] float32
@@ -95,9 +100,24 @@ class OpTable:
         self.entry_stride = 0          # floats per label entry row
         self.slot_rows: list = []      # op rows that are slots
 
+    def _slot_table(self, sid: int, kind: str) -> np.ndarray:
+        """``[nI, 2, m, 2, m]`` real blocks of one slot op: the composed
+        block (``"slot"``) or the unfused pre / post endpoint gate."""
+        fused = kind == "slot"
+        if fused not in self._tabs:
+            self._tabs[fused] = _slot_tables(self._prog, self._specs,
+                                             fused=fused)
+        return self._tabs[fused][sid][{"slot": 0, "slot_pre": 0,
+                                       "slot_post": 2}[kind]]
+
     def add(self, op, js) -> None:
-        """Append ``("u", complex mat, axes)`` or ``("slot", slot_id,
-        axes)`` acting on flat bits ``js``."""
+        """Append ``("u", complex mat, axes)``, ``("slot" | "slot_pre" |
+        "slot_post", slot_id, axes)`` or ``("collapse", slot_id, axes)``
+        acting on flat bits ``js``."""
+        if op[0] == "collapse":
+            self.ops.append((0, js[0], len(self.sites), 0))
+            self.sites.append(op[1])
+            return
         if len(js) not in (1, 2):
             raise NotImplementedError(
                 f"{len(js)}-qubit op in the fused suffix: the kernels "
@@ -111,7 +131,7 @@ class OpTable:
             self.fixed.extend(mat.imag.astype(np.float32).ravel())
         else:
             self.slot_rows.append(len(self.ops))
-            tab = self._fused_tabs[op[1]][0]  # [nI, 2, m, 2, m] real blocks
+            tab = self._slot_table(op[1], op[0])
             cx = np.stack([_to_complex(t) for t in tab])  # [nI, m, m]
             ent = np.stack([cx.real, cx.imag], axis=1).astype(np.float32)
             self.entry_tables.append(ent.reshape(ent.shape[0], -1))

@@ -8,6 +8,15 @@ JSON file beside this module, and adopted with ``Cutter.use_plan``:
   partitions of at most 21 qubits (``maxNQpdCuts = maxNCuts =
   maxCutsPerPartitions = 5``): two gate cuts, 36 labels, two fragments of
   22 simulated qubits.
+* ``ghz40_p2_q20`` — ``genCirc("ghz", 40, 1)`` cut into 2 partitions of at
+  most 20 qubits (the same three limits at 5): one gate cut, 6 labels, two
+  fragments of 21 simulated qubits.
+* ``qft16_prepped_p2_q15_gamma`` — the 16-qubit QFT behind a layer of
+  ``h`` and ``rz`` on every qubit (``models.qft.library_qft(16)``, all
+  measured), cut 15|1 by ``Cutter(maxNPartitions=2,
+  maxNQubitsPerPartition=15, gammaMode=True)``: 15 ``cp`` gate cuts with
+  gamma_total 8.57, the sampled engine's flagship plan.  The ``rz`` angles
+  do not enter the plan.
 """
 from __future__ import annotations
 

@@ -34,6 +34,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.cutter.solve
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.models.zoo import (  # noqa: E501
     genCirc as t_gen_circ,
+    generate_circ as t_generate_circ,
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
     fusion as t_fusion,
@@ -179,13 +180,136 @@ def test_convert_rejects_register_mismatch():
 
 
 def test_port_refuses_what_it_does_not_carry():
-    """Unported generators, qasm and gamma mode say which ROADMAP item
-    ports them."""
+    """Unported generators, qasm and the parity solver's teleport-free
+    twin say which ROADMAP item ports them."""
     with pytest.raises(NotImplementedError, match="zoo generators"):
-        t_gen_circ("aqft", 8, 1)
+        t_gen_circ("bv", 8, 1)
+    with pytest.raises(NotImplementedError, match="zoo generators"):
+        t_generate_circ(8, 1, "adder")
     circ = t_gen_circ("ghz", 4, 1)
     with pytest.raises(NotImplementedError, match="qasm"):
         circ.to_qasm()
-    with pytest.raises(NotImplementedError, match="gamma"):
-        TCutter(circ, maxNPartitions=2, maxNQubitsPerPartition=2,
-                gammaMode=True)
+
+
+@pytest.mark.parametrize("name,n", [("qft", 9), ("qft", 16), ("aqft", 8),
+                                    ("aqft", 16)])
+def test_qft_generators_match(name, n):
+    """genCirc("qft" / "aqft"): instruction for instruction."""
+    assert _same(circuit_to_instructions(j_gen_circ(name, n, 1)),
+                 circuit_to_instructions(t_gen_circ(name, n, 1)))
+
+
+def _prepped_qft16(circuit_cls, library_qft):
+    """The 16-qubit QFT behind an ``h`` and a seeded ``rz`` on every
+    qubit, all measured (benchmarks/qft16_sampled.py, "prepped" leg)."""
+    import math
+
+    rng = np.random.default_rng(5)
+    circ = circuit_cls(16, 16)
+    for q in range(16):
+        circ.h(q)
+        circ.rz(float(rng.uniform(0, 2 * math.pi)), q)
+    for ins in library_qft(16).instructions:
+        circ.instructions.append(ins.copy())
+    for q in range(16):
+        circ.measure(q, q)
+    return circ
+
+
+GAMMA_CASES = {
+    "qft9_q8": (lambda gen: gen("qft", 9, 1), dict(
+        maxNPartitions=2, maxNQubitsPerPartition=8, gammaMode=True,
+        maxNQpdCuts=20, maxNCuts=20, maxCutsPerPartitions=20)),
+    "qft16_q15": (lambda gen: gen("qft", 16, 1), dict(
+        maxNPartitions=2, maxNQubitsPerPartition=15, gammaMode=True)),
+    "ghz18_wire": (lambda gen: gen("ghz", 18, 1), dict(
+        maxNPartitions=2, maxNQubitsPerPartition=10, gammaMode=True,
+        forceNWireCuts=1, maxNQpdCuts=3, maxNCuts=3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GAMMA_CASES))
+def test_gamma_mode_plans_match(case):
+    """Cutter(gammaMode=True): the angle-aware search (cutter/gamma.py)
+    gives the JAX cutter's plan, metrics and fragments."""
+    build, kw = GAMMA_CASES[case]
+    jcut, tcut = JCutter(build(j_gen_circ), **kw), TCutter(
+        build(t_gen_circ), **kw)
+    assert jcut.solve() and tcut.solve()
+    assert j_plan_signature(jcut.plan) == t_plan_signature(tcut.plan)
+    assert jcut.getModelKeyResults() == tcut.getModelKeyResults()
+    jv = JVirtualCircuit(jcut.getResultCircs()[3])
+    tv = TVirtualCircuit(tcut.getResultCircs()[3])
+    assert _same(circuit_to_instructions(jv._circuit),
+                 circuit_to_instructions(tv._circuit))
+    # a second solve enumerates the next plan in both, or ends in both
+    assert jcut.solve() == tcut.solve()
+    assert j_plan_signature(jcut.plan) == t_plan_signature(tcut.plan)
+
+
+def test_stored_qft16_plan_is_the_solvers_plan():
+    """The stored gamma-mode plan of the prepped qft-16 equals the JAX
+    cutter's and the port's own solve, crosses between the packages as
+    JSON, and cuts 15|1 with 15 cp cuts at gamma_total 8.57."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.circuit.circuit import (  # noqa: E501
+        Circuit as JCircuit,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.models.qft import (  # noqa: E501
+        library_qft as j_library_qft,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.circuit.circuit import (  # noqa: E501
+        Circuit as TCircuit,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.convert import (  # noqa: E501
+        plan_from_other,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.models.qft import (  # noqa: E501
+        library_qft as t_library_qft,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.qpd_sampling import (  # noqa: E501
+        sampling_overhead,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.plans import (  # noqa: E501
+        load_plan,
+    )
+
+    kw = dict(maxNPartitions=2, maxNQubitsPerPartition=15, gammaMode=True)
+    jc = _prepped_qft16(JCircuit, j_library_qft)
+    tc = _prepped_qft16(TCircuit, t_library_qft)
+    assert _same(circuit_to_instructions(jc), circuit_to_instructions(tc))
+    stored = load_plan("qft16_prepped_p2_q15_gamma")
+    jcut, tcut = JCutter(jc, **kw), TCutter(tc, **kw)
+    assert jcut.solve() and tcut.solve()
+    assert t_plan_signature(stored) == j_plan_signature(jcut.plan) \
+        == t_plan_signature(tcut.plan)
+    carried = plan_from_other(jcut.plan)
+    assert t_plan_signature(carried) == t_plan_signature(stored)
+    assert carried.metrics == stored.metrics == tcut.plan.metrics
+    fresh = TCutter(tc, **kw)
+    fresh.use_plan(stored)
+    virt = TVirtualCircuit(fresh.getResultCircs()[3])
+    assert [virt.programs[r.name].num_data_qubits
+            for r in virt.fragments] == [15, 1]
+    assert len(virt.vgates) == 15
+    assert all(vg.base_name == "cp" for vg in virt.vgates)
+    over = sampling_overhead(virt)
+    assert over["gamma_total"] == pytest.approx(stored.metrics.S, rel=1e-12)
+    assert stored.metrics.S == pytest.approx(8.570288790326419)
+
+
+def test_stored_ghz40_plan_is_the_jax_cutters_plan():
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.plans import (  # noqa: E501
+        load_plan,
+    )
+
+    kw = dict(maxNPartitions=2, maxNQubitsPerPartition=20, maxNQpdCuts=5,
+              maxNCuts=5, maxCutsPerPartitions=5)
+    jcut = JCutter(j_gen_circ("ghz", 40, 1), **kw)
+    assert jcut.solve()
+    stored = load_plan("ghz40_p2_q20")
+    assert t_plan_signature(stored) == j_plan_signature(jcut.plan)
+    cutter = TCutter(t_gen_circ("ghz", 40, 1), **kw)
+    cutter.use_plan(stored)
+    virt = TVirtualCircuit(cutter.getResultCircs()[3])
+    assert [virt.programs[r.name].num_sim_qubits
+            for r in virt.fragments] == [21, 21]

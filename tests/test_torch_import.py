@@ -76,6 +76,7 @@ def test_stored_plans_load_without_jax():
         f"from {PORT}.plans import load_plan, stored_plans\n"
         "names = stored_plans()\n"
         "assert 'hwe40_d2_p2_q21' in names, names\n"
+        "assert 'qft16_prepped_p2_q15_gamma' in names, names\n"
         "for n in names:\n"
         "    plan = load_plan(n)\n"
         "    assert plan.num_partitions >= 2 and plan.cuts, n\n"
@@ -97,8 +98,9 @@ def test_kernel_libraries_build_nothing_at_import():
         "def refuse(*a, **k):\n"
         "    raise AssertionError('a process was started at import')\n"
         "subprocess.Popen = subprocess.run = refuse\n"
-        f"from {PORT}.ops import blocked_kernel, variant_kernel\n"
-        "for mod in (blocked_kernel, variant_kernel):\n"
+        f"from {PORT}.ops import blocked_kernel, collapse_kernel, "
+        "variant_kernel\n"
+        "for mod in (blocked_kernel, collapse_kernel, variant_kernel):\n"
         "    lib = mod.LIBRARY\n"
         "    assert lib.source.is_file(), lib.source\n"
         "    assert lib.lib is None and lib.path is None\n"

@@ -162,3 +162,102 @@ def test_blocked_kernel_refuses_a_wrong_state(card):
     with pytest.raises(ValueError, match="shape"):
         bk.apply_segment(dp, 0, bad, ent)
     assert bk.blocked_rows.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The collapse kernel (csrc/collapse_kernel.cu)
+# ---------------------------------------------------------------------------
+
+def _qft_gamma_cut(n: int):
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.cutter.cutter import (  # noqa: E501
+        Cutter,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.models.zoo import (  # noqa: E501
+        genCirc,
+    )
+
+    cutter = Cutter(genCirc("qft", n, 1), maxNPartitions=2,
+                    maxNQubitsPerPartition=n - 1, gammaMode=True)
+    assert cutter.solve()
+    return VirtualCircuit(cutter.getResultCircs()[3])
+
+
+_COLLAPSE_CUTS: dict = {}
+
+
+def _collapse_case(n: int):
+    """(virt, fragment name) whose collapse-mode state has ``n`` qubits:
+    qft-9 cut 8|1 gives n = 8 and n = 1, qft-16 cut 15|1 n = 15."""
+    total = 16 if n == 15 else 9
+    if total not in _COLLAPSE_CUTS:
+        _COLLAPSE_CUTS[total] = _qft_gamma_cut(total)
+    virt = _COLLAPSE_CUTS[total]
+    frag = next(r.name for r in virt.fragments
+                if virt.programs[r.name].num_data_qubits == n)
+    return virt, frag
+
+
+COLLAPSE_EPILOGUES = {
+    "rows": {},
+    "marginal": {"keep_clbits": {0, 1, 2, 3}},
+    "z": {"z_sets": [{0}, {1, 2}, set(range(16))]},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", sorted(COLLAPSE_EPILOGUES))
+@pytest.mark.parametrize("labels", [1, 3, 1024, 4096])
+@pytest.mark.parametrize("n", [1, 8, 15])
+def test_collapse_kernel_matches_plain_on_card(card, n, labels, epilogue):
+    """Random labels, draws, measure flags and weights: picked bits equal
+    (a flip only within 1e-6 of a threshold), rows within 1e-5, one
+    launch counted."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+        collapse_kernel as ck,
+    )
+
+    virt, frag = _collapse_case(n)
+    plan = ck.build_plan(virt, frag, **COLLAPSE_EPILOGUES[epilogue])
+    assert plan.n == n and len(plan.site_meta) >= 8
+    dp = ck.CollapseDevicePlan(plan, card)
+    rng = np.random.default_rng(100 * n + labels)
+    lab = np.stack([rng.integers(0, vg.spec.num_instantiations, labels)
+                    for vg in virt.vgates], axis=1)
+    cscal = np.empty((labels, plan.n_sites, 4), np.float32)
+    cscal[:, :, 0] = rng.random((labels, plan.n_sites))
+    cscal[:, :, 1] = rng.integers(0, 2, (labels, plan.n_sites))
+    cscal[:, :, 2:] = rng.uniform(-1, 1, (labels, plan.n_sites, 2))
+    ent = dp.gather_entries(torch.as_tensor(lab, device=card))
+    cscal = torch.as_tensor(cscal, device=card)
+    before = ck.collapse_rows.launches
+    got, bits = ck.collapse_rows(dp, ent, cscal)
+    torch.cuda.synchronize()
+    assert ck.collapse_rows.launches == before + 1
+    want, wbits, margins = ck.plain_collapse_rows(dp, ent, cscal,
+                                                  with_margins=True)
+    assert got.shape == want.shape == (labels, plan.out_width)
+    assert torch.isfinite(got).all()
+    agree, near, far = ck.compare_picks(bits, wbits, margins)
+    assert far == 0 and near <= max(1, labels // 100)
+    assert (got - want)[agree].abs().max().item() <= TOL
+    # a second launch repeats the first bit for bit (fixed-order sums)
+    again, bits2 = ck.collapse_rows(dp, ent, cscal)
+    assert torch.equal(again, got) and torch.equal(bits2, bits)
+
+
+@pytest.mark.cuda
+def test_collapse_kernel_refuses_wrong_scalars(card):
+    """On a CUDA tensor the wrapper launches or raises: a scalar block of
+    the wrong shape is refused before any launch."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+        collapse_kernel as ck,
+    )
+
+    virt, frag = _collapse_case(8)
+    dp = ck.CollapseDevicePlan(ck.build_plan(virt, frag), card)
+    ent = dp.gather_entries(torch.zeros((3, len(virt.vgates)),
+                                        dtype=torch.int64, device=card))
+    before = ck.collapse_rows.launches
+    with pytest.raises(ValueError, match="shape"):
+        ck.collapse_rows(dp, ent, torch.zeros((3, 1, 4), device=card))
+    assert ck.collapse_rows.launches == before

@@ -306,12 +306,16 @@ def test_entry_points_default_to_cuda(monkeypatch):
         streamed_expectation_z(tv, [10], chunk=chunk)
 
 
-@pytest.mark.parametrize("engine", ["auto", "xla", "streamed", "sharded",
-                                    "sampled"])
-def test_unported_engines_name_their_roadmap_item(engine):
+@pytest.mark.parametrize("engine,kw", [
+    pytest.param(e, {}, id=e) for e in ("auto", "xla", "streamed", "sharded")
+] + [
+    # the sampled engine is ported for kernel-backed rows only
+    pytest.param("sampled", dict(sample_pallas=False), id="sampled"),
+])
+def test_unported_engines_name_their_roadmap_item(engine, kw):
     _, _, _, tv, _ = _pair("ghz10_p2q5")
     with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
-        run_virtual_circuit(tv, engine=engine, device="cpu")
+        run_virtual_circuit(tv, engine=engine, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("kw", [

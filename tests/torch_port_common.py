@@ -99,3 +99,16 @@ def shuffled(vidx: np.ndarray, total: int, seed: int) -> np.ndarray:
     """Rows of ``vidx`` in a seeded random order (padding rows kept last)."""
     perm = np.random.default_rng(seed).permutation(total)
     return vidx[list(perm) + list(range(total, vidx.shape[0]))]
+
+
+def qft_gamma_pair(n: int = 9, cap: int = 8):
+    """qft-n cut (n-1)|1 by ``Cutter(gammaMode=True)`` in the JAX package
+    (qft-9: 8 cp cuts, the JAX kernel tests' ``_qft_gamma_cut``), the cut
+    circuit carried into the torch package.  Returns (jax_virt,
+    port_virt)."""
+    cutter = JCutter(j_gen_circ("qft", n, 1), maxNPartitions=2,
+                     maxNQubitsPerPartition=cap, gammaMode=True,
+                     maxNQpdCuts=20, maxNCuts=20, maxCutsPerPartitions=20)
+    assert cutter.solve()
+    cut = cutter.getResultCircs()[3]
+    return JVirtualCircuit(cut), TVirtualCircuit(to_port(cut))
