@@ -3,8 +3,9 @@
 
 Phases (any failure exits non-zero without the result line):
 
-1. build   — ``nvcc`` builds csrc/variant_kernel.cu, csrc/blocked_kernel.cu
-             and csrc/collapse_kernel.cu for sm_90a, side by side;
+1. build   — ``nvcc`` builds csrc/variant_kernel.cu, csrc/blocked_kernel.cu,
+             csrc/collapse_kernel.cu and csrc/sv_kernel.cu for sm_90a, side
+             by side;
 2. kernel  — the variant kernel against its plain PyTorch version on the
              card, at sup-20 (seed 0, P2 Q10, 5/5/5 cuts) fragments and
              chunk 504: folded+staged, folded unstaged, full rows, and
@@ -54,11 +55,28 @@ Phases (any failure exits non-zero without the result line):
              times per fragment.  ghz-40 (P2 Q20, stored cut plan): the
              marginal is 1/2 on all-zeros and all-ones, <Z> on an even
              support is 1;
-8. where the time goes — host build of the scan, the run without the
+8. sv      — the whole-fragment kernel (every variant of a fragment from
+             one launch) against its plain version at the path's own
+             size: all 248832 lanes of both fragments of hwe-16 (depth 5,
+             seed 0, P2 Q10, 5 cx cuts, solved in the run) and of sup-20;
+             a hand-built cut circuit with a 13-data-qubit fragment under
+             a gate cut and a wire cut (the width gate: 64 KB of shared
+             memory a lane), whose 14-qubit twin returns None; <= 1e-5.
+             Then its main path: run_fragment_kernel per fragment ->
+             knit.knit -> nearest_probability_distribution on hwe-16 and
+             on sup-20 (a 2^20-outcome knit), fidelity > 1 - 1e-5, one
+             launch per fragment; and beside it the batched engine on
+             hwe-16: run_virtual_circuit(engine="xla") and "auto" at the
+             same fidelity, the kernel's rows within 2e-5 of
+             run_fragment's (on sup-20's dense rows too),
+             expectation_z equal to the knitted distribution's within
+             1e-5;
+9. where the time goes — host build of the scan, the run without the
              simplex projection, and a torch.profiler trace (device time
              by kernel, device idle share of the wall) for sup-20, ghz-24,
-             hwe-40 and qft-16 (there also the host's label sampling);
-9. report  — one JSON line of kernels (launches, error, times, bound), the
+             hwe-40, qft-16 (there also the host's label sampling) and
+             the two hwe-16 routes (lane table, upload, kernel, knit);
+10. report — one JSON line of kernels (launches, error, times, bound), the
              card's name and power limit, and the contract's last line.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Details go to
@@ -88,6 +106,13 @@ TPU_BLOCKED = ("hardwareawareoptimalquantumcircuitcuttingandknitting_tpu/"
                "ops/pallas_blocked.py:168")
 TPU_COLLAPSE = ("hardwareawareoptimalquantumcircuitcuttingandknitting_tpu/"
                 "ops/pallas_variant.py:1165")
+TPU_SV = ("hardwareawareoptimalquantumcircuitcuttingandknitting_tpu/"
+          "ops/pallas_sv.py:347")
+ROWS_TOL = 2e-5      # whole-fragment kernel vs the batched engine's rows
+# the whole-fragment kernel's rows are probabilities, as small as 3e-5 an
+# entry on a dense fragment: its two limits are also held relative to the
+# largest entry of the reference rows, fragment by fragment
+WIDE_LANES = 4096    # lanes of the 13-qubit case, drawn from its own table
 HWE_CHUNK = 512      # capped by auto_chunk to 16 labels at 22 qubits
 QFT_SAMPLES = 120000
 QFT_SEED = 17
@@ -402,12 +427,19 @@ def _reset_counts():
     _port("ops.blocked_kernel").blocked_rows.launches = 0
     _port("ops.variant_kernel").variant_rows.launches = 0
     _port("ops.collapse_kernel").collapse_rows.launches = 0
+    _port("ops.sv_kernel").sv_rows.launches = 0
 
 
 def _counts():
     return {"blocked": _port("ops.blocked_kernel").blocked_rows.launches,
             "variant": _port("ops.variant_kernel").variant_rows.launches,
-            "collapse": _port("ops.collapse_kernel").collapse_rows.launches}
+            "collapse": _port("ops.collapse_kernel").collapse_rows.launches,
+            "sv": _port("ops.sv_kernel").sv_rows.launches}
+
+
+def _only(**launched):
+    """The launch counts of a path that ran these kernels and no other."""
+    return {"blocked": 0, "variant": 0, "collapse": 0, "sv": 0, **launched}
 
 
 def phase_forced_sup20(circ, virt, report, window=13):
@@ -444,7 +476,7 @@ def phase_forced_sup20(circ, virt, report, window=13):
     print(f"main sup20 forced blocked (window {window}): launches={counts} "
           f"expected={expect} scan_s={wall:.4f} fidelity={fid!r}",
           flush=True)
-    if counts != {"blocked": expect, "variant": 0, "collapse": 0}:
+    if counts != _only(blocked=expect):
         raise RuntimeError(f"forced blocked route launched {counts}, "
                            f"expected {expect} blocked launches only")
     if not fid > FID_MIN:
@@ -584,10 +616,10 @@ def phase_wide(label, virt, report, analytic, kernel_row=None):
          f"fragment widths {widths} are within the variant kernel's gate")
     need(np.isfinite(values).all() and values.shape == (1 << len(keep),),
          "marginal not finite or of the wrong shape")
-    need(counts == {"blocked": expect, "variant": 0, "collapse": 0},
+    need(counts == _only(blocked=expect),
          f"launched {counts}, expected {expect} blocked launches only")
     need(z_counts == counts, f"expectation launched {z_counts}")
-    need(plain_counts == {"blocked": 0, "variant": 0, "collapse": 0},
+    need(plain_counts == _only(),
          f"the plain knit launched kernels: {plain_counts}")
     need(all(meta["pallas_fragments"].values())
          and set(meta["fragment_kernels"].values()) == {"blocked"},
@@ -852,7 +884,7 @@ def phase_sampled_sup20(virt, report):
           flush=True)
     if any(flags):
         raise RuntimeError(f"sup-20 went to collapse mode: {flags}")
-    if counts != {"blocked": 0, "variant": expect, "collapse": 0}:
+    if counts != _only(variant=expect):
         raise RuntimeError(f"sampled sup-20 launched {counts}, expected "
                            f"{expect} variant launches only")
     if est.bit_positions != exact.bit_positions or not err <= 1e-6:
@@ -1026,11 +1058,11 @@ def phase_main_qft16(circ, virt, report):
     need(np.isfinite(est_v).all() and est_v.shape == (1 << len(QFT_KEEP),)
          and dist.bit_positions == QFT_KEEP,
          "marginal not finite or of the wrong shape")
-    need(counts == {"blocked": 0, "variant": 0, "collapse": expect},
+    need(counts == _only(collapse=expect),
          f"launched {counts}, expected {expect} collapse launches only")
     need(z_counts["collapse"] > 0 and not z_counts["variant"],
          f"<Z> launched {z_counts}")
-    need(plain_counts == {"blocked": 0, "variant": 0, "collapse": 0},
+    need(plain_counts == _only(),
          f"the plain knit launched kernels: {plain_counts}")
     need(not rebuilt and len(cache) == 2,
          f"the second call built a plan ({len(cache)} cache entries)")
@@ -1046,6 +1078,356 @@ def phase_main_qft16(circ, virt, report):
         row = _kernel_row(report, f"collapse_rows/qft16_{mode}")
         row["launches"] = n
         row["on_main_path"] = True
+
+
+def _cut_wide13(n=13):
+    """A hand-built cut circuit at the whole-fragment kernel's width gate:
+    frag0 holds ``n`` data qubits under a chain of fixed gates, a gate cut
+    (cz) and a wire cut (move) to a 2-qubit frag1, and more gates after
+    the slots; every second qubit of frag0 is measured."""
+    circuit = _port("circuit.circuit")
+    VirtualGateOp = _port("virt.virtual_gates").VirtualGateOp
+    cut = circuit.Circuit([circuit.Register("frag0", n),
+                           circuit.Register("frag1", 2)], n + 2)
+    cut.h(0)
+    for q in range(n - 1):
+        if q % 2:
+            cut.cx(q + 1, q)
+        else:
+            cut.cx(q, q + 1)
+    for q in range(n):
+        cut.ry(0.2 * (q + 1), q)
+        cut.rz(0.1 * (q + 1), q)
+    cut.append(circuit.Instruction("vgate", [n - 1, n],
+                                   op=VirtualGateOp("cz")))
+    cut.rx(0.7, n - 1)
+    cut.cp(0.9, n - 1, 0)
+    cut.append(circuit.Instruction("vgate", [1, n + 1],
+                                   op=VirtualGateOp("move")))
+    cut.cx(n, n + 1)
+    cut.h(2)
+    for c, q in enumerate(list(range(0, n, 2)) + [n, n + 1]):
+        cut.measure(q, c)
+    return _port("virt.virtual_circuit").VirtualCircuit(cut)
+
+
+def phase_sv(label, virt, report, names=None, lanes=None):
+    """The whole-fragment kernel against its plain version on the
+    fragments ``names`` of ``virt`` (default all), every lane of each
+    fragment's own lane table (or ``lanes`` of them, drawn with a seed);
+    one launch per fragment.  The host's share is timed apart: the lane
+    table in numpy, and its upload."""
+    import numpy as np
+    import torch
+
+    sv = _port("ops.sv_kernel")
+    names = names or [r.name for r in virt.fragments]
+    calls, shapes = [], {}
+    work = {"bytes": 0, "flops": 0, "pass_bytes": 0}
+    err = rel_err = 0.0
+    host_s = upload_s = 0.0
+    for fi, name in enumerate(names):
+        t0 = time.perf_counter()
+        built = sv.build_fragment_kernel(virt, name, device=DEV)
+        host_s += time.perf_counter() - t0
+        if built is None:
+            raise RuntimeError(f"{label}/{name}: outside the kernel")
+        fn, table, meta = built
+        dp = fn.plan
+        if lanes is not None:
+            table = table[np.random.default_rng(11 + fi).integers(
+                0, meta["total"], lanes)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        par = torch.as_tensor(table, device=DEV)
+        torch.cuda.synchronize()
+        upload_s += time.perf_counter() - t0
+        got = sv.sv_rows(dp, par)
+        again = sv.sv_rows(dp, par)
+        want = sv.plain_sv_rows(dp, par)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"{label}/{name}: non-finite kernel rows")
+        if not torch.equal(got, again):
+            raise RuntimeError(f"{label}/{name}: a launch does not repeat")
+        frag_err = (got - want).abs().max().item()
+        err = max(err, frag_err)
+        rel_err = max(rel_err, frag_err / want.abs().max().item())
+        del got, again, want
+        kinds = dp.plan.ops[:, 0].tolist()
+        shapes[name] = {
+            "n": dp.plan.n, "k": dp.plan.k, "m": len(dp.plan.meas_vgates),
+            "lanes": par.shape[0], "params_cols": par.shape[1],
+            "ops_1q": kinds.count(1), "ops_2q": kinds.count(2),
+            "slots": kinds.count(3),
+            "threads_group": sv.launch_geometry(dp.plan.n),
+        }
+        wk = sv.work_counts(dp.plan, par.shape[0], table)
+        shapes[name]["flops_per_lane_amplitude"] = (
+            wk["flops"] / (par.shape[0] << dp.plan.n))
+        for key in work:
+            work[key] += wk[key]
+        calls.append((dp, par))
+    ms = _time_ms(lambda: [sv.sv_rows(*a) for a in calls], reps=5)
+    plain_ms = _time_ms(lambda: [sv.plain_sv_rows(*a) for a in calls],
+                        reps=1, warm=0)
+    bound_ms, bound_by = _bound(work)
+    report.setdefault("kernels", []).append({
+        "name": f"sv_rows/{label}",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/sv_kernel.cu",
+        "replaces": TPU_SV,
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": err,
+        "max_err_over_largest_entry": rel_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "on_main_path": False,  # set by the path that launches it
+        "work": work,
+        "fragments": shapes,
+        "lane_table_host_s": host_s,
+        "lane_table_upload_s": upload_s,
+    })
+    print(f"sv {label}: fragments={shapes} max_abs_err={err:.3e} "
+          f"(over the fragment's largest entry {rel_err:.3e}) | one "
+          f"launch per fragment, {len(calls)} fragments: ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}; "
+          f"{work['bytes'] / 1e6:.1f} MB, {work['flops'] / 1e9:.2f} GFLOP = "
+          f"{work['flops'] / ms / 1e9:.2f} TFLOP/s); shared-memory passes "
+          f"{work['pass_bytes'] / 1e9:.1f} GB = "
+          f"{work['pass_bytes'] / ms / 1e9:.2f} TB/s; host: lane tables "
+          f"{host_s:.3f} s, upload {upload_s:.4f} s", flush=True)
+    if not (err <= TOL and rel_err <= TOL):
+        raise RuntimeError(f"{label}: sv kernel vs plain {err:.3e} (over "
+                           f"the largest entry {rel_err:.3e}) > {TOL}")
+
+
+def phase_sv_width_gate(report):
+    """The width gate itself: 13 data qubits run (a lane's state fills
+    64 KB of shared memory), held to the plain version and, through the
+    entry point, to the batched engine's rows; 14 return None."""
+    sv = _port("ops.sv_kernel")
+    ve = _port("ops.variant_engine")
+    virt = _cut_wide13(sv.MAX_KERNEL_QUBITS)
+    phase_sv("wide13", virt, report, names=["frag0"], lanes=WIDE_LANES)
+    got = [sv.run_fragment_kernel(virt, reg.name, device=DEV)
+           for reg in virt.fragments]
+    _, err, rel_err = _rows_vs_batched("wide13", virt, got)
+    too_wide = sv.run_fragment_kernel(
+        _cut_wide13(sv.MAX_KERNEL_QUBITS + 1), "frag0", device=DEV)
+    report["sv_width_gate"] = {"rows_vs_batched_max_abs_err": err,
+                               "rows_vs_batched_over_largest_entry": rel_err,
+                               "width_14_result": repr(too_wide)}
+    print(f"sv width gate: 13-qubit rows vs the batched engine {err:.3e} "
+          f"(over the largest entry {rel_err:.3e}); 14 qubits -> "
+          f"{too_wide!r}", flush=True)
+    if not (err <= ROWS_TOL and rel_err <= ROWS_TOL):
+        raise RuntimeError(f"wide13: kernel vs batched rows {err:.3e} "
+                           f"(over the largest entry {rel_err:.3e})")
+    if too_wide is not None:
+        raise RuntimeError("a 14-qubit fragment did not return None")
+
+
+def _sv_route(virt):
+    """The kernel route a caller composes: every fragment's rows from the
+    whole-fragment kernel, knit, projection.  Returns (distribution,
+    results, seconds by stage)."""
+    sv = _port("ops.sv_kernel")
+    tknit = _port("ops.knit")
+    stage = {}
+    results = [sv.run_fragment_kernel(virt, reg.name, device=DEV,
+                                      timings=stage)
+               for reg in virt.fragments]
+    if any(r is None for r in results):
+        raise RuntimeError("a fragment is outside the kernel")
+    t0 = time.perf_counter()
+    raw = tknit.knit(virt, results)
+    t1 = time.perf_counter()
+    dist = tknit.nearest_probability_distribution(raw)
+    stage["knit_and_fetch_s"] = t1 - t0
+    stage["projection_s"] = time.perf_counter() - t1
+    return dist, results, stage
+
+
+def phase_main_sv(label, circ, virt, report, kernel_row):
+    """Kernel 5's main path on the card: ``run_fragment_kernel`` for every
+    fragment -> ``knit.knit`` -> ``nearest_probability_distribution``,
+    launches counted around it, fidelity against the uncut oracle."""
+    import torch
+
+    sv = _port("ops.sv_kernel")
+    tknit = _port("ops.knit")
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    results = [sv.run_fragment_kernel(virt, reg.name, device=DEV)
+               for reg in virt.fragments]
+    if any(r is None for r in results):
+        raise RuntimeError(f"{label}: a fragment is outside the kernel")
+    dist = tknit.nearest_probability_distribution(tknit.knit(virt, results))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = _counts()
+    rows = {r.name: list(r.values.shape) for r in results}
+    del results
+    t0 = time.perf_counter()
+    warm_dist, results, stage = _sv_route(virt)
+    warm_s = time.perf_counter() - t0
+    oracle = _port("ops.statevector").simulate_circuit(circ, device=DEV)
+    fid = _port("evaluate").hellinger_fidelity(oracle, dist)
+    warm_fid = _port("evaluate").hellinger_fidelity(oracle, warm_dist)
+    prof = _profile(lambda: _sv_route(virt))
+    out = {
+        "rows": rows, "outcomes": len(dist.values), "launches": counts,
+        "first_call_s": first_s, "warm_wall_s": warm_s, "stages": stage,
+        "fidelity": fid, "warm_fidelity": warm_fid,
+    }
+    out.update(prof)
+    report[label] = out
+    print(f"main {label}: rows={rows} outcomes={out['outcomes']} "
+          f"launches={counts} first_call_s={first_s:.4f} "
+          f"warm_wall_s={warm_s:.4f} stages="
+          f"{ {k: round(v, 4) for k, v in stage.items()} } fidelity={fid!r} "
+          f"device_busy_ms={out['device_busy_ms']} "
+          f"idle_share={out['device_idle_share']}", flush=True)
+    for row in out["device_ms_by_kernel"][:5]:
+        print(f"  device {row['ms']:.3f} ms x{row['calls']}: "
+              f"{row['kernel']}", flush=True)
+    if counts != _only(sv=len(virt.fragments)):
+        raise RuntimeError(f"{label}: launched {counts}, expected one sv "
+                           "launch per fragment and nothing else")
+    if not (fid > FID_MIN and warm_fid > FID_MIN):
+        raise RuntimeError(f"{label}: fidelity {fid!r} / {warm_fid!r} <= "
+                           f"{FID_MIN}")
+    row = _kernel_row(report, kernel_row)
+    row["launches"] = counts["sv"]
+    row["on_main_path"] = True
+    return results
+
+
+def _rows_vs_batched(label, virt, sv_results):
+    """The whole-fragment kernel's ``FragmentResult`` of every fragment
+    against the batched engine's ``run_fragment``: the same clbits and
+    vgates, and the largest difference of the rows.  Returns (the batched
+    results, that difference, and the largest difference over a fragment's
+    largest entry)."""
+    ve = _port("ops.variant_engine")
+    rows_err = rel_err = 0.0
+    results = []
+    for got in sv_results:
+        want = ve.run_fragment(virt, got.name, device=DEV)
+        if (got.bit_positions, got.touching) != (want.bit_positions,
+                                                 want.touching):
+            raise RuntimeError(f"{label}/{got.name}: positions differ")
+        frag_err = (got.values - want.values).abs().max().item()
+        rows_err = max(rows_err, frag_err)
+        rel_err = max(rel_err, frag_err / want.values.abs().max().item())
+        results.append(want)
+    return results, rows_err, rel_err
+
+
+def phase_rows_sup20(virt, report, sv_results):
+    """Kernel rows against the batched engine's on a dense distribution:
+    sup-20's fragments (15 simulated qubits in the batched engine, 10
+    data qubits in the kernel), every variant."""
+    t0 = time.perf_counter()
+    _, rows_err, rel_err = _rows_vs_batched("sup20", virt, sv_results)
+    report["sup20_sv"]["kernel_rows_vs_run_fragment_max_abs_err"] = rows_err
+    report["sup20_sv"]["kernel_rows_vs_run_fragment_over_largest_entry"] = (
+        rel_err)
+    report["sup20_sv"]["run_fragment_s"] = time.perf_counter() - t0
+    print(f"main sup20_sv: kernel rows vs run_fragment {rows_err:.3e} "
+          f"(over the largest entry {rel_err:.3e}; "
+          f"{report['sup20_sv']['run_fragment_s']:.2f} s for the batched "
+          "engine's rows)", flush=True)
+    if not (rows_err <= ROWS_TOL and rel_err <= ROWS_TOL):
+        raise RuntimeError(f"sup20: kernel vs batched rows {rows_err:.3e} "
+                           f"(over the largest entry {rel_err:.3e})")
+
+
+def phase_main_xla(circ, virt, report, sv_results):
+    """The batched engine beside the kernel on hwe-16:
+    ``run_virtual_circuit(engine="xla")`` and ``engine="auto"`` against
+    the oracle; per fragment the kernel's rows against ``run_fragment``'s;
+    ``expectation_z`` of both producers' rows against the knitted
+    distribution's."""
+    import numpy as np
+    import torch
+
+    tknit = _port("ops.knit")
+    run_virtual_circuit = _port("run").run_virtual_circuit
+    oracle = _port("ops.statevector").simulate_circuit(circ, device=DEV)
+    fidelity = _port("evaluate").hellinger_fidelity
+
+    out = {}
+    dists = {}
+    _reset_counts()
+    for engine in ("xla", "auto"):
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dists[engine], info = run_virtual_circuit(virt, engine=engine,
+                                                      device=DEV)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[engine] = {"first_call_s": walls[0], "warm_wall_s": walls[1],
+                       "run_time_s": info.run_time,
+                       "knit_time_s": info.knit_time,
+                       "fidelity": fidelity(oracle, dists[engine])}
+    counts = _counts()
+    engines_err = float(np.abs(dists["xla"].values
+                               - dists["auto"].values).max())
+
+    results, rows_err, rows_rel = _rows_vs_batched("hwe16", virt,
+                                                   sv_results)
+
+    z_clbits = sorted(c for cs in _written_data_clbits(virt) for c in cs)
+    raw = tknit.knit(virt, results)
+    z_dist = _z_of_marginal(raw.values)
+    z_xla = tknit.expectation_z(virt, results, z_clbits)
+    z_sv = tknit.expectation_z(virt, sv_results, z_clbits)
+    prof = _profile(lambda: run_virtual_circuit(virt, engine="xla",
+                                                device=DEV))
+    out.update({
+        "launches": counts, "xla_vs_auto_max_abs_err": engines_err,
+        "kernel_rows_vs_run_fragment_max_abs_err": rows_err,
+        "kernel_rows_vs_run_fragment_over_largest_entry": rows_rel,
+        "z_clbits": z_clbits, "z_of_knitted_distribution": z_dist,
+        "expectation_z_batched_rows": z_xla,
+        "expectation_z_kernel_rows": z_sv,
+    })
+    out.update(prof)
+    report["hwe16_xla"] = out
+    print(f"main hwe16 batched: xla={out['xla']} auto={out['auto']} "
+          f"launches={counts} xla_vs_auto={engines_err:.3e} kernel rows vs "
+          f"run_fragment {rows_err:.3e} <Z> distribution={z_dist!r} "
+          f"batched rows={z_xla!r} kernel rows={z_sv!r} "
+          f"device_busy_ms={out['device_busy_ms']} "
+          f"idle_share={out['device_idle_share']}", flush=True)
+    for row in out["device_ms_by_kernel"][:5]:
+        print(f"  device {row['ms']:.3f} ms x{row['calls']}: "
+              f"{row['kernel']}", flush=True)
+
+    def need(ok, what):
+        if not ok:
+            raise RuntimeError(f"hwe16 batched: {what}")
+
+    need(raw.bit_positions == z_clbits and len(z_clbits) == 16,
+         f"knitted clbits {raw.bit_positions}")
+    for engine in ("xla", "auto"):
+        need(out[engine]["fidelity"] > FID_MIN,
+             f"engine={engine!r} fidelity {out[engine]['fidelity']!r}")
+    need(counts == _only(), f"the batched engine launched {counts}")
+    need(engines_err <= 1e-7, f"auto differs from xla by {engines_err:.3e}")
+    need(rows_err <= ROWS_TOL and rows_rel <= ROWS_TOL,
+         f"kernel rows vs run_fragment {rows_err:.3e} (over the largest "
+         f"entry {rows_rel:.3e})")
+    need(abs(z_xla - z_dist) <= TOL and abs(z_sv - z_dist) <= TOL,
+         f"<Z> {z_xla!r} / {z_sv!r} vs the distribution's {z_dist!r}")
 
 
 def _profile(fn):
@@ -1141,7 +1523,7 @@ def phase_main(label, circ, virt, report, timed_reps=1):
           f"launches={launches} first_run_s={first_s:.4f} "
           f"warm_wall_s={[round(w, 4) for w in walls]} fidelity={fid!r}",
           flush=True)
-    if not launches > 0 or counts["blocked"] or counts["collapse"]:
+    if counts != _only(variant=launches) or not launches > 0:
         raise RuntimeError(f"{label}: launched {counts}, expected the "
                            "variant kernel only")
     if not fid > FID_MIN:
@@ -1211,20 +1593,24 @@ def main() -> int:
     failed = []
 
     def phase(name, fn, *args):
+        """Run one phase; its result, or None when it failed."""
         t0 = time.perf_counter()
+        out = None
         try:
-            fn(*args)
+            out = fn(*args)
         except Exception as exc:  # a failed phase fails the run
             import traceback
 
             traceback.print_exc()
             failed.append(f"{name}: {exc}")
         report.setdefault("phase_s", {})[name] = time.perf_counter() - t0
+        return out
 
     def build():
         libs = [_port("ops.variant_kernel").LIBRARY,
                 _port("ops.blocked_kernel").LIBRARY,
-                _port("ops.collapse_kernel").LIBRARY]
+                _port("ops.collapse_kernel").LIBRARY,
+                _port("ops.sv_kernel").LIBRARY]
         t0 = time.perf_counter()
         _port("ops.kernel_build").build_all(libs)
         report["build_s"] = time.perf_counter() - t0
@@ -1293,6 +1679,23 @@ def main() -> int:
     if cut("ghz40", "ghz", 40, 20, None, stored_plan="ghz40_p2_q20"):
         phase("main_ghz40", phase_wide, "ghz40", cuts["ghz40"][1], report,
               True)
+    if cut("hwe16", "hwe", 16, 10, 0, depth=5):
+        circ, virt = cuts["hwe16"]
+        phase("sv_hwe16", phase_sv, "hwe16", virt, report)
+        rows = phase("main_hwe16_sv", phase_main_sv, "hwe16_sv", circ, virt,
+                     report, "sv_rows/hwe16")
+        if rows is not None:
+            phase("main_hwe16_xla", phase_main_xla, circ, virt, report, rows)
+        del rows
+    phase("sv_width_gate", phase_sv_width_gate, report)
+    if "sup20" in cuts:
+        circ, virt = cuts["sup20"]
+        phase("sv_sup20", phase_sv, "sup20", virt, report)
+        rows = phase("main_sup20_sv", phase_main_sv, "sup20_sv", circ, virt,
+                     report, "sv_rows/sup20")
+        if rows is not None:
+            phase("rows_sup20_sv", phase_rows_sup20, virt, report, rows)
+        del rows
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -8,8 +8,11 @@ package's ``Circuit``), so both packages can start from one object
 without either importing the other.  A cut plan crosses as its JSON text
 (:func:`plan_from_other`; the same text ``Cutter.save_plan`` writes and
 ``plans.load_plan`` reads), and a sampled label block with its collapse
-draws as numpy arrays (:func:`sampled_block_to_device`), unchanged.  Host
-tables become device tensors through :func:`to_device`.
+draws as numpy arrays (:func:`sampled_block_to_device`), unchanged.  A
+fragment's variant rows cross as numpy (:func:`fragment_result_from_other`
+into this package, :func:`fragment_result_to_numpy` out of it), so either
+package's rows can feed either package's knit.  Host tables become device
+tensors through :func:`to_device`.
 """
 from __future__ import annotations
 
@@ -141,3 +144,31 @@ def sampled_block_to_device(labels, draws, device):
     ``draws [L, n_sites]`` -> float32, values unchanged."""
     return (to_device(np.asarray(labels), device, torch.int64),
             to_device(np.asarray(draws, np.float32), device))
+
+
+def fragment_result_from_other(res, device=None):
+    """This package's ``FragmentResult`` (``values`` a float32 tensor on
+    ``device``, None = "cuda") from any object with ``name``, ``values``
+    (array-like ``[num_variants, 2^k]``), ``bit_positions`` and
+    ``touching``: the JAX package's result, or one from
+    :func:`fragment_result_to_numpy`."""
+    from .ops.variant_engine import FragmentResult
+
+    return FragmentResult(
+        res.name,
+        # a copy: the result owns its rows, whatever the source array was
+        to_device(np.array(res.values, np.float32),
+                  resolve_device(device)),
+        list(res.bit_positions), list(res.touching),
+    )
+
+
+def fragment_result_to_numpy(res):
+    """A ``FragmentResult`` of this package with its ``values`` fetched to
+    a numpy array: the form the JAX package's knit takes."""
+    from .ops.variant_engine import FragmentResult
+
+    return FragmentResult(
+        res.name, res.values.detach().cpu().numpy(),
+        list(res.bit_positions), list(res.touching),
+    )

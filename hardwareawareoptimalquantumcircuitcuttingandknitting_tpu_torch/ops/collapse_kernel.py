@@ -49,7 +49,7 @@ from ..convert import resolve_device, to_device
 from ..virt.virtual_circuit import VirtualCircuit
 from .kernel_build import KernelLibrary, check_tensor
 from .statevector import apply_matrix_host, marginalize_flat
-from .variant_engine import collapse_stream
+from .variant_engine import collapse_stream, splice_zero_bits
 from .variant_kernel import OpTable, apply_op_plain, gather_slot_entries
 
 MAX_QUBITS = 20      # per-block state in global scratch: 8 MB at n = 20
@@ -199,19 +199,6 @@ class CollapseDevicePlan:
         num_vgates]`` label block (global vgate columns)."""
         return gather_slot_entries(self.entry_tables, self.plan.entry_gids,
                                    lab_chunk)
-
-
-def splice_zero_bits(rows: torch.Tensor, present) -> torch.Tensor:
-    """Rows over the bits with ``present[j]`` true (little-endian, in
-    order) widened to all ``len(present)`` bits: an absent bit is a
-    deterministic 0, so its half of the row is zero (the JAX package's
-    ``finish_row`` zero-bit rule)."""
-    c = rows.shape[0]
-    for j, ok in enumerate(present):
-        if not ok:
-            r = rows.reshape(c, -1, 1 << j)
-            rows = torch.stack([r, torch.zeros_like(r)], dim=2).reshape(c, -1)
-    return rows
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,14 @@
 """Execution runtime: run all fragments and knit.
 
-Port of the JAX package's ``run.run_virtual_circuit`` for two engines.
+Port of the JAX package's ``run.run_virtual_circuit``.
+
+``engine="xla"``: the batched engine.  Every fragment's variants run at
+once in plain PyTorch (ops/variant_engine.run_all_fragments), then one
+einsum knits them (ops/knit.knit_values).  ``engine="auto"`` takes that
+route up to ``AUTO_STREAM_LABELS`` global labels and the streamed scan
+above.  In this package that scan is the kernel-backed one of
+``engine="pallas"``; it becomes ``engine="streamed"`` once the scan without
+a kernel is ported.
 
 ``engine="pallas"``: the streamed label scan with every fragment's rows
 from a hand-written kernel, exact (``shots=None``).  Fragments of up to 20
@@ -17,6 +25,10 @@ label-sample budget.  Collapse-mode fragments run the collapse kernel
 (ops/collapse_kernel.py), ancilla-mode fragments the variant kernel's
 full rows.  Observables go through
 ``ops.qpd_sampling.sampled_expectation_z``.
+
+The whole-fragment kernel (ops/sv_kernel.py) is not an engine here, as in
+the JAX package: a caller composes ``run_fragment_kernel`` with
+``ops.knit.knit``.
 """
 from __future__ import annotations
 
@@ -27,12 +39,14 @@ from .ops.statevector import Distribution
 from .utils.logger import get_logger
 from .virt.virtual_circuit import VirtualCircuit
 
+# "auto" switches from the batched engine to the streamed scan above this
+# many GLOBAL labels (product over all vgates): the batched path
+# materialises every fragment's [V, 2^k] block (the JAX package's
+# threshold).
+AUTO_STREAM_LABELS = 16384
+
 # engines of the JAX package and the ROADMAP item that ports each
 _NOT_PORTED = {
-    "auto": "queue A, 'other engines' (variant_engine.make_sim_fn and the "
-            "XLA path)",
-    "xla": "queue A, 'other engines' (variant_engine.make_sim_fn and the "
-           "XLA path)",
     "streamed": "queue A, 'other engines' (streamed without the kernel)",
     "sharded": "queue A, 'other engines' (sharded fragments)",
 }
@@ -116,7 +130,14 @@ def run_virtual_circuit(
 ) -> tuple[Distribution, RunTimeInfo]:
     """Simulate the QPD labels of every fragment, knit and (``project``)
     project onto the simplex.  The JAX package's default engine is
-    "auto"; this package has two engines, both kernel-backed.
+    "auto"; this package defaults to the kernel-backed exact engine.
+
+    ``engine="xla"``: the batched engine in plain PyTorch: every
+    fragment's variants at once, ``chunk_size`` variants per step (capped
+    by bytes), then the einsum knit; ``RunTimeInfo`` carries both phases.
+    ``engine="auto"``: that route up to ``AUTO_STREAM_LABELS`` global
+    labels, above it the streamed scan, which in this package is the
+    kernel-backed one of ``engine="pallas"``.
 
     ``engine="pallas"`` (the default): the streamed scan over ALL global
     label chunks of ``chunk_size`` (capped by the widest fragment's state
@@ -136,7 +157,7 @@ def run_virtual_circuit(
     cap, default 2M); ``sample_pallas`` (rows from the kernels: True is
     the only ported route, False raises).
 
-    ``keep_clbits``: marginal knit (either engine).  ``device``: None =
+    ``keep_clbits``: marginal knit (any engine).  ``device``: None =
     "cuda" (raises without a card); "cpu" runs the kernels' plain PyTorch
     versions.  ``run_time`` ends after the result reached the host.
     ``noise``, ``dtype`` and ``mesh`` are knobs of the JAX package that
@@ -146,7 +167,7 @@ def run_virtual_circuit(
             f"engine={engine!r} is not ported to the torch package yet: "
             f"ROADMAP H100 port, {_NOT_PORTED[engine]}"
         )
-    if engine not in ("pallas", "sampled"):
+    if engine not in ("auto", "xla", "pallas", "sampled"):
         raise ValueError(f"unknown engine {engine!r}")
     for name, value, what in (
         ("noise", noise, "noise"), ("dtype", dtype, "bf16"),
@@ -192,16 +213,65 @@ def run_virtual_circuit(
             "shots= is not ported to the torch package yet: ROADMAP H100 "
             "port, queue A, 'other engines' (sampling)"
         )
-    from .ops.streamed import run_virtual_circuit_streamed
+    log = get_logger(__name__)
+    if engine == "auto":
+        labels = 1
+        for vg in virt.vgates:
+            labels *= vg.spec.num_instantiations
+        if labels > AUTO_STREAM_LABELS:
+            log.info(f"auto engine: {labels} global labels > "
+                     f"{AUTO_STREAM_LABELS} -> streamed scan")
+            engine = "pallas"
+    if engine == "pallas":
+        from .ops.streamed import run_virtual_circuit_streamed
+
+        log.info(
+            f"Running {len(virt.fragments)} fragments over "
+            f"{virt.total_instantiations()} instances (engine='pallas')..."
+        )
+        now = time.perf_counter()
+        dist = run_virtual_circuit_streamed(
+            virt, chunk=chunk_size, project=project,
+            keep_clbits=keep_clbits, device=device,
+        )
+        return dist, RunTimeInfo(time.perf_counter() - now, 0.0)
+    return _run_batched(virt, chunk_size, project, keep_clbits, device)
+
+
+def _run_batched(virt, chunk_size, project, keep_clbits, device):
+    """``engine="xla"``: all variants of every fragment, then the knit."""
+    import torch
+
+    from .convert import resolve_device
+    from .ops.knit import knit_values, smolin_project
+    from .ops.variant_engine import run_all_fragments
+
+    dev = resolve_device(device)
+
+    def clock():
+        # device work is asynchronous: a phase ends when the card is done
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
 
     log = get_logger(__name__)
+    frag_sizes = tuple(p.num_data_qubits for p in virt.programs.values())
     log.info(
-        f"Running {len(virt.fragments)} fragments over "
-        f"{virt.total_instantiations()} instances (engine='pallas')..."
+        f"Running virtualizer with {len(virt.fragments)} {frag_sizes} "
+        f"fragments and {len(virt.vgates)} vgates..."
     )
-    now = time.perf_counter()
-    dist = run_virtual_circuit_streamed(
-        virt, chunk=chunk_size, project=project, keep_clbits=keep_clbits,
-        device=device,
-    )
-    return dist, RunTimeInfo(time.perf_counter() - now, 0.0)
+    log.info(f"Running {virt.total_instantiations()} instances...")
+    now = clock()
+    results = run_all_fragments(virt, chunk_size, dev)
+    run_time = clock() - now
+
+    log.info("Knitting...")
+    now = clock()
+    values, positions = knit_values(virt, results, keep_clbits)
+    knit_time = clock() - now
+    log.info(f"Knitted in {knit_time:.2f}s.")
+
+    if project:
+        values = smolin_project(values).to(torch.float32)
+    dist = Distribution(values.cpu().numpy(), positions, virt.num_clbits)
+    return dist, RunTimeInfo(run_time, knit_time)

@@ -99,8 +99,9 @@ def test_kernel_libraries_build_nothing_at_import():
         "    raise AssertionError('a process was started at import')\n"
         "subprocess.Popen = subprocess.run = refuse\n"
         f"from {PORT}.ops import blocked_kernel, collapse_kernel, "
-        "variant_kernel\n"
-        "for mod in (blocked_kernel, collapse_kernel, variant_kernel):\n"
+        "sv_kernel, variant_kernel\n"
+        "for mod in (blocked_kernel, collapse_kernel, sv_kernel, "
+        "variant_kernel):\n"
         "    lib = mod.LIBRARY\n"
         "    assert lib.source.is_file(), lib.source\n"
         "    assert lib.lib is None and lib.path is None\n"

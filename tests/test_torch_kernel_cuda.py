@@ -15,6 +15,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.circuit.circ
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
     blocked_kernel as bk,
+    sv_kernel as sv,
     variant_kernel as vk,
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.variant_engine import (  # noqa: E501
@@ -261,3 +262,89 @@ def test_collapse_kernel_refuses_wrong_scalars(card):
     with pytest.raises(ValueError, match="shape"):
         ck.collapse_rows(dp, ent, torch.zeros((3, 1, 4), device=card))
     assert ck.collapse_rows.launches == before
+
+
+def _sv_case(n: int, cut_gate: str):
+    """frag0: ``n`` data qubits under a chain of fixed gates (2q gates in
+    both qubit orders), cut from a 2-qubit frag1 by a gate cut (``"cz"``)
+    or a wire cut (``"move"``) on its last qubit, more gates after the
+    slot.  Every qubit is measured at n <= 8 (k = n), every second one at
+    n = 13 (the epilogue sums the others away)."""
+    cut = Circuit([Register("frag0", n), Register("frag1", 2)], n + 2)
+    cut.h(0)
+    for q in range(n - 1):
+        if q % 2:
+            cut.cx(q + 1, q)
+        else:
+            cut.cx(q, q + 1)
+    for q in range(n):
+        cut.ry(0.2 * (q + 1), q)
+        cut.rz(0.1 * (q + 1), q)
+    cut.append(Instruction("vgate", [n - 1, n], op=VirtualGateOp(cut_gate)))
+    cut.rx(0.7, n - 1)
+    if n > 1:
+        cut.cp(0.9, n - 1, 0)
+    cut.cx(n, n + 1)
+    step = 2 if n > 8 else 1
+    for c, q in enumerate(list(range(0, n, step)) + [n, n + 1]):
+        cut.measure(q, c)
+    return VirtualCircuit(cut)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut_gate", ["cz", "move"])
+@pytest.mark.parametrize("lanes", [1, 12, 4096])
+@pytest.mark.parametrize("n", [1, 8, 13])
+def test_sv_kernel_matches_plain_on_card(card, n, lanes, cut_gate):
+    virt = _sv_case(n, cut_gate)
+    fn, table, meta = sv.build_fragment_kernel(virt, "frag0", device=card)
+    dp = fn.plan
+    assert dp.plan.n == n and dp.plan.k == len(range(0, n, 2 if n > 8 else 1))
+    # lanes of the fragment's own table, drawn with a seed
+    pick = np.random.default_rng(n * 31 + lanes).integers(
+        0, meta["total"], lanes)
+    params = torch.as_tensor(table[pick], device=card)
+    before = sv.sv_rows.launches
+    got = sv.sv_rows(dp, params)
+    again = sv.sv_rows(dp, params)
+    torch.cuda.synchronize()
+    assert sv.sv_rows.launches == before + 2
+    want = sv.plain_sv_rows(dp, params)
+    assert got.shape == want.shape == (lanes, 1 << dp.plan.k)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+    assert torch.equal(got, again)  # fixed summation order: bit for bit
+
+
+@pytest.mark.cuda
+def test_sv_kernel_whole_fragment_against_the_batched_engine(card):
+    """The entry point on the card: the kernel's ``FragmentResult`` of both
+    fragments against the batched engine's (2e-5, the tolerance of the JAX
+    package's own comparison of the two)."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.variant_engine import (  # noqa: E501
+        run_fragment,
+    )
+
+    virt = _sv_case(8, "move")
+    for reg in virt.fragments:
+        got = sv.run_fragment_kernel(virt, reg.name, device=card)
+        want = run_fragment(virt, reg.name, device=card)
+        assert got.values.is_cuda
+        assert got.bit_positions == want.bit_positions
+        assert got.touching == want.touching
+        assert (got.values - want.values).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+def test_sv_kernel_refuses_a_wrong_lane_table(card):
+    virt = _sv_case(8, "cz")
+    fn, table, _ = sv.build_fragment_kernel(virt, "frag0", device=card)
+    good = torch.as_tensor(table, device=card)
+    with pytest.raises(ValueError, match="shape"):
+        sv.sv_rows(fn.plan, good[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        sv.sv_rows(fn.plan, good.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        sv.sv_rows(fn.plan, torch.cat([good, good], dim=1)[:, :18])
+    assert sv.build_fragment_kernel(_sv_case(14, "cz"), "frag0",
+                                    device=card) is None

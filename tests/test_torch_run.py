@@ -307,7 +307,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("engine,kw", [
-    pytest.param(e, {}, id=e) for e in ("auto", "xla", "streamed", "sharded")
+    pytest.param(e, {}, id=e) for e in ("streamed", "sharded")
 ] + [
     # the sampled engine is ported for kernel-backed rows only
     pytest.param("sampled", dict(sample_pallas=False), id="sampled"),
