@@ -251,10 +251,10 @@ def phase_kernel(virt, report):
             if not torch.isfinite(got).all():
                 raise RuntimeError(f"{mode}/{name}: non-finite kernel rows")
             err = max(err, (got - want).abs().max().item())
-            st_np = st.cpu().numpy()
-            wk = vk.work_counts(dp.plan, st_np, ws.shape[1])
+            st_np, ent_np = st.cpu().numpy(), ent.cpu().numpy()
+            wk = vk.work_counts(dp.plan, st_np, ws.shape[1], ent_np)
             kw = vk.work_counts(dp.plan, vk.effective_stages(st_np, span),
-                                ws.shape[1])
+                                ws.shape[1], ent_np)
             for key in work:
                 work[key] += wk[key]
                 kwork[key] += kw[key]
@@ -365,7 +365,7 @@ def phase_blocked(label, virt, window, blocks, report, witness):
                 ).clone(memory_format=torch.contiguous_format)
             seg_calls.append((dp, k, state, ent))
             state = bk.apply_segment(dp, k, state, ent)
-            wk = bk.work_counts(plan, k, labels)
+            wk = bk.work_counts(plan, k, labels, ent.cpu().numpy())
             work["bytes"] += wk["bytes"]
             work["flops"] += wk["flops"]
         del state
@@ -738,7 +738,8 @@ def phase_collapse(label, virt, lab_all, modes, report):
         c = lab_np.shape[0]
         calls = []
         err, near, far, sites, measuring = 0.0, 0, 0, {}, 0
-        work = {"bytes": 0, "flops": 0, "pass_bytes": 0}
+        work = {"bytes": 0, "flops": 0, "pass_bytes": 0, "passes": 0,
+                "passes_before": 0}
         for fi, name in enumerate(names):
             built = tq._collapse_row_builder_pallas(virt, name, device=DEV,
                                                     **kw)
@@ -760,15 +761,39 @@ def phase_collapse(label, virt, lab_all, modes, report):
             near, far = near + n_near, far + n_far
             if bool(agree.any()):
                 err = max(err, (got - want)[agree].abs().max().item())
+            launch = dict(ck.collapse_rows.last_launch)
+            launch["runs"] = int(launch["runs"])
+            again, bits2 = ck.collapse_rows(dp, ent, cscal)
+            if not (torch.equal(again, got) and torch.equal(bits2, bits)):
+                raise RuntimeError(f"{label}/{mode}/{name}: a launch does "
+                                   "not repeat")
             on = int((cscal[:, :, 1] > 0).sum())
             measuring += on
-            wk = ck.work_counts(dp.plan, c, on)
+            wk = ck.work_counts(dp.plan, ent, cscal)
             for key in work:
                 work[key] += wk[key]
-            sites[name] = {"n": dp.plan.n, "sites": ns, "ops": len(dp.plan.ops)}
+            sites[name] = {"n": dp.plan.n, "sites": ns,
+                           "ops": len(dp.plan.ops),
+                           "rewritten_rows": len(dp.plan.table.rows),
+                           "replica_runs": launch["runs"],
+                           "run_cap": launch["cap"],
+                           "uncapped_runs": wk["runs"],
+                           "cluster": launch["cluster"],
+                           "grid": launch["grid"],
+                           "threads": launch["threads"],
+                           "scratch_bytes": launch["scratch_bytes"],
+                           "passes": wk["passes"],
+                           "passes_before": wk["passes_before"]}
+            if dp.plan.n <= 15 and launch["scratch_bytes"]:
+                raise RuntimeError(f"{label}/{name}: global scratch at "
+                                   f"n = {dp.plan.n}")
             calls.append((dp, ent, cscal))
-            del got, want, margins
+            del got, want, margins, again
         ms = _time_ms(lambda: [ck.collapse_rows(*a) for a in calls], reps=5)
+        # the kernel alone, without the wrapper's run table (torch ops)
+        prof = _profile(lambda: [ck.collapse_rows(*a) for a in calls])
+        kernel_ms = sum(r["ms"] for r in prof["device_ms_by_kernel"]
+                        if "collapse_rows_kernel" in r["kernel"])
         plain_ms = _time_ms(
             lambda: [ck.plain_collapse_rows(*a) for a in calls], reps=1,
             warm=1,
@@ -793,16 +818,23 @@ def phase_collapse(label, virt, lab_all, modes, report):
             "measuring_sites": measuring,
             "picks_flipped_near_threshold": near,
             "picks_flipped_far": far,
+            "kernel_device_ms": kernel_ms,
+            "wrapper_device_busy_ms": prof["device_busy_ms"],
         })
         print(f"collapse {label}/{mode}: fragments={sites} labels={c} "
               f"measuring_sites={measuring} max_abs_err={err:.3e} "
               f"picks flipped near a threshold={near} far={far} | one "
-              f"block through {len(names)} fragments: ms={ms:.4f} "
+              f"block through {len(names)} fragments: ms={ms:.4f} (the "
+              f"kernel alone, traced: {kernel_ms:.4f}; run tables and "
+              f"kernel: device busy {prof['device_busy_ms']}) "
               f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} "
               f"({bound_by}; {work['bytes'] / 1e6:.3f} MB, "
-              f"{work['flops'] / 1e9:.3f} GFLOP); state passes "
-              f"{work['pass_bytes'] / 1e9:.3f} GB = "
-              f"{work['pass_bytes'] / ms / 1e6:.1f} GB/s", flush=True)
+              f"{work['flops'] / 1e9:.3f} GFLOP, recounted: each gate what "
+              f"its matrix needs, a replica run's shared prefix once); "
+              f"passes over the state {work['passes']} (every label from "
+              f"the prefix, every gate a pass: "
+              f"{work['passes_before']}) = {work['pass_bytes'] / 1e9:.3f} GB "
+              f"= {work['pass_bytes'] / ms / 1e6:.1f} GB/s", flush=True)
         if far:
             raise RuntimeError(f"{label}/{mode}: {far} labels took another "
                                "branch far from its threshold")
@@ -971,9 +1003,24 @@ def phase_main_qft16(circ, virt, report):
     sample_s = time.perf_counter() - t0
     block = tq._label_block(virt, flags, keep_clbits=QFT_KEEP)
     t0 = time.perf_counter()
-    tq._build_scan(virt, flags, QFT_KEEP, None, DEV)
+    row_fns = tq._build_scan(virt, flags, QFT_KEEP, None, DEV)["row_fns"]
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+
+    # the replica runs the kernel finds in each block of this path, per
+    # fragment (they depend on the labels and site scalars, not on u)
+    ck = _port("ops.collapse_kernel")
+    runs_per_block = []
+    for b0 in range(0, len(lab_all), block):
+        lab = torch.as_tensor(lab_all[b0:b0 + block], device=DEV,
+                              dtype=torch.int64)
+        per = []
+        for fn in row_fns:
+            dp = fn.rows_fn.plan
+            u = torch.zeros((lab.shape[0], dp.plan.n_sites), device=DEV)
+            per.append(int(ck.find_runs(dp.gather_entries(lab),
+                                        fn.scalars(lab, u)).shape[0]))
+        runs_per_block.append(per)
 
     # one block of the same labels and draws at the size the path
     # launches (a leading block of the label rows draws the leading rows
@@ -1026,6 +1073,7 @@ def phase_main_qft16(circ, virt, report):
         "oracle_z": oracle_z, "z_worst_stderrs": float(z_dev.max()),
         "plain_block_labels": head, "plain_knit_max_abs_err": plain_err,
         "plain_block_picks_flipped": flipped,
+        "replica_runs_per_block": runs_per_block,
     }
     out.update(prof)
     report["qft16"] = out
@@ -1043,6 +1091,9 @@ def phase_main_qft16(circ, virt, report):
           f"{z_se.max():.2e}) plain_knit_err={plain_err:.3e} "
           f"picks_flipped={flipped} device_busy_ms={out['device_busy_ms']} "
           f"idle_share={out['device_idle_share']}", flush=True)
+    print(f"  replica runs per block of {block} label rows (fragments "
+          f"{[r.name for r in virt.fragments]}): {runs_per_block}",
+          flush=True)
     print(f"  marginal {np.round(est_v, 5).tolist()}\n  oracle   "
           f"{np.round(oracle_m, 5).tolist()}\n  z {np.round(z_est, 5).tolist()}"
           f" oracle {np.round(oracle_z, 5).tolist()}", flush=True)
@@ -1114,36 +1165,38 @@ def _cut_wide13(n=13):
 def phase_sv(label, virt, report, names=None, lanes=None):
     """The whole-fragment kernel against its plain version on the
     fragments ``names`` of ``virt`` (default all), every lane of each
-    fragment's own lane table (or ``lanes`` of them, drawn with a seed);
-    one launch per fragment.  The host's share is timed apart: the lane
-    table in numpy, and its upload."""
+    fragment (or ``lanes`` of them, drawn with a seed); one launch per
+    fragment.  The kernel reads no lane table; the plain version takes
+    the JAX contract's lane table (``_slot_lane_params``).  The host's
+    share is timed apart: the plan (op tables, prefix, per-slot tables)."""
     import numpy as np
     import torch
 
     sv = _port("ops.sv_kernel")
     names = names or [r.name for r in virt.fragments]
-    calls, shapes = [], {}
+    calls, plain_calls, shapes = [], [], {}
     work = {"bytes": 0, "flops": 0, "pass_bytes": 0}
+    lane_table_bytes = 0
     err = rel_err = 0.0
-    host_s = upload_s = 0.0
+    plan_s = 0.0
     for fi, name in enumerate(names):
         t0 = time.perf_counter()
+        plan = sv.build_plan(virt, name)
+        plan_s += time.perf_counter() - t0
         built = sv.build_fragment_kernel(virt, name, device=DEV)
-        host_s += time.perf_counter() - t0
-        if built is None:
+        if plan is None or built is None:
             raise RuntimeError(f"{label}/{name}: outside the kernel")
         fn, table, meta = built
         dp = fn.plan
+        pick = None
         if lanes is not None:
-            table = table[np.random.default_rng(11 + fi).integers(
-                0, meta["total"], lanes)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+            pick = np.random.default_rng(11 + fi).integers(
+                0, meta["total"], lanes)
+            table = table[pick]
+        idx = None if pick is None else torch.as_tensor(pick, device=DEV)
+        got = sv.sv_rows(dp, idx)
+        again = sv.sv_rows(dp, idx)
         par = torch.as_tensor(table, device=DEV)
-        torch.cuda.synchronize()
-        upload_s += time.perf_counter() - t0
-        got = sv.sv_rows(dp, par)
-        again = sv.sv_rows(dp, par)
         want = sv.plain_sv_rows(dp, par)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
@@ -1155,23 +1208,33 @@ def phase_sv(label, virt, report, names=None, lanes=None):
         rel_err = max(rel_err, frag_err / want.abs().max().item())
         del got, again, want
         kinds = dp.plan.ops[:, 0].tolist()
+        count = meta["total"] if pick is None else len(pick)
         shapes[name] = {
             "n": dp.plan.n, "k": dp.plan.k, "m": len(dp.plan.meas_vgates),
-            "lanes": par.shape[0], "params_cols": par.shape[1],
-            "ops_1q": kinds.count(1), "ops_2q": kinds.count(2),
-            "slots": kinds.count(3),
+            "lanes": count, "ops_1q": kinds.count(1),
+            "ops_2q": kinds.count(2), "slots": kinds.count(3),
+            "prefix_ops": dp.plan.prefix_ops,
+            "rows_after_rewrite": len(dp.plan.table.rows),
+            "row_kinds": {k: dp.plan.table.kinds.count(k)
+                          for k in sorted(set(dp.plan.table.kinds))},
+            "slot_table_rows": len(dp.plan.slot_tab),
             "threads_group": sv.launch_geometry(dp.plan.n),
         }
-        wk = sv.work_counts(dp.plan, par.shape[0], table)
+        wk = sv.work_counts(dp.plan, pick)
         shapes[name]["flops_per_lane_amplitude"] = (
-            wk["flops"] / (par.shape[0] << dp.plan.n))
+            wk["flops"] / (count << dp.plan.n))
         for key in work:
             work[key] += wk[key]
-        calls.append((dp, par))
+        lane_table_bytes += 4 * count * dp.plan.p_cols
+        calls.append((dp, idx))
+        plain_calls.append((dp, par))
     ms = _time_ms(lambda: [sv.sv_rows(*a) for a in calls], reps=5)
-    plain_ms = _time_ms(lambda: [sv.plain_sv_rows(*a) for a in calls],
+    plain_ms = _time_ms(lambda: [sv.plain_sv_rows(*a) for a in plain_calls],
                         reps=1, warm=0)
+    del plain_calls
     bound_ms, bound_by = _bound(work)
+    old_bound_ms, _ = _bound({"bytes": work["bytes"] + lane_table_bytes,
+                              "flops": work["flops"]})
     report.setdefault("kernels", []).append({
         "name": f"sv_rows/{label}",
         "route": "cuda",
@@ -1187,19 +1250,21 @@ def phase_sv(label, virt, report, names=None, lanes=None):
         "library_ms": None,
         "on_main_path": False,  # set by the path that launches it
         "work": work,
+        "bound_ms_with_lane_table_bytes": old_bound_ms,
         "fragments": shapes,
-        "lane_table_host_s": host_s,
-        "lane_table_upload_s": upload_s,
+        "plan_host_s": plan_s,
     })
     print(f"sv {label}: fragments={shapes} max_abs_err={err:.3e} "
           f"(over the fragment's largest entry {rel_err:.3e}) | one "
           f"launch per fragment, {len(calls)} fragments: ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}; "
           f"{work['bytes'] / 1e6:.1f} MB, {work['flops'] / 1e9:.2f} GFLOP = "
-          f"{work['flops'] / ms / 1e9:.2f} TFLOP/s); shared-memory passes "
+          f"{work['flops'] / ms / 1e9:.2f} TFLOP/s; counted with a lane "
+          f"table's {lane_table_bytes / 1e6:.1f} MB: "
+          f"{old_bound_ms:.6f}); shared-memory passes "
           f"{work['pass_bytes'] / 1e9:.1f} GB = "
-          f"{work['pass_bytes'] / ms / 1e9:.2f} TB/s; host: lane tables "
-          f"{host_s:.3f} s, upload {upload_s:.4f} s", flush=True)
+          f"{work['pass_bytes'] / ms / 1e9:.2f} TB/s; host plan "
+          f"{plan_s:.3f} s", flush=True)
     if not (err <= TOL and rel_err <= TOL):
         raise RuntimeError(f"{label}: sv kernel vs plain {err:.3e} (over "
                            f"the largest entry {rel_err:.3e}) > {TOL}")
@@ -1231,16 +1296,43 @@ def phase_sv_width_gate(report):
         raise RuntimeError("a 14-qubit fragment did not return None")
 
 
+@contextlib.contextmanager
+def _lane_table_meter(stage):
+    """Within: every call of ``sv_kernel._slot_lane_params`` (the host lane
+    table the kernel no longer reads) adds its seconds to
+    ``stage["lane_tables_s"]`` and one to ``stage["lane_table_calls"]``."""
+    sv = _port("ops.sv_kernel")
+    inner = sv._slot_lane_params
+    stage.setdefault("lane_tables_s", 0.0)
+    stage.setdefault("lane_table_calls", 0)
+
+    def metered(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kw)
+        finally:
+            stage["lane_tables_s"] += time.perf_counter() - t0
+            stage["lane_table_calls"] += 1
+
+    sv._slot_lane_params = metered
+    try:
+        yield
+    finally:
+        sv._slot_lane_params = inner
+
+
 def _sv_route(virt):
     """The kernel route a caller composes: every fragment's rows from the
     whole-fragment kernel, knit, projection.  Returns (distribution,
-    results, seconds by stage)."""
+    results, seconds by stage; ``lane_tables_s`` is the time the route
+    spent building host lane tables)."""
     sv = _port("ops.sv_kernel")
     tknit = _port("ops.knit")
     stage = {}
-    results = [sv.run_fragment_kernel(virt, reg.name, device=DEV,
-                                      timings=stage)
-               for reg in virt.fragments]
+    with _lane_table_meter(stage):
+        results = [sv.run_fragment_kernel(virt, reg.name, device=DEV,
+                                          timings=stage)
+                   for reg in virt.fragments]
     if any(r is None for r in results):
         raise RuntimeError("a fragment is outside the kernel")
     t0 = time.perf_counter()
@@ -1299,6 +1391,8 @@ def phase_main_sv(label, circ, virt, report, kernel_row):
     if counts != _only(sv=len(virt.fragments)):
         raise RuntimeError(f"{label}: launched {counts}, expected one sv "
                            "launch per fragment and nothing else")
+    if stage["lane_table_calls"]:
+        raise RuntimeError(f"{label}: the route built a host lane table")
     if not (fid > FID_MIN and warm_fid > FID_MIN):
         raise RuntimeError(f"{label}: fidelity {fid!r} / {warm_fid!r} <= "
                            f"{FID_MIN}")

@@ -45,6 +45,7 @@ from .variant_kernel import (
     _plan_ops,
     apply_op_plain,
     gather_slot_entries,
+    op_costs,
 )
 
 MAX_WINDOW = 14          # 8 * 2^14 B = 128 KB of a CTA's 227 KB
@@ -375,17 +376,18 @@ def make_blocked_chunk_kernel(
 # Work counts for the roofline bound (bytes and f32 operations)
 # ---------------------------------------------------------------------------
 
-def work_counts(plan: BlockedPlan, k: int, labels: int) -> dict:
+def work_counts(plan: BlockedPlan, k: int, labels: int,
+                entries=None) -> dict:
     """Work of segment ``k`` on ``labels`` states.  ``bytes``: each input
     read once and each output written once (the states, or the shared
     prefix once for the first segment; the op rows, coefficients and
-    entry rows the segment uses).  ``flops``: f32 operations, 14 per
-    amplitude for a 1q gate and 30 for a 2q gate (as
-    ``variant_kernel.work_counts``)."""
+    entry rows the segment uses).  ``flops``: f32 operations, each gate
+    what its matrix needs (``variant_kernel.op_costs``: a slot gate from
+    each label's row of ``entries [labels, entry_stride]``, dense
+    without it)."""
     big = 1 << plan.n
     start, end = plan.segments[k]
     rows = plan.ops[start:end]
-    per_op = np.where(rows[:, 0] == 1, 14, 30)
     coefs = np.where(rows[:, 0] == 1, 8, 32)
     is_slot = rows[:, 3] < 0
     state_in = 2 * big * (1 if k == 0 else labels)
@@ -393,5 +395,6 @@ def work_counts(plan: BlockedPlan, k: int, labels: int) -> dict:
         state_in + labels * 2 * big + rows.size
         + int(coefs[~is_slot].sum()) + labels * int(coefs[is_slot].sum())
     )
-    return {"bytes": int(nbytes),
-            "flops": int(per_op.sum()) * big * labels}
+    cost = op_costs(rows, plan.fixed, plan.n, entries)
+    flops = int(cost.sum()) * (labels if entries is None else 1)
+    return {"bytes": int(nbytes), "flops": flops}

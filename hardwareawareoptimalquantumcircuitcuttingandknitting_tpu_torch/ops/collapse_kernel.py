@@ -16,20 +16,26 @@ Three layers, as in ``ops/variant_kernel.py``:
 * the host build (:func:`build_plan`): the collapse stream of
   ``variant_engine.collapse_stream`` at full width, the prefix run once on
   the host, the suffix as an op table (``variant_kernel.OpTable`` rows,
-  one extra row kind for a collapse site) and the epilogue's bit maps;
-* :func:`collapse_rows`, the wrapper: on CUDA tensors it launches the
-  hand-written kernel in ``csrc/collapse_kernel.cu`` (built with ``nvcc``
-  for ``sm_90a`` at first use into ``build/``, loaded with ``ctypes``) and
-  counts the launch; on CPU tensors it runs :func:`plain_collapse_rows`;
+  one extra row kind for a collapse site), that table rewritten by
+  ``ops/op_rewrite`` for the kernel (identities dropped, diagonal runs
+  merged, each site fused with its slot gates) and the epilogue's bit
+  maps;
+* :func:`collapse_rows`, the wrapper: on CUDA tensors it finds the block's
+  replica runs (:func:`find_runs`) and launches the hand-written kernel in
+  ``csrc/collapse_kernel.cu`` (built with ``nvcc`` for ``sm_90a`` at first
+  use into ``build/``, loaded with ``ctypes``) and counts the launch; on
+  CPU tensors it runs :func:`plain_collapse_rows`;
 * :func:`plain_collapse_rows`, the plain PyTorch version of the same
-  function (the kernel's formula: ``p0 = tot - p1``), used on the CPU and
-  as the kernel's reference on the card.
+  function (the original table, every label from the prefix; the
+  kernel's formula: ``p0 = tot - p1``), used on the CPU and as the
+  kernel's reference on the card.
 
 Not carried over from the TPU kernel, because they are artefacts of its
 lanes: the ``n >= 8`` gate (128 lanes), the ``batch`` argument (labels
 stacked on row bits) and the staged lane broadcasts.  One CUDA launch
 covers every label of a block at any width from 1 to 20 qubits, so this
-kernel serves every collapse-mode fragment.  Kept as the contract: the
+kernel serves every collapse-mode fragment: up to 14 qubits in one CTA's
+shared memory, 15 in a cluster of two, 16 to 20 in global scratch.  Kept as the contract: the
 in-kernel marginal and the Z columns exist up to 128 outcomes / columns;
 past that the caller takes full rows and reduces them in torch.
 
@@ -39,7 +45,6 @@ written at the top of the CUDA source.
 from __future__ import annotations
 
 import ctypes
-import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -47,13 +52,22 @@ import torch
 
 from ..convert import resolve_device, to_device
 from ..virt.virtual_circuit import VirtualCircuit
+from . import op_rewrite
 from .kernel_build import KernelLibrary, check_tensor
+from .op_rewrite import OP_SITE_A, OP_SITE_B
 from .statevector import apply_matrix_host, marginalize_flat
 from .variant_engine import collapse_stream, splice_zero_bits
-from .variant_kernel import OpTable, apply_op_plain, gather_slot_entries
+from .variant_kernel import (
+    OpTable,
+    apply_op_plain,
+    gather_slot_entries,
+    op_costs,
+)
 
 MAX_QUBITS = 20      # per-block state in global scratch: 8 MB at n = 20
 MAX_OUTCOMES = 128   # in-kernel marginal outcomes / z columns (the contract)
+RUN_CAP = 64         # replicas a run holds: a heavy label spreads over CTAs
+_CLUSTER_QUBITS = 15  # the width a cluster of two CTAs holds on chip
 _MODES = {"rows": 0, "marginal": 1, "z": 2}
 
 
@@ -71,7 +85,9 @@ class CollapsePlan:
     qubits.  ``mode``: ``"rows"`` (full ``[2^n]`` rows), ``"marginal"``
     (``kept`` clbits, ``marg_bits[j]`` = flat bit of ``kept[j]`` or None
     for a source that saw no op) or ``"z"`` (``z_masks[i]`` = flat-bit
-    mask of z-set ``i``; the last column is the plain total)."""
+    mask of z-set ``i``; the last column is the plain total).  ``table``:
+    what the kernel interprets, the suffix rewritten by ``ops/op_rewrite``;
+    ``site_rows[s]``: the row of its ``OP_SITE_B`` for site ``s``."""
 
     n: int
     prefix: np.ndarray
@@ -85,6 +101,8 @@ class CollapsePlan:
     positions: list
     sources: list
     mode: str
+    table: op_rewrite.Table
+    site_rows: list
     kept: list | None = None
     marg_bits: list | None = None
     z_masks: list | None = None
@@ -160,14 +178,39 @@ def build_plan(virt: VirtualCircuit, frag_name: str, keep_clbits=None,
     for op in suffix:
         table.add(op, [n - 1 - index[q] for q in op[2]])
     site_meta = [(sid, prog.slots[sid].vgate_idx) for sid in table.sites]
+    ops, fixed = table.ops_array(), table.fixed_array()
+    ktable = op_rewrite.rewrite(_generic_ops(ops, fixed))
+    site_rows = [0] * len(site_meta)
+    for i, row in enumerate(ktable.rows.tolist()):
+        if row[0] == OP_SITE_B:
+            site_rows[row[2]] = i
     return CollapsePlan(
-        n=n, prefix=st, ops=table.ops_array(), fixed=table.fixed_array(),
+        n=n, prefix=st, ops=ops, fixed=fixed,
         entry_tables=table.entry_tables, entry_gids=table.entry_gids,
         entry_stride=table.entry_stride, site_meta=site_meta,
         active=list(active), positions=list(positions),
-        sources=list(sources), mode=mode, kept=kept, marg_bits=marg_bits,
+        sources=list(sources), mode=mode, table=ktable,
+        site_rows=site_rows, kept=kept, marg_bits=marg_bits,
         z_masks=z_masks,
     )
+
+
+def _generic_ops(ops: np.ndarray, fixed: np.ndarray) -> list:
+    """An :class:`OpTable`'s rows as ``op_rewrite.rewrite`` takes them."""
+    out = []
+    for nq, ja, jb, coef in ops.tolist():
+        if nq == 0:
+            out.append(("site", ja, jb))
+            continue
+        js = [ja, jb][:nq]
+        if coef < 0:
+            out.append(("e", js, -1 - coef))
+            continue
+        m = 1 << nq
+        blk = fixed[coef:coef + 2 * m * m].astype(np.float64)
+        out.append(("u", (blk[:m * m] + 1j * blk[m * m:]).reshape(m, m),
+                    js))
+    return out
 
 
 class CollapseDevicePlan:
@@ -185,6 +228,19 @@ class CollapseDevicePlan:
             device,
         )
         self.entry_tables = to_device(plan.entry_tables, device)
+        self.rows = to_device(
+            plan.table.rows if len(plan.table.rows)
+            else np.zeros((1, op_rewrite.ROW), np.int32), device)
+        self.pool = to_device(
+            plan.table.pool if plan.table.pool.size
+            else np.zeros(1, np.float32), device)
+        # the resume row of a run: its first measuring site's OP_SITE_B,
+        # or past the table when it measures nowhere (first site index
+        # n_sites, which is 1 for the dummy column of a siteless plan)
+        end = [len(plan.table.rows)] * (plan.n_sites + 1
+                                        - len(plan.site_rows))
+        self.site_rows = to_device(
+            np.asarray(plan.site_rows + end, np.int64), device)
         if plan.mode == "marginal":
             real = plan.real_bits
             epi = real + [b for b in range(plan.n) if b not in real]
@@ -309,15 +365,133 @@ def compare_picks(bits, plain_bits, margins, tol: float = 1e-6):
     return agree, near, far
 
 
+def _entry_gate(st, j: int, off: int, n: int, entries):
+    """The 1q gate at entry offset ``off`` of each label's row, on bit
+    ``j``."""
+    return op_rewrite.apply_row(st, (op_rewrite.OP_GATE1, j, 0, -1 - off),
+                                n, None, entries)
+
+
+def replay_kernel_table(dp: CollapseDevicePlan, entries, cscal):
+    """What the kernel computes, replayed in plain PyTorch: every label
+    from the prefix through the rewritten table (``plan.table``), with the
+    kernel's formula at each ``OP_SITE_A`` / ``OP_SITE_B`` pair.  Returns
+    ``(rows, bits)`` like :func:`plain_collapse_rows`; tests hold the two
+    together, which replay different tables."""
+    plan = dp.plan
+    n, big = plan.n, 1 << plan.n
+    c = entries.shape[0]
+    dev = entries.device
+    st = dp.prefix.to(dev).expand(c, 2, big)
+    weight = torch.ones(c, dtype=torch.float32, device=dev)
+    bits = torch.full((c, plan.n_sites), -1, dtype=torch.int32, device=dev)
+    sums = {}
+    one = torch.ones((), dtype=torch.float32, device=dev)
+
+    def site(st, row):
+        nonlocal weight
+        kind, j, s, pre, post = (int(v) for v in row[:5])
+        u, mflag, w0, w1 = cscal[:, s].unbind(dim=1)
+        on = (mflag > 0)[:, None, None]
+        if kind == OP_SITE_A:
+            x = st if pre < 0 else _entry_gate(st, j, pre, n, entries)
+            y = x if post < 0 else _entry_gate(x, j, post, n, entries)
+            sq = (x * x).sum(dim=1)
+            sums["tot"] = sq.sum(dim=1)
+            sums["p1"] = sq.reshape(c, big >> (j + 1), 2, 1 << j)[
+                :, :, 1].sum(dim=(1, 2))
+            return torch.where(on, x, y)
+        tot, p1 = sums["tot"], sums["p1"]
+        p0 = tot - p1
+        pick = u * tot >= p0
+        bf = pick.to(torch.float32)
+        scale = torch.sqrt(tot / torch.clamp(p0 + bf * (p1 - p0), min=1e-30))
+        bitval = ((torch.arange(big, device=dev) >> j) & 1).bool()
+        keep = (bitval[None, :] == pick[:, None]).to(torch.float32)
+        x = st * (keep * scale[:, None])[:, None, :]
+        if post >= 0:
+            x = _entry_gate(x, j, post, n, entries)
+        m = mflag > 0
+        weight = weight * torch.where(m, w0 + bf * (w1 - w0), one)
+        bits[:, s] = torch.where(m, pick.to(torch.int32),
+                                 torch.full_like(bits[:, s], -1))
+        return torch.where(on, x, st)
+
+    st = op_rewrite.replay(st, plan.table, n, entries=entries, special=site)
+    return _finish(_epilogue_plain(st, weight, plan), plan), bits
+
+
+def _run_heads(entries, cscal, cap: int) -> torch.Tensor:
+    """``[C]`` bool: the rows that open a replica run (see
+    :func:`find_runs`)."""
+    c = cscal.shape[0]
+    dev = entries.device
+    key = torch.cat([entries, cscal[:, :, 1:].reshape(c, -1)], dim=1)
+    new = torch.ones(c, dtype=torch.bool, device=dev)
+    new[1:] = (key[1:] != key[:-1]).any(dim=1)
+    idx = torch.arange(c, device=dev)
+    head = torch.cummax(torch.where(new, idx, torch.zeros_like(idx)),
+                        dim=0).values
+    return new | ((idx - head) % cap == 0)
+
+
+def _first_sites(cscal, starts) -> torch.Tensor:
+    """Per run start, its first site with ``mflag > 0`` (``n_sites``
+    where none is)."""
+    meas = cscal[starts, :, 1] > 0
+    return torch.where(meas.any(dim=1), meas.to(torch.int8).argmax(dim=1),
+                       torch.full_like(starts, cscal.shape[1]))
+
+
+def find_runs(entries, cscal, cap: int = RUN_CAP):
+    """The replica runs of a label block, on its device: ``[R, 3]`` int64
+    rows ``(first row, length, first measuring site)``.  A run is adjacent
+    rows with equal entries and equal site scalars but the draw ``u``
+    (``mflag``, ``w0``, ``w1``), at most ``cap`` long; its first measuring
+    site is the first with ``mflag > 0`` (``n_sites`` where none is)."""
+    c = cscal.shape[0]
+    starts = torch.nonzero(_run_heads(entries, cscal, cap))[:, 0]
+    lens = torch.diff(starts, append=torch.full((1,), c,
+                                                device=starts.device))
+    return torch.stack([starts, lens, _first_sites(cscal, starts)], dim=1)
+
+
+def run_table(dp: CollapseDevicePlan, entries, cscal, cap: int = RUN_CAP):
+    """The kernel's run table, built on the device with no wait for it:
+    ``(table [C, 3] int32, count [1] int32)``.  The first ``count`` rows
+    hold the runs of :func:`find_runs`, largest first (the kernel hands
+    them out in that order with a grid stride): first row, length, and
+    the table row the run resumes at, the ``OP_SITE_B`` of its first
+    measuring site (past the table where none measures).  The rest are
+    empty runs."""
+    c = cscal.shape[0]
+    dev = entries.device
+    new = _run_heads(entries, cscal, cap)
+    rid = torch.cumsum(new, dim=0) - 1
+    idx = torch.arange(c, device=dev)
+    # run r's first row at starts[r]; rows that open no run land past the
+    # end, and starts[R] keeps its fill c, the end of the last run
+    starts = torch.full((c + 2,), c, dtype=torch.int64, device=dev)
+    starts.scatter_(0, torch.where(new, rid, c + 1), idx)
+    starts = starts[:c + 1]
+    lens = starts[1:] - starts[:-1]                 # 0 past the last run
+    first = _first_sites(cscal, starts[:-1].clamp(max=c - 1))
+    order = torch.argsort(lens, descending=True, stable=True)
+    table = torch.stack([starts[:-1][order], lens[order],
+                         dp.site_rows[first[order]]], dim=1)
+    return table.to(torch.int32).contiguous(), (rid[-1:] + 1).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.collapse_rows_launch.argtypes = [p] * 9 + [i] * 11 + [p]
+    lib.collapse_rows_launch.argtypes = [p] * 11 + [i] * 11 + [p]
     lib.collapse_rows_launch.restype = i
-    lib.collapse_kernel_max_smem_qubits.restype = i
+    lib.collapse_kernel_capacity.argtypes = [i] * 3
+    lib.collapse_kernel_capacity.restype = i
 
 
 # csrc/collapse_kernel.cu, built for sm_90a at first launch
@@ -325,15 +499,16 @@ LIBRARY = KernelLibrary("collapse_kernel", _bind,
                         "collapse_kernel_error_string")
 
 
-def launch_geometry(n: int, c: int, device) -> tuple[int, int]:
-    """``(threads, labels_per_cta)`` of a launch: a block of up to 1024
-    threads (at least 32, one per amplitude pair), and as many blocks in
-    flight as the SMs hold (one of 1024 threads, up to 16 small ones),
-    each looping over a contiguous run of the block's labels."""
-    threads = min(1024, max(32, (1 << n) // 2))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    ctas = sms * max(1, min(16, 1024 // threads))
-    return threads, max(1, math.ceil(c / ctas))
+def launch_geometry(n: int) -> tuple[int, int, bool]:
+    """``(threads, csize, use_smem)`` of a launch: the state is split over
+    ``csize`` CTAs (2 at n = 15, else 1), held in shared memory up to
+    n = 15 (``use_smem``); a CTA has 8 amplitudes of its share a thread
+    (at least 32 threads, at most 512: 32 amplitudes a thread at n = 14
+    and 15, all in the register checkpoint), so narrow states leave
+    registers for more CTAs an SM."""
+    csize = 2 if n == _CLUSTER_QUBITS else 1
+    threads = min(512, max(32, ((1 << n) // csize) // 8))
+    return threads, csize, n <= _CLUSTER_QUBITS
 
 
 def _launch(dp: CollapseDevicePlan, entries, cscal):
@@ -344,17 +519,25 @@ def _launch(dp: CollapseDevicePlan, entries, cscal):
     check_tensor(entries, "entries", torch.float32,
                  (c, max(1, plan.entry_stride)), dev)
     check_tensor(cscal, "cscal", torch.float32, (c, plan.n_sites, 4), dev)
-    for name in ("prefix", "ops", "fixed", "epi"):
+    for name in ("prefix", "rows", "pool", "site_rows", "epi"):
         if getattr(dp, name).device != dev:
             raise ValueError(f"plan table {name} is not on {dev}")
     if c < 1:
         raise ValueError("an empty label block")
-    threads, span = launch_geometry(plan.n, c, dev)
-    grid = math.ceil(c / span)
+    threads, csize, use_smem = launch_geometry(plan.n)
     big = 1 << plan.n
-    use_smem = plan.n <= lib.collapse_kernel_max_smem_qubits()
-    scratch = torch.empty((1 if use_smem else grid * 2 * big,),
-                          dtype=torch.float32, device=dev)
+    smem = (8 * big) // csize if use_smem else 0
+    capacity = lib.collapse_kernel_capacity(threads, smem, csize)
+    if capacity < 1:
+        raise RuntimeError(f"the collapse kernel cannot run at n = {plan.n} "
+                           f"({threads} threads, {smem} B of shared memory)")
+    # runs no longer than the block spread over every CTA (or cluster)
+    # the card holds: a few long runs would leave most of them idle
+    cap = max(1, min(RUN_CAP, -(-c // capacity)))
+    table, count = run_table(dp, entries, cscal, cap)
+    grid = min(c, capacity) * csize
+    scratch = None if use_smem else torch.empty(
+        (grid * 4 * big,), dtype=torch.float32, device=dev)
     out = torch.empty((c, _compact_width(plan)), dtype=torch.float32,
                       device=dev)
     bits = torch.full((c, plan.n_sites), -1, dtype=torch.int32, device=dev)
@@ -363,11 +546,13 @@ def _launch(dp: CollapseDevicePlan, entries, cscal):
     else:
         n_epi = len(plan.z_masks) if plan.mode == "z" else 0
     rc = lib.collapse_rows_launch(
-        dp.prefix.data_ptr(), dp.ops.data_ptr(), dp.fixed.data_ptr(),
+        dp.prefix.data_ptr(), dp.rows.data_ptr(), dp.pool.data_ptr(),
         entries.data_ptr(), cscal.data_ptr(), dp.epi.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), bits.data_ptr(), plan.n,
-        len(plan.ops), c, span, plan.entry_stride, plan.n_sites,
-        _MODES[plan.mode], n_epi, int(use_smem), grid, threads,
+        table.data_ptr(), count.data_ptr(),
+        0 if scratch is None else scratch.data_ptr(),
+        out.data_ptr(), bits.data_ptr(), plan.n, len(plan.table.rows), c,
+        plan.entry_stride, plan.n_sites, _MODES[plan.mode], n_epi,
+        csize, int(use_smem), grid, threads,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -375,6 +560,10 @@ def _launch(dp: CollapseDevicePlan, entries, cscal):
             "collapse kernel launch failed: " + LIBRARY.error_text(rc)
         )
     collapse_rows.launches += 1
+    collapse_rows.last_launch = {"runs": count, "cap": cap, "grid": grid,
+                                 "threads": threads, "cluster": csize,
+                                 "scratch_bytes": 0 if scratch is None
+                                 else 4 * scratch.numel()}
     return _finish(out, plan), bits
 
 
@@ -393,6 +582,7 @@ def collapse_rows(dp: CollapseDevicePlan, entries, cscal):
 
 
 collapse_rows.launches = 0
+collapse_rows.last_launch = None
 
 
 # ---------------------------------------------------------------------------
@@ -448,38 +638,82 @@ def make_collapse_chunk_kernel(
 # Work counts for the roofline bound (bytes and f32 operations)
 # ---------------------------------------------------------------------------
 
-def work_counts(plan: CollapsePlan, labels: int,
-                measuring_sites: int | None = None) -> dict:
-    """Work of one block of ``labels`` labels.  ``measuring_sites``: how
-    many (label, site) pairs have ``mflag > 0`` in this block's scalars
-    (data-dependent: only those sum, project and rescale; default every
-    pair).
+def work_counts(plan: CollapsePlan, entries, cscal) -> dict:
+    """Work of one block (``entries [C, entry_stride]``, ``cscal [C,
+    n_sites, 4]``, numpy or tensors), whatever implements the function.
 
     ``bytes``/``flops`` define the roofline bound: the bytes the function
     must move (each input read once, each output written once) and the
-    f32 operations it performs: a 1q gate 14 per amplitude, a 2q gate
-    30, a measuring collapse site 7 (``|psi|^2`` 3, the two sums 2, the
-    rescale 2), the epilogue ``|psi|^2`` 3 once plus 1 for the weight or
-    the marginal's sum, or 1 per z column (the total included).  ``pass_bytes`` is the state
-    traffic this design adds on top: the prefix copy, a read and a write
-    of the ``[2, 2^n]`` f32 state per gate, a read and a read-write per
-    measuring site, one read per epilogue pass."""
+    f32 operations these labels need.  Each gate costs what its matrix
+    needs (``variant_kernel.op_costs``: nothing for an identity or a
+    permutation, one complex entry for a ``cp``; slot gates from each
+    label's own entries).  Rows that differ only in ``u`` share every op
+    before their first measuring site: a replica run (:func:`find_runs`,
+    uncapped) counts those once, and the Born sums at that site (5 an
+    amplitude) once; a run that measures nowhere counts everything, its
+    epilogue included, once.  Per row: the ops after the run's first
+    measuring site, 2 an amplitude for its rescale, 7 for each later
+    measuring site, and the epilogue: ``|psi|^2`` 3 plus 1 for the
+    weight or the marginal's sum, or 1 per z column (the total included).
+
+    ``passes`` counts the passes over the state the redesigned kernel
+    makes (rewritten rows per label or per run, one per epilogue column;
+    a site it does not measure costs none, or one for its slot gates),
+    ``passes_before`` those of a kernel that runs every label from the
+    prefix (every original gate row, two per measuring site);
+    ``pass_bytes`` = ``passes`` x a read and a write of the f32 state."""
+    entries = np.asarray(entries.cpu() if torch.is_tensor(entries)
+                         else entries, np.float32)
+    cscal = np.asarray(cscal.cpu() if torch.is_tensor(cscal) else cscal,
+                       np.float32)
+    c = entries.shape[0]
     big = 1 << plan.n
-    kinds = plan.ops[:, 0] if len(plan.ops) else np.zeros(0, np.int32)
-    n_1q, n_2q = int((kinds == 1).sum()), int((kinds == 2).sum())
-    if measuring_sites is None:
-        measuring_sites = labels * len(plan.site_meta)
-    epi_passes = len(plan.z_masks) + 1 if plan.mode == "z" else 1
-    epi = (3 + epi_passes) * big
-    flops = (labels * ((14 * n_1q + 30 * n_2q) * big + epi)
-             + measuring_sites * 7 * big)
-    n_epi = {"rows": 0, "marginal": plan.n, "z": epi_passes - 1}[plan.mode]
+    runs = find_runs(torch.as_tensor(entries), torch.as_tensor(cscal),
+                     cap=c).numpy()
+    cost = op_costs(plan.ops, plan.fixed, plan.n, entries)
+    tail = np.cumsum(cost[:, ::-1], axis=1)[:, ::-1]       # from op i on
+    tail = np.concatenate([tail, np.zeros((c, 1), np.int64)], axis=1)
+    site_op = [i for i, r in enumerate(plan.ops.tolist()) if r[0] == 0]
+    meas = cscal[:, :len(site_op), 1] > 0
+    epi_cols = len(plan.z_masks) + 1 if plan.mode == "z" else 1
+    epi = (3 + epi_cols) * big
+
+    # the rewritten table's passes for each label: a row is a pass but a
+    # site the label does not measure (none for OP_SITE_B, none for
+    # OP_SITE_A without slot gates)
+    rows = plan.table.rows
+    k_pass = np.ones((c, len(rows)), np.int64)
+    for i, (kind, _, s, pre, post, _) in enumerate(rows.tolist()):
+        if kind == OP_SITE_B:
+            k_pass[:, i] = meas[:, s]
+        elif kind == OP_SITE_A and pre < 0 and post < 0:
+            k_pass[:, i] = meas[:, s]
+    k_tail = np.concatenate(
+        [np.cumsum(k_pass[:, ::-1], axis=1)[:, ::-1],
+         np.zeros((c, 1), np.int64)], axis=1)
+
+    flops = passes = 0
+    for start, length, first in runs.tolist():
+        span = slice(start, start + length)
+        if first >= len(site_op):          # measures nowhere: once
+            flops += int(tail[start, 0]) + epi
+            passes += int(k_tail[start, 0]) + epi_cols
+            continue
+        at = site_op[first]
+        resume = plan.site_rows[first]
+        flops += int(tail[start, 0] - tail[start, at]) + 5 * big
+        flops += int((tail[span, at + 1]).sum()) + length * (2 * big + epi)
+        flops += int(meas[span, first + 1:].sum()) * 7 * big
+        passes += int(k_tail[start, 0] - k_tail[start, resume])
+        passes += int(k_tail[span, resume].sum()) + length * epi_cols
+    n_epi = {"rows": 0, "marginal": plan.n, "z": epi_cols - 1}[plan.mode]
     nbytes = 4 * (
         plan.prefix.size + plan.ops.size + plan.fixed.size + n_epi
-        + labels * (max(1, plan.entry_stride) + 5 * plan.n_sites
-                    + plan.out_width)
+        + c * (max(1, plan.entry_stride) + 5 * plan.n_sites
+               + plan.out_width)
     )
-    passes = (labels * (16 * (n_1q + n_2q) + 16 + 8 * epi_passes)
-              + measuring_sites * 24) * big
+    gates = int((plan.ops[:, 0] > 0).sum()) if len(plan.ops) else 0
+    before = c * (gates + epi_cols) + 2 * int(meas.sum())
     return {"bytes": int(nbytes), "flops": int(flops),
-            "pass_bytes": int(passes)}
+            "pass_bytes": int(passes) * 16 * big, "passes": int(passes),
+            "passes_before": int(before), "runs": len(runs)}

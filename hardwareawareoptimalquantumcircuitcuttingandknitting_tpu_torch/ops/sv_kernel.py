@@ -20,13 +20,21 @@ transposed or permuted after the launch.
 Layers, as in the other kernel modules:
 
 * the host build: :func:`_plan` and :func:`_slot_lane_params` (numpy, the
-  JAX package's, with its refusals) and :func:`build_plan` (the op table
-  the kernel interprets, over flat bits);
-* :func:`sv_rows`, the wrapper: on CUDA tensors it launches the
+  JAX package's, with its refusals) and :func:`build_plan`: the original
+  op table over flat bits, and what the kernel reads instead of a lane
+  table: the fixed gates before the first slot run once on the host (the
+  ``prefix`` state every lane starts from), the rest rewritten by
+  ``ops/op_rewrite`` (identities dropped, diagonal runs merged, signed
+  permutations as moves), and per slot a small table of the 18 floats
+  for each (variant digit, branch bit) (:func:`_slot_tables`);
+* :func:`sv_rows`, the wrapper: on a plan on CUDA it launches the
   hand-written kernel in ``csrc/sv_kernel.cu`` (built with ``nvcc`` for
-  ``sm_90a`` at first use into ``build/``, loaded with ``ctypes``) and
-  counts the launch; on CPU tensors it runs :func:`plain_sv_rows`;
-* :func:`plain_sv_rows`, the plain PyTorch version of the same function,
+  ``sm_90a`` at first use into ``build/``, loaded with ``ctypes``), which
+  derives each lane's slot coefficients from its index, and counts the
+  launch; on the CPU it runs :func:`plain_sv_rows` on the lane table that
+  :func:`lane_params` builds by the kernel's own formula;
+* :func:`plain_sv_rows`, the plain PyTorch version of the same function
+  (the original op table from ``|0..0>``, a lane table row per lane),
   used on the CPU and as the kernel's reference on the card;
 * :func:`build_fragment_kernel` / :func:`run_fragment_kernel`, the entry
   points (the JAX ``build_fragment_kernel`` / ``run_fragment_pallas``).
@@ -34,10 +42,10 @@ Layers, as in the other kernel modules:
   composes ``run_fragment_kernel`` with ``knit.knit``.
 
 Not carried over from the TPU kernel, because they are artefacts of its
-128 lanes side by side: the padding of the lane table to a multiple of
-128, the ``[2^k, lanes]`` output with its host transpose and bit
-permutation, and matrices baked into the traced program (one build of the
-CUDA kernel interprets every fragment's op table).
+128 lanes side by side: the lane table itself (on the card), its padding
+to a multiple of 128, the ``[2^k, lanes]`` output with its host transpose
+and bit permutation, and matrices baked into the traced program (one
+build of the CUDA kernel interprets every fragment's op table).
 
 What bounds the kernel on an H100 and what its design does about it is
 written at the top of the CUDA source.
@@ -53,8 +61,10 @@ import torch
 
 from ..convert import resolve_device, to_device
 from ..virt.virtual_circuit import VirtualCircuit
+from . import op_rewrite
 from .kernel_build import KernelLibrary, check_tensor
-from .statevector import apply_slices
+from .op_rewrite import matvec_ops as _matvec_ops
+from .statevector import apply_matrix_host, apply_slices
 from .variant_engine import FragmentResult, label_strides
 from .variant_kernel import apply_op_plain
 
@@ -211,19 +221,120 @@ def _slot_lane_params(virt, prog, meas_vgates, slots):
     return arr, v_count, total
 
 
+def _c8(mats: np.ndarray) -> np.ndarray:
+    """``[r, 2, 2]`` complex matrices -> ``[r, 8]``: entries 00, 01, 10,
+    11, each re then im (the lane table's interleaving)."""
+    return np.stack(
+        [
+            mats[:, 0, 0].real, mats[:, 0, 0].imag,
+            mats[:, 0, 1].real, mats[:, 0, 1].imag,
+            mats[:, 1, 0].real, mats[:, 1, 0].imag,
+            mats[:, 1, 1].real, mats[:, 1, 1].imag,
+        ],
+        axis=1,
+    )
+
+
+def _slot_tables(virt, prog, meas_vgates, slots):
+    """What the kernel reads instead of a lane table: ``(slot_tab [rows,
+    18] f32, slot_meta [n_slots, 4] int32, v_count, total)``.  Slot ``s``
+    owns rows ``off + 2 d + b`` of ``slot_tab``, one per variant digit
+    ``d`` of its vgate and branch bit ``b``, with :func:`_slot_lane_params`'s
+    rules (the projector ``(1-b, b)`` where the endpoint measures; on the
+    first measuring slot of a vgate, ``(0, 0)`` for ``b = 1`` at a digit
+    where no endpoint of the vgate in this fragment measures).
+    ``slot_meta[s]`` = ``(stride, n_inst, branch bit or -1, off)``: a
+    lane's digit is ``((lane >> m) // stride) % n_inst``."""
+    strides, n_inst, v_count = label_strides(
+        [vg.spec for vg in virt.vgates], prog.touching
+    )
+    first_slot_of_g: dict[int, int] = {}
+    for s_i, info in enumerate(slots):
+        if info.branch_bit is not None and info.vgate_idx not in first_slot_of_g:
+            first_slot_of_g[info.vgate_idx] = s_i
+
+    tabs, meta, off = [], [], 0
+    for s_i, info in enumerate(slots):
+        g = info.vgate_idx
+        spec = virt.vgates[g].spec
+        digit = np.repeat(np.arange(n_inst[g]), 2)
+        b = np.tile(np.arange(2), n_inst[g])
+        pres = np.stack([p[info.side].pre for p in spec.endpoints])[digit]
+        posts = np.stack([p[info.side].post for p in spec.endpoints])[digit]
+        meas = np.array(
+            [p[info.side].measure for p in spec.endpoints], dtype=bool
+        )[digit]
+        any_meas = np.zeros(len(digit), dtype=bool)
+        for other in slots:
+            if other.vgate_idx == g:
+                any_meas |= np.array(
+                    [p[other.side].measure for p in spec.endpoints],
+                    dtype=bool,
+                )[digit]
+        m0 = np.ones(len(digit))
+        m1 = np.ones(len(digit))
+        if info.branch_bit is not None:
+            m0 = np.where(meas, 1.0 - b, m0)
+            m1 = np.where(meas, b.astype(float), m1)
+            if first_slot_of_g.get(g) == s_i:
+                dead = (~any_meas) & (b == 1)
+                m0 = np.where(dead, 0.0, m0)
+                m1 = np.where(dead, 0.0, m1)
+        tabs.append(np.concatenate(
+            [_c8(pres), np.stack([m0, m1], axis=1), _c8(posts)], axis=1
+        ).astype(np.float32))
+        bb = -1 if info.branch_bit is None else info.branch_bit
+        meta.append((strides[g], n_inst[g], bb, off))
+        off += len(digit)
+    slot_tab = (np.concatenate(tabs) if tabs
+                else np.zeros((0, SLOT_PARAMS), np.float32))
+    slot_meta = np.asarray(meta, np.int32).reshape(-1, 4)
+    return slot_tab, slot_meta, v_count, v_count << len(meas_vgates)
+
+
+def lane_rows(plan, lanes=None) -> np.ndarray:
+    """``[L, n_slots]``: the ``slot_tab`` row of every slot for each lane
+    (all ``plan.total`` lanes, or the indices ``lanes``), by the kernel's
+    formula."""
+    lane = (np.arange(plan.total, dtype=np.int64) if lanes is None
+            else np.asarray(lanes, np.int64))
+    variant, code = lane >> plan.m, lane & ((1 << plan.m) - 1)
+    cols = []
+    for stride, n_inst, bb, off in plan.slot_meta.tolist():
+        b = (code >> bb) & 1 if bb >= 0 else 0
+        cols.append(off + 2 * ((variant // stride) % n_inst) + b)
+    return np.stack(cols, axis=1) if cols else np.zeros((len(lane), 0),
+                                                        np.int64)
+
+
+def lane_params(plan, lanes=None) -> np.ndarray:
+    """The lane table ``[L, p_cols]`` f32 that the kernel's formula reads
+    from the per-slot tables (one zero column without a slot): equal to
+    :func:`_slot_lane_params` bit for bit.  The plain version takes it."""
+    rows = lane_rows(plan, lanes)
+    if not plan.slots:
+        return np.zeros((len(rows), 1), np.float32)
+    return plan.slot_tab[rows].reshape(len(rows), -1)
+
+
 @dataclass
 class SvPlan:
     """Host build of one fragment's kernel.
 
-    ``ops``: rows ``(kind, ja, jb, off)`` over flat bits: kind 1 / 2 a
-    fixed 1q / 2q gate (``ja`` the gate-index MSB, ``off`` its offset in
-    the ``fixed`` pool: re ``[m*m]`` then im ``[m*m]``), kind 3 a slot on
-    flat bit ``ja`` whose 18 floats start at column ``off`` of the lane's
-    ``params`` row.  Flat bit ``i < k`` holds the qubit that data clbit
-    ``data_positions[i]`` reads, the qubits no terminal measure reads sit
-    on bits ``k..n-1`` and are summed out.  ``positions``: the result's
-    clbits (data clbits ascending, then ``num_clbits + g`` per measuring
-    vgate: the branch-code bits)."""
+    ``ops``: the original op table, rows ``(kind, ja, jb, off)`` over flat
+    bits: kind 1 / 2 a fixed 1q / 2q gate (``ja`` the gate-index MSB,
+    ``off`` its offset in the ``fixed`` pool: re ``[m*m]`` then im
+    ``[m*m]``), kind 3 a slot on flat bit ``ja`` whose 18 floats start at
+    column ``off`` of the lane's ``params`` row.  Flat bit ``i < k`` holds
+    the qubit that data clbit ``data_positions[i]`` reads, the qubits no
+    terminal measure reads sit on bits ``k..n-1`` and are summed out.
+    ``positions``: the result's clbits (data clbits ascending, then
+    ``num_clbits + g`` per measuring vgate: the branch-code bits).
+
+    What the kernel reads: ``prefix [2, 2^n]`` (the fixed gates before
+    the first slot, applied once on the host), ``table`` (the rest,
+    rewritten by ``ops/op_rewrite``), ``slot_tab`` / ``slot_meta`` (see
+    :func:`_slot_tables`)."""
 
     name: str
     n: int                   # state width: max(data qubits, 1)
@@ -237,6 +348,17 @@ class SvPlan:
     terminal_sources: dict
     positions: list
     touching: list
+    prefix: np.ndarray       # [2, 2^n] float32
+    prefix_ops: int          # rows of ``ops`` the prefix covers
+    table: op_rewrite.Table
+    slot_tab: np.ndarray     # [rows, 18] float32
+    slot_meta: np.ndarray    # [n_slots, 4] int32
+    v_count: int
+    total: int               # lanes: v_count << m
+
+    @property
+    def m(self) -> int:
+        return len(self.meas_vgates)
 
     @property
     def p_cols(self) -> int:
@@ -250,7 +372,7 @@ class SvPlan:
 
 
 def build_plan(virt: VirtualCircuit, frag_name: str) -> SvPlan | None:
-    """The kernel's op table for one fragment, or None where
+    """The kernel's op tables for one fragment, or None where
     :func:`_plan` refuses it (``reset``, conditions, gates on more than 2
     qubits, a data measure that is not terminal, two clbits from one
     qubit, more than ``MAX_KERNEL_QUBITS`` data qubits)."""
@@ -265,12 +387,13 @@ def build_plan(virt: VirtualCircuit, frag_name: str) -> SvPlan | None:
     for q in range(n):
         flat_of_q.setdefault(q, len(flat_of_q))
 
-    rows, fixed, slots = [], [], []
+    rows, fixed, slots, generic = [], [], [], []
     for entry in ops:
         if entry[0] == "slot":
             info = entry[1]
             rows.append((_SLOT, flat_of_q[info.qubit], 0,
                          SLOT_PARAMS * len(slots)))
+            generic.append(("slot", flat_of_q[info.qubit], len(slots)))
             slots.append(info)
             continue
         _, mat, qubits = entry
@@ -278,8 +401,21 @@ def build_plan(virt: VirtualCircuit, frag_name: str) -> SvPlan | None:
         js = [flat_of_q[q] for q in qubits]
         rows.append((len(js), js[0], js[1] if len(js) == 2 else 0,
                      len(fixed)))
+        generic.append(("u", mat, js))
         fixed.extend(mat.real.astype(np.float32).ravel())
         fixed.extend(mat.imag.astype(np.float32).ravel())
+
+    # the fixed gates before the first slot act on |0..0> alike in every
+    # lane: once, on the host (apply_matrix_host's qubit q' is flat bit
+    # n-1-q')
+    first = next((i for i, g in enumerate(generic) if g[0] == "slot"),
+                 len(generic))
+    st = np.zeros((2, 1 << n), np.float32)
+    st[0, 0] = 1.0
+    for _, mat, js in generic[:first]:
+        st = apply_matrix_host(st, mat, tuple(n - 1 - j for j in js), n)
+    slot_tab, slot_meta, v_count, total = _slot_tables(
+        virt, prog, meas_vgates, slots)
     return SvPlan(
         name=frag_name, n=n, k=len(kept_qubits),
         ops=np.asarray(rows, np.int32).reshape(-1, 4),
@@ -290,23 +426,32 @@ def build_plan(virt: VirtualCircuit, frag_name: str) -> SvPlan | None:
         positions=list(data_positions) + [
             virt.num_clbits + g for g in meas_vgates
         ],
-        touching=list(prog.touching),
+        touching=list(prog.touching), prefix=st.astype(np.float32),
+        prefix_ops=first, table=op_rewrite.rewrite(generic[first:]),
+        slot_tab=slot_tab, slot_meta=slot_meta, v_count=v_count,
+        total=total,
     )
 
 
 class SvDevicePlan:
-    """An :class:`SvPlan` with its tables on one device."""
+    """An :class:`SvPlan` with its tables on one device: the original op
+    table for the plain version, the kernel's tables beside it."""
 
     def __init__(self, plan: SvPlan, device):
         self.plan = plan
-        self.device = torch.device(device)
-        self.ops = to_device(
-            plan.ops if len(plan.ops) else np.zeros((1, 4), np.int32), device
-        )
-        self.fixed = to_device(
-            plan.fixed if plan.fixed.size else np.zeros(1, np.float32),
-            device,
-        )
+
+        def put(arr, empty_shape, dtype):
+            return to_device(arr if arr.size else np.zeros(empty_shape,
+                                                           dtype), device)
+
+        self.ops = put(plan.ops, (1, 4), np.int32)
+        self.fixed = put(plan.fixed, 1, np.float32)
+        self.rows = put(plan.table.rows, (1, op_rewrite.ROW), np.int32)
+        self.pool = put(plan.table.pool, 1, np.float32)
+        self.prefix = to_device(plan.prefix, device)
+        self.slot_tab = put(plan.slot_tab, (1, SLOT_PARAMS), np.float32)
+        self.slot_meta = put(plan.slot_meta, (1, 4), np.int32)
+        self.device = self.prefix.device   # with its index: cuda:0
 
 
 # ---------------------------------------------------------------------------
@@ -359,6 +504,26 @@ def plain_sv_rows(dp: SvDevicePlan, params: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def replay_kernel_table(dp: SvDevicePlan, lanes=None) -> torch.Tensor:
+    """What the kernel computes, replayed in plain PyTorch on the plan's
+    device: the ``prefix`` state, the rewritten table (``ops/op_rewrite``)
+    with each slot's 18 floats from the per-slot tables, the epilogue.
+    Rows ``[L, 2^k]``; tests hold it to :func:`plain_sv_rows`, which
+    replays the original table."""
+    plan = dp.plan
+    n, k = plan.n, plan.k
+    par = torch.as_tensor(lane_params(plan, lanes), device=dp.device)
+    st = dp.prefix.expand(par.shape[0], 2, 1 << n)
+
+    def slot(x, row):
+        off = SLOT_PARAMS * int(row[2])
+        return _slot_plain(x, n, int(row[1]), par[:, off:off + SLOT_PARAMS])
+
+    st = op_rewrite.replay(st, plan.table, n, special=slot)
+    sq = (st * st).sum(dim=1)
+    return sq.reshape(-1, 1 << (n - k), 1 << k).sum(dim=1)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
@@ -366,11 +531,11 @@ def plain_sv_rows(dp: SvDevicePlan, params: torch.Tensor) -> torch.Tensor:
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sv_rows_launch.argtypes = (
-        [p] * 4 + [ctypes.c_longlong] + [i] * 8 + [p]
+        [p] * 7 + [ctypes.c_longlong] + [i] * 10 + [p]
     )
     lib.sv_rows_launch.restype = i
     lib.sv_kernel_max_qubits.restype = i
-    lib.sv_kernel_smem_bytes.argtypes = [i] * 5
+    lib.sv_kernel_smem_bytes.argtypes = [i] * 7
     lib.sv_kernel_smem_bytes.restype = i
 
 
@@ -387,32 +552,38 @@ def launch_geometry(n: int) -> tuple[int, int]:
     return max(256, group), group
 
 
-def _launch(dp: SvDevicePlan, params: torch.Tensor) -> torch.Tensor:
+def _launch(dp: SvDevicePlan, lanes) -> torch.Tensor:
     lib = LIBRARY.load()
     plan = dp.plan
-    dev = params.device
-    lanes = params.shape[0]
-    check_tensor(params, "params", torch.float32, (lanes, plan.p_cols), dev)
-    for name in ("ops", "fixed"):
+    dev = dp.device
+    count = plan.total if lanes is None else lanes.shape[0]
+    for name in ("rows", "pool", "prefix", "slot_tab", "slot_meta"):
         if getattr(dp, name).device != dev:
             raise ValueError(f"plan table {name} is not on {dev}")
-    if lanes < 1:
-        raise ValueError("an empty lane table")
+    if count < 1:
+        raise ValueError("no lane to run")
     if plan.n > lib.sv_kernel_max_qubits():
         raise ValueError(f"{plan.n} qubits exceed the kernel's width gate")
     threads, group = launch_geometry(plan.n)
-    n_ops, n_fixed = len(plan.ops), int(plan.fixed.size)
-    smem = lib.sv_kernel_smem_bytes(plan.n, threads, group, n_ops, n_fixed)
+    n_rows = len(plan.table.rows)
+    n_pool = int(plan.table.pool.size)
+    n_slot = int(plan.slot_tab.size)
+    n_slots = len(plan.slots)
+    smem = lib.sv_kernel_smem_bytes(plan.n, threads, group, n_rows, n_pool,
+                                    n_slot, n_slots)
     props = torch.cuda.get_device_properties(dev)
     per_sm = max(1, min(2048 // threads, (227 * 1024) // max(1, smem)))
     lanes_per_block = threads // group
-    grid = min(-(-lanes // lanes_per_block),
+    grid = min(-(-count // lanes_per_block),
                props.multi_processor_count * per_sm)
-    out = torch.empty((lanes, plan.width), dtype=torch.float32, device=dev)
+    out = torch.empty((count, plan.width), dtype=torch.float32, device=dev)
     rc = lib.sv_rows_launch(
-        dp.ops.data_ptr(), dp.fixed.data_ptr(), params.data_ptr(),
-        out.data_ptr(), lanes, plan.n, plan.k, n_ops, n_fixed, plan.p_cols,
-        group, grid, threads, torch.cuda.current_stream(dev).cuda_stream,
+        dp.rows.data_ptr(), dp.pool.data_ptr(), dp.prefix.data_ptr(),
+        dp.slot_tab.data_ptr(), dp.slot_meta.data_ptr(),
+        0 if lanes is None else lanes.data_ptr(), out.data_ptr(), count,
+        plan.n, plan.k, plan.m, n_rows, n_pool, n_slot, n_slots, group,
+        grid, threads,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(
@@ -422,17 +593,25 @@ def _launch(dp: SvDevicePlan, params: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def sv_rows(dp: SvDevicePlan, params: torch.Tensor) -> torch.Tensor:
-    """Rows ``[lanes, 2^k]`` for a lane table ``params [lanes, p_cols]``
-    f32 (from :func:`_slot_lane_params`; one zero column when the fragment
-    has no slot).  A CUDA tensor launches the hand-written kernel, once
-    for all lanes (counted in ``sv_rows.launches``); a CPU tensor runs
-    :func:`plain_sv_rows`."""
-    if params.is_cuda:
-        return _launch(dp, params)
-    if params.device.type != "cpu":
-        raise ValueError(f"unsupported device {params.device}")
-    return plain_sv_rows(dp, params)
+def sv_rows(dp: SvDevicePlan, lanes: torch.Tensor | None = None):
+    """Rows ``[L, 2^k]`` of the lanes ``lanes`` (int64 indices in
+    ``[0, plan.total)``, on the plan's device; None: every lane in
+    order).  A plan on CUDA launches the hand-written kernel, once for all
+    lanes (counted in ``sv_rows.launches``); it reads no lane table.  A
+    plan on the CPU runs :func:`plain_sv_rows` on the lane table of
+    :func:`lane_params`."""
+    if lanes is not None:
+        check_tensor(lanes, "lanes", torch.int64, (lanes.shape[0],),
+                     dp.device)
+        if len(lanes) and not (0 <= int(lanes.min())
+                               and int(lanes.max()) < dp.plan.total):
+            raise ValueError(f"lane indices outside [0, {dp.plan.total})")
+    if dp.device.type == "cuda":
+        return _launch(dp, lanes)
+    if dp.device.type != "cpu":
+        raise ValueError(f"unsupported device {dp.device}")
+    idx = None if lanes is None else lanes.numpy()
+    return plain_sv_rows(dp, torch.as_tensor(lane_params(dp.plan, idx)))
 
 
 sv_rows.launches = 0
@@ -445,9 +624,11 @@ sv_rows.launches = 0
 def build_fragment_kernel(virt: VirtualCircuit, frag_name: str, device=None):
     """``(fn, params, meta)`` or None where the fragment is outside the
     kernel (see :func:`build_plan`).  ``params`` is the host lane table
-    ``[lanes, p_cols]`` (numpy); ``fn(params_tensor)`` maps it, on
-    ``device`` (None = "cuda"), to the fragment's rows ``[v_count,
-    2^(m+k)]`` there: bit ``i < k`` of a row's index is data clbit
+    ``[lanes, p_cols]`` (numpy, :func:`_slot_lane_params`: the JAX
+    function's contract; the kernel itself reads no lane table);
+    ``fn(lanes=None)`` gives the fragment's rows ``[v_count, 2^(m+k)]`` on
+    ``device`` (None = "cuda"), or ``[L, 2^k]`` for lane indices
+    ``lanes``: bit ``i < k`` of a row's index is data clbit
     ``data_positions[i]``, bit ``k + j`` the clbit of ``meas_vgates[j]``.
     ``fn.plan`` is the :class:`SvDevicePlan`; ``meta`` holds the JAX
     function's keys."""
@@ -462,8 +643,9 @@ def build_fragment_kernel(virt: VirtualCircuit, frag_name: str, device=None):
         params = np.zeros((total, 1), np.float32)
     dp = SvDevicePlan(plan, dev)
 
-    def fn(par):
-        return sv_rows(dp, par).reshape(v_count, -1)
+    def fn(lanes=None):
+        rows = sv_rows(dp, lanes)
+        return rows.reshape(v_count, -1) if lanes is None else rows
 
     fn.plan = dp
     meta = {
@@ -485,23 +667,23 @@ def run_fragment_kernel(
     """A fragment's full variant fan-out from the kernel, as a
     ``FragmentResult`` on ``device`` (None = "cuda"; "cpu" runs the plain
     version).  Returns None where the fragment is outside the kernel
-    (:func:`build_plan`); it never runs another engine itself.  A
-    ``timings`` dict gets the host seconds of the two stages added to its
-    ``lane_tables_s`` (plan and lane table in numpy) and
-    ``upload_and_kernel_s`` (ended by a device synchronize)."""
+    (:func:`build_plan`); it never runs another engine itself.  No lane
+    table is built on the card.  A ``timings`` dict gets the host seconds
+    of the two stages added to its ``plan_s`` (the op tables, the prefix
+    and the per-slot tables in numpy) and ``upload_and_kernel_s`` (their
+    upload and the launch, ended by a device synchronize)."""
+    dev = resolve_device(device)
     t0 = time.perf_counter()
-    built = build_fragment_kernel(virt, frag_name, device)
-    if built is None:
+    plan = build_plan(virt, frag_name)
+    if plan is None:
         return None
-    fn, params, _ = built
-    plan = fn.plan.plan
     t1 = time.perf_counter()
-    values = fn(to_device(params, fn.plan.device))
+    values = sv_rows(SvDevicePlan(plan, dev)).reshape(plan.v_count, -1)
     if timings is not None:
         if values.is_cuda:
             torch.cuda.synchronize(values.device)
         t2 = time.perf_counter()
-        timings["lane_tables_s"] = timings.get("lane_tables_s", 0.0) + t1 - t0
+        timings["plan_s"] = timings.get("plan_s", 0.0) + t1 - t0
         timings["upload_and_kernel_s"] = (
             timings.get("upload_and_kernel_s", 0.0) + t2 - t1
         )
@@ -513,69 +695,52 @@ def run_fragment_kernel(
 # Work counts for the roofline bound (bytes and f32 operations)
 # ---------------------------------------------------------------------------
 
-def _matvec_ops(re: np.ndarray, im: np.ndarray) -> np.ndarray:
-    """f32 operations of ``y = M x`` on one group of ``d`` complex
-    amplitudes, for matrices ``re + i im`` of shape ``[..., d, d]``: per
-    row, a product with an entry that has both components costs 6, with a
-    real or imaginary one 2, with ``+-1`` or ``+-i`` nothing, and each
-    term after the first 2 for the complex add.  A component below half
-    an f32 ulp of 1 counts as zero.  An identity or a signed permutation
-    so costs nothing, a dense complex 1q / 2q matrix 28 / 120 (14 / 30 an
-    amplitude)."""
-    eps = 2.0 ** -24
-    r, i = np.abs(re) >= eps, np.abs(im) >= eps
-    unit = (r ^ i) & (np.abs(re) + np.abs(im) == 1)
-    mul = np.where(unit, 0, 2 * (r | i) + 4 * (r & i))
-    adds = 2 * np.maximum((r | i).sum(-1) - 1, 0)
-    return (mul.sum(-1) + adds).sum(-1)
+def work_counts(plan: SvPlan, lanes=None) -> dict:
+    """Work of the lanes ``lanes`` (indices; None: all ``plan.total``),
+    whatever implements the function.
 
-
-def work_counts(plan: SvPlan, lanes: int,
-                params: np.ndarray | None = None) -> dict:
-    """Work of ``lanes`` lanes, whatever implements the function.
-
-    ``bytes``: the op table, the coefficient pool and the lane table read
-    once, the rows written once.  ``flops``: what the matrices at hand
-    need (:func:`_matvec_ops`: zero, unit, real and imaginary entries
-    are not charged as dense complex ones).  The fixed gates before the
-    first slot act on the same ``|0..0>`` in every lane and count once
-    per fragment; every later fixed gate counts once per lane.  A slot
-    counts its lane's own ``pre`` and ``post`` from the lane table
-    ``params [lanes, p_cols]`` (numpy) plus 2 an amplitude of a mask
-    entry other than 0 or 1; without ``params`` it counts as dense, 30 an
-    amplitude.  Then ``|psi|^2`` 3 an amplitude and one add per amplitude
+    ``bytes``: the tables the kernel reads (rewritten op table and pool,
+    the prefix state, the per-slot tables) once, the rows written once.
+    ``flops``: what the matrices at hand need (:func:`_matvec_ops`: zero,
+    unit, real and imaginary entries are not charged as dense complex
+    ones).  The fixed gates before the first slot act on the same
+    ``|0..0>`` in every lane and count once per fragment; every later
+    fixed gate counts once per lane.  A slot counts each lane's own
+    ``pre`` and ``post`` plus 2 an amplitude of a mask entry other than 0
+    or 1.  Then ``|psi|^2`` 3 an amplitude and one add per amplitude
     summed away.  ``pass_bytes`` is what this design moves through shared
-    memory on top: a read and a write of the lane's ``[2, 2^n]`` f32
-    state per op in every lane, and the epilogue's reads."""
+    memory on top: the prefix copied in, a read and a write of the lane's
+    ``[2, 2^n]`` f32 state per rewritten row in every lane, and the
+    epilogue's reads."""
     big = 1 << plan.n
-    shared = per_lane = slot_ops = 0
-    seen_slot = False
-    for kind, _, _, off in plan.ops.tolist():
+    count = plan.total if lanes is None else len(lanes)
+    shared = per_lane = 0
+    for i, (kind, _, _, off) in enumerate(plan.ops.tolist()):
         if kind == _SLOT:
-            seen_slot = True
-            if params is None:
-                slot_ops += lanes * 30 * big
-                continue
-            par = np.asarray(params)[:, off:off + SLOT_PARAMS]
-            pre, post = (par[:, a:a + 8].reshape(-1, 2, 2, 2)
-                         for a in (0, 10))
-            mats = (_matvec_ops(pre[..., 0], pre[..., 1])
-                    + _matvec_ops(post[..., 0], post[..., 1]))
-            mask = par[:, 8:10]
-            scaled = 2 * ((mask != 0) & (mask != 1)).sum()
-            slot_ops += (int(mats.sum()) + int(scaled)) * (big // 2)
             continue
         d = 1 << kind
         mat = plan.fixed[off:off + 2 * d * d].reshape(2, d, d)
         cost = int(_matvec_ops(mat[0], mat[1])) * (big // d)
-        if seen_slot:
-            per_lane += cost
-        else:
+        if i < plan.prefix_ops:
             shared += cost
+        else:
+            per_lane += cost
+    slot_ops = 0
+    if plan.slots:
+        tab = plan.slot_tab
+        pre, post = (tab[:, a:a + 8].reshape(-1, 2, 2, 2) for a in (0, 10))
+        mask = tab[:, 8:10]
+        row_cost = (_matvec_ops(pre[..., 0], pre[..., 1])
+                    + _matvec_ops(post[..., 0], post[..., 1])
+                    + 2 * ((mask != 0) & (mask != 1)).sum(1)) * (big // 2)
+        uses = np.bincount(lane_rows(plan, lanes).ravel(),
+                           minlength=len(tab))
+        slot_ops = int((row_cost * uses).sum())
     epilogue = 3 * big + (big - plan.width)
-    flops = shared + slot_ops + lanes * (per_lane + epilogue)
-    nbytes = 4 * (plan.ops.size + plan.fixed.size
-                  + lanes * (plan.p_cols + plan.width))
-    passes = lanes * (16 * len(plan.ops) + 8 + 8) * big
+    flops = shared + slot_ops + count * (per_lane + epilogue)
+    nbytes = 4 * (plan.table.rows.size + plan.table.pool.size
+                  + plan.prefix.size + plan.slot_tab.size
+                  + plan.slot_meta.size + count * plan.width)
+    passes = count * (16 * len(plan.table.rows) + 8 + 8 + 8) * big
     return {"bytes": int(nbytes), "flops": int(flops),
             "pass_bytes": int(passes)}

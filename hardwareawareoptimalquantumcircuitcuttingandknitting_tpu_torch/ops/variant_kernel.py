@@ -37,6 +37,7 @@ import torch
 from ..convert import resolve_device, to_device
 from ..virt.virtual_circuit import VirtualCircuit
 from .kernel_build import KernelLibrary, check_tensor
+from .op_rewrite import matvec_ops
 from .statevector import apply_matrix_host, apply_slices, marginalize_flat
 from .variant_engine import _slot_tables, _fuse_slot_ops
 
@@ -145,6 +146,33 @@ class OpTable:
 
     def fixed_array(self) -> np.ndarray:
         return np.asarray(self.fixed, np.float32)
+
+
+def op_costs(ops: np.ndarray, fixed: np.ndarray, n: int,
+             entries=None) -> np.ndarray:
+    """f32 operations of each :class:`OpTable` row on a ``2^n`` state,
+    ``[C, n_ops]`` for the labels' entry rows ``entries [C, stride]``
+    (numpy), else ``[1, n_ops]``: a gate what its matrix needs
+    (``op_rewrite.matvec_ops``: nothing for an identity or a permutation),
+    a slot gate from each label's own entries (as dense without them), a
+    collapse row nothing."""
+    big = 1 << n
+    c = 1 if entries is None else len(entries)
+    cost = np.zeros((c, len(ops)), np.int64)
+    for i, (nq, _, _, coef) in enumerate(np.asarray(ops).tolist()):
+        if nq == 0:
+            continue
+        m = 1 << nq
+        if coef >= 0:
+            blk = fixed[coef:coef + 2 * m * m].reshape(2, m, m)
+        elif entries is None:
+            blk = np.ones((2, m, m), np.float32)   # dense complex
+        else:
+            off = -1 - coef
+            blk = np.moveaxis(np.asarray(entries)[:, off:off + 2 * m * m]
+                              .reshape(c, 2, m, m), 1, 0)
+        cost[:, i] = matvec_ops(blk[0], blk[1]) * (big // m)
+    return cost
 
 
 def gather_slot_entries(entry_tables, entry_gids, vidx_chunk):
@@ -556,7 +584,8 @@ def effective_stages(stage: np.ndarray, labels_per_cta: int) -> np.ndarray:
     return s
 
 
-def work_counts(plan: VariantPlan, stage: np.ndarray, n_w: int) -> dict:
+def work_counts(plan: VariantPlan, stage: np.ndarray, n_w: int,
+                entries=None) -> dict:
     """Work of one chunk replayed from these stages (data-dependent: only
     the replayed segments count).  The function's own stage array
     (:meth:`DevicePlan.stages`) gives the roofline work;
@@ -565,26 +594,24 @@ def work_counts(plan: VariantPlan, stage: np.ndarray, n_w: int) -> dict:
 
     ``bytes``/``flops`` define the roofline bound: the bytes the function
     must move (each input read once, each output written once) and the
-    f32 operations it performs — a 1q gate costs 14 per amplitude (two
-    complex MACs per output, 4 real outputs per pair), a 2q gate 30,
-    ``|psi|^2`` 3 and the fold another ``n_wbits + 2``.  ``pass_bytes``
-    is the state traffic this design adds on top: every replayed gate
-    reads and writes the ``[2, 2^n]`` f32 state once, the epilogue reads
-    it once."""
+    f32 operations it performs: each gate what its matrix needs
+    (:func:`op_costs`; a slot gate from the label's own row of
+    ``entries [C, entry_stride]``, dense without it), ``|psi|^2`` 3 and
+    the fold another ``n_wbits + 2``.  ``pass_bytes`` is the state
+    traffic this design adds on top: every replayed gate reads and writes
+    the ``[2, 2^n]`` f32 state once, the epilogue reads it once."""
     c = len(stage)
     big = 1 << plan.n
-    is_1q = plan.ops[:, 0] == 1 if len(plan.ops) else np.zeros(0, bool)
-    per_op = np.where(is_1q, 14, 30) * big
-    seg_cost = [int(per_op[a:b].sum()) for a, b in plan.segments]
-    seg_ops = [b - a for a, b in plan.segments]
-
-    def tail(xs):
-        return np.cumsum(xs[::-1])[::-1].tolist() + [0]
-
-    cost_tail, ops_tail = tail(seg_cost), tail(seg_ops)
-    idx = [min(int(s), len(seg_cost)) for s in stage]
-    gate_flops = sum(cost_tail[i] for i in idx)
-    gate_passes = sum(ops_tail[i] for i in idx)
+    n_ops = len(plan.ops)
+    cost = op_costs(plan.ops, plan.fixed, plan.n, entries)
+    tail = np.concatenate([np.cumsum(cost[:, ::-1], axis=1)[:, ::-1],
+                           np.zeros((len(cost), 1), np.int64)], axis=1)
+    starts = [a for a, _ in plan.segments] + [n_ops]
+    at = np.asarray([starts[min(int(s), len(plan.segments))]
+                     for s in stage], np.int64)
+    rows = np.arange(c) if len(cost) == c else np.zeros(c, np.int64)
+    gate_flops = int(tail[rows, at].sum())
+    gate_passes = int((n_ops - at).sum())
     epi = (3 + len(plan.fold[0]) + 2 if plan.fold is not None else 3) * big
     nbytes = 4 * (
         plan.prefix.size + plan.ops.size + plan.fixed.size

@@ -29,6 +29,9 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (
     blocked_kernel as bk,
     variant_kernel as vk,
 )
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.op_rewrite import (  # noqa: E501
+    matvec_ops,
+)
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.virt.virtual_circuit import (  # noqa: E501
     VirtualCircuit,
 )
@@ -241,6 +244,15 @@ def test_work_counts_per_segment():
     assert first["bytes"] >= 4 * (2 * big + 4 * 2 * big)
     assert later["bytes"] >= 4 * (2 * 4 * 2 * big)
     assert later["bytes"] - first["bytes"] > 4 * 2 * big * 2
+    # each gate what its matrix needs, a slot gate as dense (no entries)
     rows = plan.ops[plan.segments[1][0]:plan.segments[1][1]]
-    want = sum(14 if r[0] == 1 else 30 for r in rows) * big * 4
-    assert later["flops"] == want > 0
+    want = 0
+    for nq, _, _, coef in rows.tolist():
+        m = 1 << nq
+        if coef < 0:
+            want += (28 if nq == 1 else 120) * (big // m)
+            continue
+        mat = plan.fixed[coef:coef + 2 * m * m].reshape(2, m, m)
+        want += int(matvec_ops(mat[0], mat[1])) * (big // m)
+    assert later["flops"] == want * 4 > 0
+    assert want < sum(14 if r[0] == 1 else 30 for r in rows) * big

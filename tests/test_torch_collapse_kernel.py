@@ -292,8 +292,11 @@ def test_collapse_rows_preserve_total_and_follow_mflag(qft9):
     np.testing.assert_allclose(on.sum(dim=1).numpy(),
                                off.sum(dim=1).numpy(), atol=1e-5)
     assert (bits_off == -1).all() and (bits_on >= 0).all()
-    full = ck.work_counts(plan, L)
-    none = ck.work_counts(plan, L, measuring_sites=0)
+    full = ck.work_counts(plan, ent, cscal)
+    none = ck.work_counts(plan, ent, cscal_off)
     big = 1 << plan.n
+    # every label its own run here: a measuring site adds its sums, its
+    # projection and its rescale (7 an amplitude) on top of the same gates
+    assert full["runs"] == none["runs"] == L
     assert full["flops"] - none["flops"] == L * len(plan.site_meta) * 7 * big
     assert full["bytes"] == none["bytes"]

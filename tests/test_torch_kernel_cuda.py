@@ -264,6 +264,107 @@ def test_collapse_kernel_refuses_wrong_scalars(card):
     assert ck.collapse_rows.launches == before
 
 
+def _collapse_wide(n: int):
+    """frag0: ``n`` data qubits, cut from a 1-qubit frag1 by two cz gate
+    cuts, one on qubit 0 (flat bit n-1: the split bit of a 15-qubit state
+    held by two CTAs) and one on qubit n-1; between them a cx chain, a cp
+    ladder from qubit 0 and dense rotations, so the rewritten table holds
+    every row kind."""
+    cut = Circuit([Register("frag0", n), Register("frag1", 1)], n + 1)
+    for q in range(n):
+        cut.h(q)
+    for q in range(n - 1):
+        cut.cx(q, q + 1)
+    cut.append(Instruction("vgate", [0, n], op=VirtualGateOp("cz")))
+    for q in range(1, n):
+        cut.cp(0.3 * q, 0, q)
+    cut.ry(0.4, 0)
+    cut.rx(0.3, n - 1)
+    cut.append(Instruction("vgate", [n - 1, n], op=VirtualGateOp("cz")))
+    cut.cx(0, n - 1)
+    cut.h(n)
+    for q in range(n + 1):
+        cut.measure(q, q)
+    return VirtualCircuit(cut)
+
+
+def _replica_block(plan, virt, order, seed):
+    """Label rows the way the sampled engine lays them out: unique labels,
+    each repeated side by side (one of them 150 times, past the run cap),
+    the replicas differing only in u; some labels measure nowhere.
+    ``order="shuffled"``: the same rows in a random order."""
+    rng = np.random.default_rng(seed)
+    uniq = np.stack([rng.integers(0, vg.spec.num_instantiations, 40)
+                     for vg in virt.vgates], axis=1)
+    counts = rng.integers(1, 9, 40)
+    counts[7] = 150
+    ns = plan.n_sites
+    mflag = rng.integers(0, 2, (40, ns)).astype(np.float32)
+    mflag[::5] = 0.0                       # these measure nowhere
+    w = rng.uniform(-1, 1, (40, ns, 2)).astype(np.float32)
+    lab = np.repeat(uniq, counts, axis=0)
+    cscal = np.empty((len(lab), ns, 4), np.float32)
+    cscal[:, :, 0] = rng.random((len(lab), ns))
+    cscal[:, :, 1] = np.repeat(mflag, counts, axis=0)
+    cscal[:, :, 2:] = np.repeat(w, counts, axis=0)
+    if order == "shuffled":
+        perm = rng.permutation(len(lab))
+        lab, cscal = lab[perm], cscal[perm]
+    return lab, cscal
+
+
+RUN_EPILOGUES = {
+    "rows": lambda n: {},
+    "marginal_split": lambda n: {"keep_clbits": {0, 1, n - 1}},
+    "marginal_low": lambda n: {"keep_clbits": {2, 3}},
+    "z": lambda n: {"z_sets": [{0}, {1, 2}, set(range(n))]},
+}
+RUN_CASES = [(n, order, epi) for n in (13, 14, 15, 16, 20)
+             for order in ("replicas", "shuffled")
+             for epi in sorted(RUN_EPILOGUES)
+             if epi != "rows" or n <= 15]
+_WIDE_COLLAPSE: dict = {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,order,epilogue", RUN_CASES)
+def test_collapse_kernel_replica_runs_on_card(card, n, order, epilogue):
+    """Replica runs at every state layout: one CTA's shared memory (13,
+    14), a two-CTA cluster (15, no global scratch), global scratch (16,
+    20).  Picks equal to the plain version's (a flip only within 1e-6 of
+    its threshold), rows within 1e-5, a launch repeats bit for bit."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+        collapse_kernel as ck,
+    )
+
+    if n not in _WIDE_COLLAPSE:
+        _WIDE_COLLAPSE[n] = _collapse_wide(n)
+    virt = _WIDE_COLLAPSE[n]
+    plan = ck.build_plan(virt, "frag0", **RUN_EPILOGUES[epilogue](n))
+    assert plan.n == n and len(plan.site_meta) == 2
+    dp = ck.CollapseDevicePlan(plan, card)
+    lab, cscal = _replica_block(plan, virt, order, n)
+    ent = dp.gather_entries(torch.as_tensor(lab, device=card))
+    cscal = torch.as_tensor(cscal, device=card)
+    before = ck.collapse_rows.launches
+    got, bits = ck.collapse_rows(dp, ent, cscal)
+    torch.cuda.synchronize()
+    launch = dict(ck.collapse_rows.last_launch)
+    assert ck.collapse_rows.launches == before + 1
+    assert launch["cluster"] == (2 if n == 15 else 1)
+    assert (launch["scratch_bytes"] == 0) == (n <= 15)
+    if order == "replicas":
+        assert int(launch["runs"]) < len(lab) // 2
+    want, wbits, margins = ck.plain_collapse_rows(dp, ent, cscal,
+                                                  with_margins=True)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    agree, near, far = ck.compare_picks(bits, wbits, margins)
+    assert far == 0 and near <= max(1, len(lab) // 100)
+    assert (got - want)[agree].abs().max().item() <= TOL
+    again, bits2 = ck.collapse_rows(dp, ent, cscal)
+    assert torch.equal(again, got) and torch.equal(bits2, bits)
+
+
 def _sv_case(n: int, cut_gate: str):
     """frag0: ``n`` data qubits under a chain of fixed gates (2q gates in
     both qubit orders), cut from a 2-qubit frag1 by a gate cut (``"cz"``)
@@ -300,16 +401,17 @@ def test_sv_kernel_matches_plain_on_card(card, n, lanes, cut_gate):
     fn, table, meta = sv.build_fragment_kernel(virt, "frag0", device=card)
     dp = fn.plan
     assert dp.plan.n == n and dp.plan.k == len(range(0, n, 2 if n > 8 else 1))
-    # lanes of the fragment's own table, drawn with a seed
+    # lanes drawn with a seed: the kernel takes their indices, the plain
+    # version their rows of the fragment's lane table
     pick = np.random.default_rng(n * 31 + lanes).integers(
         0, meta["total"], lanes)
-    params = torch.as_tensor(table[pick], device=card)
+    idx = torch.as_tensor(pick, device=card)
     before = sv.sv_rows.launches
-    got = sv.sv_rows(dp, params)
-    again = sv.sv_rows(dp, params)
+    got = sv.sv_rows(dp, idx)
+    again = sv.sv_rows(dp, idx)
     torch.cuda.synchronize()
     assert sv.sv_rows.launches == before + 2
-    want = sv.plain_sv_rows(dp, params)
+    want = sv.plain_sv_rows(dp, torch.as_tensor(table[pick], device=card))
     assert got.shape == want.shape == (lanes, 1 << dp.plan.k)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL
@@ -337,14 +439,87 @@ def test_sv_kernel_whole_fragment_against_the_batched_engine(card):
 
 @pytest.mark.cuda
 def test_sv_kernel_refuses_a_wrong_lane_table(card):
+    """The kernel takes lane indices, not a lane table: anything else is
+    refused before a launch."""
     virt = _sv_case(8, "cz")
-    fn, table, _ = sv.build_fragment_kernel(virt, "frag0", device=card)
-    good = torch.as_tensor(table, device=card)
+    fn, table, meta = sv.build_fragment_kernel(virt, "frag0", device=card)
+    good = torch.arange(4, device=card)
+    before = sv.sv_rows.launches
     with pytest.raises(ValueError, match="shape"):
-        sv.sv_rows(fn.plan, good[:, :-1].contiguous())
+        sv.sv_rows(fn.plan, good[None, :].contiguous())
     with pytest.raises(ValueError, match="dtype"):
-        sv.sv_rows(fn.plan, good.double())
+        sv.sv_rows(fn.plan, torch.as_tensor(table[:4], device=card))
     with pytest.raises(ValueError, match="contiguous"):
-        sv.sv_rows(fn.plan, torch.cat([good, good], dim=1)[:, :18])
+        sv.sv_rows(fn.plan, torch.arange(8, device=card)[::2])
+    with pytest.raises(ValueError, match="outside"):
+        sv.sv_rows(fn.plan, good + meta["total"])
+    assert sv.sv_rows.launches == before
     assert sv.build_fragment_kernel(_sv_case(14, "cz"), "frag0",
                                     device=card) is None
+
+
+def _sv_cut(name, n, cap, depth):
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.cutter.cutter import (  # noqa: E501
+        Cutter,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.models.zoo import (  # noqa: E501
+        genCirc,
+    )
+
+    cutter = Cutter(genCirc(name, n, depth, seed=0), maxNPartitions=2,
+                    maxNQubitsPerPartition=cap, maxNQpdCuts=5, maxNCuts=5,
+                    maxCutsPerPartitions=5)
+    assert cutter.solve()
+    return VirtualCircuit(cutter.getResultCircs()[3])
+
+
+def _slot_free():
+    cut = Circuit([Register("frag0", 4)], 4)
+    cut.h(0)
+    for q in range(3):
+        cut.cx(q, q + 1)
+    cut.ry(0.3, 2)
+    for q in range(4):
+        cut.measure(q, q)
+    return VirtualCircuit(cut)
+
+
+SV_CASES = {
+    "hwe16": lambda: _sv_cut("hwe", 16, 10, 5),
+    "sup20": lambda: _sv_cut("sup", 20, 10, 1),
+    "wide13": lambda: _sv_case(13, "move"),
+    "slot_free": _slot_free,
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SV_CASES))
+def test_sv_kernel_reads_no_lane_table_on_card(card, case, monkeypatch):
+    """The entry point on the card builds no host lane table
+    (``_slot_lane_params`` raises if called): every lane against the plain
+    version on the JAX contract's lane table, 1e-5 absolute and relative
+    to the fragment's largest entry."""
+    virt = SV_CASES[case]()
+    tables = {}
+    for reg in virt.fragments:
+        plan = sv.build_plan(virt, reg.name)
+        tables[reg.name] = sv._slot_lane_params(
+            virt, virt.programs[reg.name], plan.meas_vgates, plan.slots)[0]
+
+    def refuse(*args, **kw):
+        raise AssertionError("a lane table was built on the card's route")
+
+    monkeypatch.setattr(sv, "_slot_lane_params", refuse)
+    for reg in virt.fragments:
+        before = sv.sv_rows.launches
+        got = sv.run_fragment_kernel(virt, reg.name, device=card)
+        torch.cuda.synchronize()
+        assert sv.sv_rows.launches == before + 1
+        dp = sv.SvDevicePlan(sv.build_plan(virt, reg.name), card)
+        par = tables[reg.name]
+        if par.shape[1] == 0:
+            par = np.zeros((par.shape[0], 1), np.float32)
+        want = sv.plain_sv_rows(dp, torch.as_tensor(par, device=card))
+        got = got.values.reshape(want.shape)
+        err = (got - want).abs().max().item()
+        assert err <= TOL and err <= TOL * want.abs().max().item() + 1e-12

@@ -35,6 +35,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.evaluate imp
     hellinger_fidelity,
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+    op_rewrite,
     sv_kernel as sv,
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.knit import (  # noqa: E501
@@ -328,7 +329,9 @@ def test_width_13_is_inside_the_gate():
 
 def test_plan_layout_and_work_counts():
     """Flat bit i < k carries the qubit read by the i-th data clbit; the
-    dropped qubits follow; the work counts follow the op table."""
+    dropped qubits follow; the gates before the first slot are the host's
+    prefix; the work counts follow the op table and the lanes' own slot
+    coefficients."""
     _, tv = _pair("reversed_2q")
     plan = sv.build_plan(tv, "frag0")
     assert (plan.n, plan.k) == (4, 3)
@@ -338,43 +341,51 @@ def test_plan_layout_and_work_counts():
     assert kinds.count(3) == len(plan.slots) == 1
     slot_row = plan.ops[kinds.index(3)]
     assert slot_row[1] == 2 and slot_row[3] == 0   # qubit 2 is clbit 2: bit 2
+    at = kinds.index(3)
+    assert plan.prefix_ops == at
+    assert plan.table.kinds[0] == op_rewrite.OP_SLOT   # the rest after it
     lanes = 6 << len(plan.meas_vgates)
-    work = sv.work_counts(plan, lanes)
-    assert work["bytes"] == 4 * (plan.ops.size + plan.fixed.size
-                                 + lanes * (18 + 8))
-    assert work["pass_bytes"] == lanes * (16 * len(kinds) + 16) * 16
+    assert plan.total == lanes
+    work = sv.work_counts(plan)
+    assert work["bytes"] == 4 * (plan.table.rows.size + plan.table.pool.size
+                                 + plan.prefix.size + plan.slot_tab.size
+                                 + plan.slot_meta.size + lanes * 8)
+    assert work["pass_bytes"] == lanes * (16 * len(plan.table.rows)
+                                          + 24) * 16
 
     # the fixed gates before the slot count once, the later ones per lane,
-    # each by what its matrix needs; the slot as dense without a lane table
+    # each by what its matrix needs; the slot by each lane's pre and post
     def cost(row):
         d = 1 << int(row[0])
         mat = plan.fixed[row[3]:row[3] + 2 * d * d].reshape(2, d, d)
         return int(sv._matvec_ops(mat[0], mat[1])) * (16 // d)
 
-    at = kinds.index(3)
     shared = sum(cost(r) for r in plan.ops[:at])
     per_lane = sum(cost(r) for r in plan.ops[at + 1:])
     assert shared > 0 and per_lane == 0   # the later cx permutes
     epilogue = 3 * 16 + (16 - 8)
-    assert work["flops"] == shared + lanes * (30 * 16 + per_lane + epilogue)
-
-    # with the lane table the slot counts each lane's own pre and post
     _, params, _ = sv.build_fragment_kernel(tv, "frag0", device="cpu")
     assert params.shape == (lanes, 18)
     pre = params[:, 0:8].reshape(lanes, 2, 2, 2)
     post = params[:, 10:18].reshape(lanes, 2, 2, 2)
     slot = int((sv._matvec_ops(pre[..., 0], pre[..., 1])
                 + sv._matvec_ops(post[..., 0], post[..., 1])).sum()) * 8
-    exact = sv.work_counts(plan, lanes, params)
-    assert exact["flops"] == shared + slot + lanes * (per_lane + epilogue)
-    assert exact["flops"] < work["flops"]
-    assert exact["bytes"] == work["bytes"]
+    assert work["flops"] == shared + slot + lanes * (per_lane + epilogue)
+    # a subset of lanes counts its own
+    some = sv.work_counts(plan, np.arange(3))
+    assert some["flops"] < work["flops"] and some["bytes"] < work["bytes"]
 
     # h and cx before the slot (12 a pair of amplitudes, and nothing), an
     # rx after it (12 a pair), 2 qubits, all 4 amplitudes kept
     plan = sv.build_plan(_pair("gate_cut_cz")[1], "frag0")
     assert plan.ops[:, 0].tolist() == [1, 2, 3, 1] and plan.n == plan.k == 2
-    assert sv.work_counts(plan, 10)["flops"] == 24 + 10 * (120 + 24 + 12)
+    assert plan.prefix_ops == 2
+    assert plan.table.kinds == [op_rewrite.OP_SLOT, op_rewrite.OP_GATE1]
+    par = sv.lane_params(plan)
+    pre, post = (par[:, a:a + 8].reshape(-1, 2, 2, 2) for a in (0, 10))
+    slot = int((sv._matvec_ops(pre[..., 0], pre[..., 1])
+                + sv._matvec_ops(post[..., 0], post[..., 1])).sum()) * 2
+    assert sv.work_counts(plan)["flops"] == 24 + slot + plan.total * (24 + 12)
 
 
 MATVEC_OPS = {
@@ -410,7 +421,7 @@ def test_run_fragment_kernel_adds_its_stage_times():
     _, tv = _pair("gate_cut_cz")
     stage = {}
     first = sv.run_fragment_kernel(tv, "frag0", device="cpu", timings=stage)
-    assert set(stage) == {"lane_tables_s", "upload_and_kernel_s"}
+    assert set(stage) == {"plan_s", "upload_and_kernel_s"}
     once = dict(stage)
     again = sv.run_fragment_kernel(tv, "frag1", device="cpu", timings=stage)
     assert all(stage[k] > once[k] > 0 for k in once)
@@ -422,12 +433,19 @@ def test_wrapper_counts_no_launch_on_the_cpu_and_refuses_other_devices():
     _, tv = _pair("gate_cut_cz")
     fn, params, _ = sv.build_fragment_kernel(tv, "frag0", device="cpu")
     before = sv.sv_rows.launches
-    rows = sv.sv_rows(fn.plan, torch.as_tensor(params))
+    rows = sv.sv_rows(fn.plan)
     assert sv.sv_rows.launches == before
     assert torch.equal(rows, sv.plain_sv_rows(fn.plan,
                                               torch.as_tensor(params)))
+    pick = torch.tensor([5, 0, 5], dtype=torch.int64)
+    assert torch.equal(sv.sv_rows(fn.plan, pick), rows[pick])
+    assert torch.equal(fn(pick), rows[pick])
+    with pytest.raises(ValueError, match="dtype"):
+        sv.sv_rows(fn.plan, pick.float())
+    with pytest.raises(ValueError, match="outside"):
+        sv.sv_rows(fn.plan, pick + fn.plan.plan.total)
     with pytest.raises(ValueError, match="unsupported device"):
-        sv.sv_rows(fn.plan, torch.empty((4, 18), device="meta"))
+        sv.sv_rows(sv.SvDevicePlan(fn.plan.plan, "meta"))
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
