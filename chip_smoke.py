@@ -4,12 +4,18 @@
 Phases (any failure exits non-zero without the result line):
 
 1. build   — ``nvcc`` builds csrc/variant_kernel.cu, csrc/blocked_kernel.cu,
-             csrc/collapse_kernel.cu and csrc/sv_kernel.cu for sm_90a, side
+             csrc/collapse_kernel.cu and csrc/sv_kernel.cu (the first and
+             the third include csrc/statevec_common.cuh) for sm_90a, side
              by side;
-2. kernel  — the variant kernel against its plain PyTorch version on the
-             card, at sup-20 (seed 0, P2 Q10, 5/5/5 cuts) fragments and
-             chunk 504: folded+staged, folded unstaged, full rows, and
-             folded+staged on a shuffled label order; max |err| <= 1e-5;
+2. kernel  — the variant kernel, through the row functions' call (labels
+             sorted by slot digits, run table, kernel, rows put back),
+             against its plain PyTorch version on the card, at sup-20
+             (seed 0, P2 Q10, 5/5/5 cuts) fragments and chunk 504 (15
+             qubits: a two-CTA cluster): folded+staged, folded unstaged,
+             full rows, and folded+staged and full rows on a shuffled
+             label order; max |err| <= 1e-5, a second call equal bit for
+             bit, the kernel's passes and replayed work beside the
+             function's own;
 3. blocked — the segmented blocked kernel against its plain version:
              sup-20's 15-qubit fragments forced through it at windows 10
              and 13 (one 504-label chunk; the variant kernel's rows are a
@@ -30,8 +36,9 @@ Phases (any failure exits non-zero without the result line):
              run_virtual_circuit(engine="pallas", chunk_size=504) on cuda,
              Hellinger fidelity against the uncut oracle > 1 - 1e-5, with
              the kernels' launch counts read around the run; ghz-24 (P2,
-             Q12) the same way; sup-20 once more with every fragment
-             forced through the blocked kernel (window 13), same oracle;
+             Q12: 13 qubits, one CTA) the same way; sup-20 once more with
+             every fragment forced through the blocked kernel (window
+             13), same oracle;
 6. sampled — sup-20 through the sampled engine's scan in ancilla mode (the
              variant kernel's full rows on a main path): all 7776 labels
              with their exact sampling mass reproduce the exact knit of
@@ -54,7 +61,12 @@ Phases (any failure exits non-zero without the result line):
              agrees, and the blocked kernel was launched segments x chunks
              times per fragment.  ghz-40 (P2 Q20, stored cut plan): the
              marginal is 1/2 on all-zeros and all-ones, <Z> on an even
-             support is 1;
+             support is 1.  ghz-34 (P2 Q17, solved in the run: two
+             18-qubit fragments, the variant kernel's global-memory path)
+             the same way, its first chunk against the plain version;
+             hwe-16 (below) through run_virtual_circuit(engine="pallas")
+             (13 qubits, one CTA), fidelity > 1 - 1e-5, its first chunk
+             against the plain version;
 8. sv      — the whole-fragment kernel (every variant of a fragment from
              one launch) against its plain version at the path's own
              size: all 248832 lanes of both fragments of hwe-16 (depth 5,
@@ -178,29 +190,118 @@ def _cut(name, n, cap, seed, depth=1, stored_plan=None):
     return circ, VirtualCircuit(cutter.getResultCircs()[3])
 
 
-def phase_kernel(virt, report):
-    """Every kernel mode against the plain version on sup-20's fragments,
-    one chunk of 504 labels through both fragments per measurement."""
+def _variant_chunk(label, virt, blk, folded, staged, on_main_path=False):
+    """One chunk of labels ``blk`` (on the card) through every fragment's
+    row call of the variant kernel (``label_rows``: sorted by slot digits,
+    run table, kernel, rows put back), held to the plain version on the
+    order given, a second call equal bit for bit; times of the call, of
+    the kernel alone (traced) and of the plain version; the roofline
+    work of the function's own stages on the sorted chunk, and what the
+    kernel's runs replay.  Returns the kernels-line row."""
     import numpy as np
     import torch
 
-    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.convert import (  # noqa: E501
-        to_device,
-    )
-    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
-        variant_kernel as vk,
-    )
-    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.knit import (  # noqa: E501
-        fold_weights,
-    )
-    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.variant_engine import (  # noqa: E501
-        label_strides,
-        variant_index_table,
-    )
+    vk = _port("ops.variant_kernel")
+    calls, err, frags = [], 0.0, {}
+    keys = ("bytes", "flops", "passes", "passes_before", "pass_bytes")
+    work, kwork = dict.fromkeys(keys, 0), dict.fromkeys(keys, 0)
+    for name in (r.name for r in virt.fragments):
+        if folded:
+            fn, _ = vk.make_folded_chunk_kernel(virt, name, blk.shape[0],
+                                                staged=staged, device=DEV)
+        else:
+            fn, _ = vk.make_chunk_kernel(virt, name, blk.shape[0],
+                                         staged=staged, device=DEV)
+        dp = fn.plan
+        got = vk.label_rows(dp, blk, fn.weigh)
+        torch.cuda.synchronize()
+        launch = dict(vk.variant_rows.last_launch)
+        again = vk.label_rows(dp, blk, fn.weigh)
+        want = vk.plain_variant_rows(dp, dp.gather_entries(blk),
+                                     fn.weigh(blk))
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"{label}/{name}: non-finite kernel rows")
+        if not torch.equal(got, again):
+            raise RuntimeError(f"{label}/{name}: a launch does not repeat")
+        err = max(err, (got - want).abs().max().item())
+        order = dp.order(blk)
+        sb = blk if order is None else blk[order]
+        st = dp.stages(sb).cpu().numpy()
+        ent = dp.gather_entries(sb).cpu().numpy()
+        n_w = fn.weigh(sb).shape[1]
+        n_seg = len(dp.plan.row_segments)
+        wk = vk.work_counts(dp.plan, st, n_w, ent)
+        kw = vk.work_counts(dp.plan, vk.effective_stages(
+            st, n_seg, launch["cap"]), n_w, ent)
+        for key in keys:
+            work[key] += wk[key]
+            kwork[key] += kw[key]
+        frags[name] = {"n": dp.plan.n, "ops": len(dp.plan.ops),
+                       "rewritten_rows": len(dp.plan.table.rows),
+                       "segments": n_seg, "runs": int(launch["runs"]),
+                       "cap": launch["cap"], "grid": launch["grid"],
+                       "threads": launch["threads"],
+                       "cluster": launch["cluster"],
+                       "scratch_bytes": launch["scratch_bytes"],
+                       "stages": [int(x) for x in
+                                  np.bincount(st, minlength=n_seg + 1)]}
+        calls.append((dp, blk, fn.weigh))
+        del got, again, want
+    ms = _time_ms(lambda: [vk.label_rows(*a) for a in calls], reps=10)
+    prof = _profile(lambda: [vk.label_rows(*a) for a in calls])
+    kernel_ms = sum(r["ms"] for r in prof["device_ms_by_kernel"]
+                    if "variant_rows_kernel" in r["kernel"])
+    plain_ms = _time_ms(lambda: [
+        vk.plain_variant_rows(dp, dp.gather_entries(b), w(b))
+        for dp, b, w in calls], reps=2, warm=1)
+    bound_ms, bound_by = _bound(work)
+    row = {
+        "name": f"variant_rows/{label}",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/variant_kernel.cu",
+        "replaces": TPU_KERNEL,
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "on_main_path": on_main_path,
+        "kernel_ms": kernel_ms,
+        "labels": int(blk.shape[0]),
+        "fragments": frags,
+        "work": work,
+        "kernel_work": kwork,
+    }
+    print(f"kernel {label}: fragments={frags} max_abs_err={err:.3e} | one "
+          f"{blk.shape[0]}-label chunk through {len(calls)} fragments: "
+          f"ms={ms:.4f} (the kernel alone, traced: {kernel_ms:.4f}; the "
+          f"call's device busy {prof['device_busy_ms']}) plain_ms="
+          f"{plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}; "
+          f"{work['flops'] / 1e9:.4f} GFLOP of the function's own stages, "
+          f"sorted); the kernel's runs replay "
+          f"{kwork['flops'] / 1e9:.4f} GFLOP, {kwork['passes']} passes "
+          f"(the function's stages: {work['passes']}; on the original "
+          f"table: {kwork['passes_before']})", flush=True)
+    if not err <= TOL:
+        raise RuntimeError(f"{label}: kernel vs plain {err:.3e} > {TOL}")
+    return row
 
+
+def phase_kernel(virt, report):
+    """Every kernel mode against the plain version on sup-20's fragments,
+    one chunk of 504 labels through both fragments per measurement: the
+    fold (kernel 1) staged, unstaged and on a shuffled label order, full
+    rows (kernel 2) staged and shuffled."""
+    import numpy as np
+    import torch
+
+    ve = _port("ops.variant_engine")
     specs = [vg.spec for vg in virt.vgates]
-    strides, n_inst, total = label_strides(specs, range(len(specs)))
-    vidx = variant_index_table(range(len(specs)), strides, n_inst, total)
+    strides, n_inst, total = ve.label_strides(specs, range(len(specs)))
+    vidx = ve.variant_index_table(range(len(specs)), strides, n_inst, total)
     perm = np.random.default_rng(0).permutation(total)
     blocks = {
         "natural": torch.as_tensor(vidx[:CHUNK], device=DEV,
@@ -213,87 +314,14 @@ def phase_kernel(virt, report):
         ("folded_unstaged", "natural", True, False),
         ("full_rows_staged", "natural", False, True),
         ("folded_staged_shuffled", "shuffled", True, True),
+        ("full_rows_shuffled", "shuffled", False, True),
     ]
-    names = [r.name for r in virt.fragments]
-    rows = []
-    for mode, order, folded, staged in modes:
-        blk = blocks[order]
-        calls = []
-        err = 0.0
-        # roofline work from the function's own stage array (a full replay
-        # at row 0 only); what the kernel runs adds a full replay at the
-        # start of every block's run
-        work = {"bytes": 0, "flops": 0, "pass_bytes": 0}
-        kwork = dict(work)
-        for name in names:
-            if folded:
-                fn, _ = vk.make_folded_chunk_kernel(virt, name, CHUNK,
-                                                    staged=staged,
-                                                    device=DEV)
-            else:
-                fn, _ = vk.make_chunk_kernel(virt, name, CHUNK,
-                                             staged=staged, device=DEV)
-            dp = fn.plan
-            if folded:
-                w = to_device([np.asarray(t, np.float32)
-                               for t in fold_weights(virt, name)], DEV)
-                gids = list(virt.programs[name].touching)
-                ws = torch.stack([t[blk[:, g]] for t, g in zip(w, gids)],
-                                 dim=1).contiguous()
-            else:
-                ws = torch.ones((CHUNK, 1, 2), device=DEV)
-            ent = dp.gather_entries(blk)
-            st = dp.stages(blk)
-            span = vk.default_labels_per_cta(CHUNK, DEV)
-            got = vk.variant_rows(dp, ent, ws, st, span)
-            want = vk.plain_variant_rows(dp, ent, ws)
-            torch.cuda.synchronize()
-            if not torch.isfinite(got).all():
-                raise RuntimeError(f"{mode}/{name}: non-finite kernel rows")
-            err = max(err, (got - want).abs().max().item())
-            st_np, ent_np = st.cpu().numpy(), ent.cpu().numpy()
-            wk = vk.work_counts(dp.plan, st_np, ws.shape[1], ent_np)
-            kw = vk.work_counts(dp.plan, vk.effective_stages(st_np, span),
-                                ws.shape[1], ent_np)
-            for key in work:
-                work[key] += wk[key]
-                kwork[key] += kw[key]
-            calls.append((dp, ent, ws, st, span))
-        ms = _time_ms(lambda: [vk.variant_rows(*a) for a in calls], reps=10)
-        plain_ms = _time_ms(
-            lambda: [vk.plain_variant_rows(*a[:3]) for a in calls], reps=2,
-            warm=1,
-        )
-        bound_ms, bound_by = _bound(work)
-        rows.append({
-            "name": f"variant_rows/{mode}",
-            "route": "cuda",
-            "source": f"{PKG}/csrc/variant_kernel.cu",
-            "replaces": TPU_KERNEL,
-            "launches": None,  # filled from the main path's run
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": None,
-            "on_main_path": mode == "folded_staged",
-            "work": work,
-            "kernel_work": kwork,
-        })
-        print(f"kernel {mode}: max_abs_err={err:.3e} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} "
-              f"({bound_by}) for one {CHUNK}-label chunk "
-              f"through {len(names)} fragments; kernel state passes "
-              f"{kwork['pass_bytes'] / 1e9:.3f} GB = "
-              f"{kwork['pass_bytes'] / ms / 1e6:.1f} GB/s; block-run "
-              f"starts add {(kwork['flops'] - work['flops']) / 1e9:.4f} "
-              f"GFLOP over the function's {work['flops'] / 1e9:.4f}",
-              flush=True)
-        if not err <= TOL:
-            raise RuntimeError(f"{mode}: kernel vs plain {err:.3e} > {TOL}")
+    rows = [_variant_chunk(mode, virt, blocks[order], folded, staged,
+                           on_main_path=mode == "folded_staged")
+            for mode, order, folded, staged in modes]
     report.setdefault("kernels", []).extend(rows)
-    report["launches_during_comparison"] = vk.variant_rows.launches
+    report["launches_during_comparison"] = \
+        _port("ops.variant_kernel").variant_rows.launches
 
 
 def _bound(work):
@@ -492,16 +520,21 @@ def _written_data_clbits(virt):
 
 
 @contextlib.contextmanager
-def _plain_segments():
-    """Within: the blocked route runs its plain PyTorch segments instead
-    of the kernel (the wrapper itself never does that on a CUDA tensor)."""
+def _plain_rows():
+    """Within: the exact scan takes its rows from the plain PyTorch
+    versions, the blocked kernel's segments and the variant kernel's rows,
+    instead of the kernels (the wrappers themselves never do that on a
+    CUDA tensor)."""
     bk = _port("ops.blocked_kernel")
-    kernel = bk.apply_segment
+    vk = _port("ops.variant_kernel")
+    segment, rows = bk.apply_segment, vk.label_rows
     bk.apply_segment = bk.plain_segment
+    vk.label_rows = lambda dp, vidx, weigh: vk.plain_variant_rows(
+        dp, dp.gather_entries(vidx), weigh(vidx))
     try:
         yield
     finally:
-        bk.apply_segment = kernel
+        bk.apply_segment, vk.label_rows = segment, rows
 
 
 def _z_of_marginal(values):
@@ -515,15 +548,18 @@ def _z_of_marginal(values):
     return float(np.sum(np.asarray(values, np.float64) * (1 - 2 * par)))
 
 
-def phase_wide(label, virt, report, analytic, kernel_row=None):
-    """The blocked route's main path at full width: the marginal on 10
-    written data clbits of each fragment through run_virtual_circuit and
-    <Z...Z> on them through streamed_expectation_z, launches counted
-    around each.  ``analytic``: the circuit is a GHZ state, whose marginal
-    and even-support <Z> are known; otherwise the marginal is held to the
-    scalar-carry <Z>.  Either way the same knit from the plain version's
-    segments must agree.  ``kernel_row``: the report's kernel row whose
-    launches this path supplies."""
+def phase_wide(label, virt, report, analytic, kernel_row=None,
+               kernel="blocked"):
+    """A main path at a width with no statevector oracle: the marginal on
+    10 written data clbits of each fragment through run_virtual_circuit
+    and <Z...Z> on them through streamed_expectation_z, launches counted
+    around each.  ``kernel``: the one kernel every fragment must run on,
+    the blocked kernel (21-24 qubits) or the variant kernel's global-
+    memory path (16-20).  ``analytic``: the circuit is a GHZ state, whose
+    marginal (its fidelity to the cut's) and even-support <Z> are known;
+    otherwise the marginal is held to the scalar-carry <Z>.  Either way
+    the same knit from the plain versions must agree.  ``kernel_row``: the
+    report's kernel row whose launches this path supplies."""
     import numpy as np
     import torch
 
@@ -563,7 +599,9 @@ def phase_wide(label, virt, report, analytic, kernel_row=None):
     build_s = time.perf_counter() - t0
     segs = {n: len(dp.plan.segments)
             for n, dp in meta["fragment_plans"].items()}
-    expect = meta["n_chunks"] * sum(segs.values())
+    # a blocked launch per segment, a variant launch per fragment, a chunk
+    expect = meta["n_chunks"] * (sum(segs.values()) if kernel == "blocked"
+                                 else len(segs))
     walls = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -572,7 +610,7 @@ def phase_wide(label, virt, report, analytic, kernel_row=None):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     _reset_counts()
-    with _plain_segments():
+    with _plain_rows():
         plain = step(xs)
     torch.cuda.synchronize()
     plain_counts = _counts()
@@ -611,19 +649,25 @@ def phase_wide(label, virt, report, analytic, kernel_row=None):
         if not ok:
             raise RuntimeError(f"{label}: {what}")
 
-    gate = _port("ops.variant_kernel").MAX_QUBITS
-    need(all(w > gate for w in widths),
-         f"fragment widths {widths} are within the variant kernel's gate")
+    vk = _port("ops.variant_kernel")
+    if kernel == "blocked":
+        need(all(w > vk.MAX_QUBITS for w in widths),
+             f"fragment widths {widths} are within the variant kernel's "
+             "gate")
+    else:
+        need(all(vk.CLUSTER_QUBITS < w <= vk.MAX_QUBITS for w in widths),
+             f"fragment widths {widths} are not the variant kernel's "
+             "global-memory path")
     need(np.isfinite(values).all() and values.shape == (1 << len(keep),),
          "marginal not finite or of the wrong shape")
-    need(counts == _only(blocked=expect),
-         f"launched {counts}, expected {expect} blocked launches only")
+    need(counts == _only(**{kernel: expect}),
+         f"launched {counts}, expected {expect} {kernel} launches only")
     need(z_counts == counts, f"expectation launched {z_counts}")
     need(plain_counts == _only(),
          f"the plain knit launched kernels: {plain_counts}")
     need(all(meta["pallas_fragments"].values())
-         and set(meta["fragment_kernels"].values()) == {"blocked"},
-         "fragments not backed by the blocked kernel: "
+         and set(meta["fragment_kernels"].values()) == {kernel},
+         f"fragments not backed by the {kernel} kernel: "
          f"{meta['fragment_kernels']}")
     need(abs(total - 1) <= TOL, f"marginal sums to {total!r}")
     need(plain_err <= TOL and rerun_err <= TOL,
@@ -632,8 +676,11 @@ def phase_wide(label, virt, report, analytic, kernel_row=None):
         want = np.zeros_like(values)
         want[0] = want[-1] = 0.5
         ghz_err = float(np.abs(values - want).max())
+        fid = float(np.sum(np.sqrt(np.clip(values, 0, None) * want)) ** 2)
         out["ghz_marginal_max_abs_err"] = ghz_err
+        out["fidelity_vs_analytic_marginal"] = fid
         need(ghz_err <= TOL, f"GHZ marginal off by {ghz_err:.3e}")
+        need(fid > FID_MIN, f"GHZ marginal fidelity {fid!r} <= {FID_MIN}")
         need(abs(z_val - 1) <= TOL, f"GHZ <ZZ> = {z_val!r}")
     else:
         z_marg = _z_of_marginal(values)
@@ -642,7 +689,7 @@ def phase_wide(label, virt, report, analytic, kernel_row=None):
              f"<Z> {z_val!r} vs from the marginal {z_marg!r}")
     if kernel_row is not None:
         row = _kernel_row(report, kernel_row)
-        row["launches"] = counts["blocked"]
+        row["launches"] = counts[kernel]
         row["on_main_path"] = True
 
 
@@ -894,13 +941,12 @@ def phase_sampled_sup20(virt, report):
     vk = _port("ops.variant_kernel")
     rows_err = 0.0
     for fn in next(iter(virt._scan_step_cache.values()))["row_fns"]:
-        dp = fn.rows_fn.plan
+        dp, ones = fn.rows_fn.plan, fn.rows_fn.weigh
         for rows in (vidx[:block], vidx[(total - 1) // block * block:]):
             blk = torch.as_tensor(rows, device=DEV, dtype=torch.int64)
-            ones = torch.ones((len(rows), 1, 2), device=DEV)
-            ent = dp.gather_entries(blk)
-            got = vk.variant_rows(dp, ent, ones, dp.stages(blk))
-            want = vk.plain_variant_rows(dp, ent, ones)
+            got = vk.label_rows(dp, blk, ones)
+            want = vk.plain_variant_rows(dp, dp.gather_entries(blk),
+                                         ones(blk))
             rows_err = max(rows_err, (got - want).abs().max().item())
     report["sampled_sup20"] = {
         "labels": total, "collapse_flags": flags, "block": block,
@@ -1567,8 +1613,10 @@ def _profile(fn):
     }
 
 
-def phase_main(label, circ, virt, report, timed_reps=1):
-    """The user's path on the card, kernel launches counted around it."""
+def phase_main(label, circ, virt, report, timed_reps=1, kernel_row=None):
+    """The user's path on the card, kernel launches counted around it.
+    ``kernel_row``: the report's kernel row whose launches this path
+    supplies."""
     import torch
 
     from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.evaluate import (  # noqa: E501
@@ -1622,6 +1670,19 @@ def phase_main(label, circ, virt, report, timed_reps=1):
                            "variant kernel only")
     if not fid > FID_MIN:
         raise RuntimeError(f"{label}: fidelity {fid!r} <= {FID_MIN}")
+    if kernel_row is not None:
+        row = _kernel_row(report, kernel_row)
+        row["launches"] = launches
+        row["on_main_path"] = True
+
+
+def phase_variant_witness(label, virt, report):
+    """The variant kernel at another width class: the first chunk of the
+    label grid through every fragment, folded and staged, as the main
+    path launches it."""
+    blk = _label_blocks(virt, CHUNK, first_only=True)[0]
+    report.setdefault("kernels", []).append(
+        _variant_chunk(label, virt, blk, True, True))
 
 
 def phase_breakdown(label, virt, report):
@@ -1773,8 +1834,20 @@ def main() -> int:
     if cut("ghz40", "ghz", 40, 20, None, stored_plan="ghz40_p2_q20"):
         phase("main_ghz40", phase_wide, "ghz40", cuts["ghz40"][1], report,
               True)
+    if cut("ghz34", "ghz", 34, 17, None):
+        # the variant kernel's global-memory path: two 18-qubit fragments
+        _, virt = cuts["ghz34"]
+        phase("kernel_ghz34", phase_variant_witness, "ghz34_folded_staged",
+              virt, report)
+        phase("main_ghz34", phase_wide, "ghz34", virt, report, True,
+              "variant_rows/ghz34_folded_staged", "variant")
     if cut("hwe16", "hwe", 16, 10, 0, depth=5):
         circ, virt = cuts["hwe16"]
+        # the variant kernel in one CTA's shared memory (13 qubits)
+        phase("kernel_hwe16", phase_variant_witness, "hwe16_folded_staged",
+              virt, report)
+        phase("main_hwe16_pallas", phase_main, "hwe16_pallas", circ, virt,
+              report, 1, "variant_rows/hwe16_folded_staged")
         phase("sv_hwe16", phase_sv, "hwe16", virt, report)
         rows = phase("main_hwe16_sv", phase_main_sv, "hwe16_sv", circ, virt,
                      report, "sv_rows/hwe16")

@@ -42,9 +42,9 @@ from .statevector import apply_matrix_host, marginalize_flat
 from .variant_kernel import (
     MAX_QUBITS,
     OpTable,
+    SlotEntries,
     _plan_ops,
     apply_op_plain,
-    gather_slot_entries,
     op_costs,
 )
 
@@ -200,13 +200,13 @@ class BlockedDevicePlan:
             plan.fixed if plan.fixed.size else np.zeros(1, np.float32),
             device,
         )
-        self.entry_tables = to_device(plan.entry_tables, device)
+        self._entries = SlotEntries(plan.entry_tables, plan.entry_gids,
+                                    device)
 
     def gather_entries(self, vidx_chunk: torch.Tensor) -> torch.Tensor:
         """``[C, entry_stride]`` per-label slot entries for a ``[C,
         num_vgates]`` block of variant indices (global vgate columns)."""
-        return gather_slot_entries(self.entry_tables, self.plan.entry_gids,
-                                   vidx_chunk)
+        return self._entries(vidx_chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -59,15 +59,16 @@ from .statevector import apply_matrix_host, marginalize_flat
 from .variant_engine import collapse_stream, splice_zero_bits
 from .variant_kernel import (
     OpTable,
+    SlotEntries,
     apply_op_plain,
-    gather_slot_entries,
+    generic_ops,
+    launch_geometry,
     op_costs,
 )
 
 MAX_QUBITS = 20      # per-block state in global scratch: 8 MB at n = 20
 MAX_OUTCOMES = 128   # in-kernel marginal outcomes / z columns (the contract)
 RUN_CAP = 64         # replicas a run holds: a heavy label spreads over CTAs
-_CLUSTER_QUBITS = 15  # the width a cluster of two CTAs holds on chip
 _MODES = {"rows": 0, "marginal": 1, "z": 2}
 
 
@@ -179,7 +180,7 @@ def build_plan(virt: VirtualCircuit, frag_name: str, keep_clbits=None,
         table.add(op, [n - 1 - index[q] for q in op[2]])
     site_meta = [(sid, prog.slots[sid].vgate_idx) for sid in table.sites]
     ops, fixed = table.ops_array(), table.fixed_array()
-    ktable = op_rewrite.rewrite(_generic_ops(ops, fixed))
+    ktable = op_rewrite.rewrite(generic_ops(ops, fixed))
     site_rows = [0] * len(site_meta)
     for i, row in enumerate(ktable.rows.tolist()):
         if row[0] == OP_SITE_B:
@@ -193,24 +194,6 @@ def build_plan(virt: VirtualCircuit, frag_name: str, keep_clbits=None,
         site_rows=site_rows, kept=kept, marg_bits=marg_bits,
         z_masks=z_masks,
     )
-
-
-def _generic_ops(ops: np.ndarray, fixed: np.ndarray) -> list:
-    """An :class:`OpTable`'s rows as ``op_rewrite.rewrite`` takes them."""
-    out = []
-    for nq, ja, jb, coef in ops.tolist():
-        if nq == 0:
-            out.append(("site", ja, jb))
-            continue
-        js = [ja, jb][:nq]
-        if coef < 0:
-            out.append(("e", js, -1 - coef))
-            continue
-        m = 1 << nq
-        blk = fixed[coef:coef + 2 * m * m].astype(np.float64)
-        out.append(("u", (blk[:m * m] + 1j * blk[m * m:]).reshape(m, m),
-                    js))
-    return out
 
 
 class CollapseDevicePlan:
@@ -227,7 +210,8 @@ class CollapseDevicePlan:
             plan.fixed if plan.fixed.size else np.zeros(1, np.float32),
             device,
         )
-        self.entry_tables = to_device(plan.entry_tables, device)
+        self._entries = SlotEntries(plan.entry_tables, plan.entry_gids,
+                                    device)
         self.rows = to_device(
             plan.table.rows if len(plan.table.rows)
             else np.zeros((1, op_rewrite.ROW), np.int32), device)
@@ -253,8 +237,7 @@ class CollapseDevicePlan:
     def gather_entries(self, lab_chunk: torch.Tensor) -> torch.Tensor:
         """``[C, entry_stride]`` per-label slot entries for a ``[C,
         num_vgates]`` label block (global vgate columns)."""
-        return gather_slot_entries(self.entry_tables, self.plan.entry_gids,
-                                   lab_chunk)
+        return self._entries(lab_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -497,18 +480,6 @@ def _bind(lib) -> None:
 # csrc/collapse_kernel.cu, built for sm_90a at first launch
 LIBRARY = KernelLibrary("collapse_kernel", _bind,
                         "collapse_kernel_error_string")
-
-
-def launch_geometry(n: int) -> tuple[int, int, bool]:
-    """``(threads, csize, use_smem)`` of a launch: the state is split over
-    ``csize`` CTAs (2 at n = 15, else 1), held in shared memory up to
-    n = 15 (``use_smem``); a CTA has 8 amplitudes of its share a thread
-    (at least 32 threads, at most 512: 32 amplitudes a thread at n = 14
-    and 15, all in the register checkpoint), so narrow states leave
-    registers for more CTAs an SM."""
-    csize = 2 if n == _CLUSTER_QUBITS else 1
-    threads = min(512, max(32, ((1 << n) // csize) // 8))
-    return threads, csize, n <= _CLUSTER_QUBITS
 
 
 def _launch(dp: CollapseDevicePlan, entries, cscal):

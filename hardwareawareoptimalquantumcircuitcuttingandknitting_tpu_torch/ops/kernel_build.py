@@ -2,8 +2,9 @@
 
 Every kernel source in ``csrc/`` has a plain C interface.  It is compiled
 at first use with ``nvcc`` for ``sm_90a`` into a shared library under
-``build/`` (named by the source's hash, so an edit rebuilds) and loaded
-with ``ctypes``.  Nothing here runs when a module is imported.
+``build/`` (named by the hash of the source and of the headers in
+``csrc/`` it may include, so an edit of either rebuilds) and loaded with
+``ctypes``.  Nothing here runs when a module is imported.
 """
 from __future__ import annotations
 
@@ -43,7 +44,10 @@ class KernelLibrary:
         when the library is loaded, built or already building."""
         if self.lib is not None or self._pending is not None:
             return
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
+        sha = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(_CSRC.glob("*.cuh")):
+            sha.update(header.read_bytes())
+        digest = sha.hexdigest()[:12]
         so = _BUILD / f"lib{self.stem}_{digest}.so"
         self.path = so
         if so.exists():

@@ -51,6 +51,16 @@ _NOT_PORTED = {
     "sharded": "queue A, 'other engines' (sharded fragments)",
 }
 _ITEM = "ROADMAP H100 port, queue A, 'other engines'"
+# keywords of the JAX package that are not ported: (JAX default, the
+# ROADMAP item that ports them).  Their defaults give the JAX result.
+_NOT_PORTED_KW = {
+    "tracer": (None, "ROADMAP H100 port, queue A, item 10 (tracing)"),
+    "checkpoint_dir": (None, f"{_ITEM} (fragment-result checkpoint)"),
+    "max_local_qubits": (None, f"{_ITEM} (sharded fragments)"),
+    "trunc_eps": (0.0, f"{_ITEM} (streamed without the kernel)"),
+    "teleport": ("qpd", "ROADMAP H100 port, queue A, item 4 (Teleport "
+                        "execution)"),
+}
 
 
 @dataclass
@@ -117,8 +127,12 @@ def run_virtual_circuit(
     seed: int = 0,
     project: bool = True,
     engine: str = "pallas",
+    tracer=None,
+    checkpoint_dir=None,
     mesh=None,
+    max_local_qubits: int | None = None,
     dtype=None,
+    trunc_eps: float = 0.0,
     head_labels: int = 0,
     sample_method: str = "iid",
     sample_eps: float | None = None,
@@ -127,6 +141,7 @@ def run_virtual_circuit(
     keep_clbits=None,
     device=None,
     noise=None,
+    teleport: str = "qpd",
 ) -> tuple[Distribution, RunTimeInfo]:
     """Simulate the QPD labels of every fragment, knit and (``project``)
     project onto the simplex.  The JAX package's default engine is
@@ -161,7 +176,23 @@ def run_virtual_circuit(
     "cuda" (raises without a card); "cpu" runs the kernels' plain PyTorch
     versions.  ``run_time`` ends after the result reached the host.
     ``noise``, ``dtype`` and ``mesh`` are knobs of the JAX package that
-    are not ported: anything but None raises NotImplementedError."""
+    are not ported: anything but None raises NotImplementedError.  So do
+    ``tracer``, ``checkpoint_dir``, ``max_local_qubits``, ``trunc_eps``
+    and ``teleport`` at anything but the JAX defaults (None, None, None,
+    0.0, "qpd": teleport-flagged cuts run through the QPD route, the JAX
+    package's reference-parity mode); a ``teleport`` outside ("qpd",
+    "execute") raises ValueError, as in the JAX package."""
+    if teleport not in ("qpd", "execute"):
+        raise ValueError(f"unknown teleport mode {teleport!r}")
+    given = {"tracer": tracer, "checkpoint_dir": checkpoint_dir,
+             "max_local_qubits": max_local_qubits, "trunc_eps": trunc_eps,
+             "teleport": teleport}
+    for name, (default, item) in _NOT_PORTED_KW.items():
+        if given[name] != default:
+            raise NotImplementedError(
+                f"{name}={given[name]!r} is not ported to the torch package "
+                f"yet: {item}"
+            )
     if engine in _NOT_PORTED:
         raise NotImplementedError(
             f"engine={engine!r} is not ported to the torch package yet: "

@@ -57,9 +57,13 @@ def card():
 
 
 def _block(virt, c, seed):
+    """``c`` labels of the grid: drawn with ``seed``, or the first ``c``
+    in natural order (``seed=None``)."""
     specs = [vg.spec for vg in virt.vgates]
     strides, n_inst, total = label_strides(specs, range(len(specs)))
     vidx = variant_index_table(range(len(specs)), strides, n_inst, total)
+    if seed is None:
+        return torch.as_tensor(vidx[:c], dtype=torch.int64)
     perm = np.random.default_rng(seed).permutation(total)[:c]
     return torch.as_tensor(vidx[perm], dtype=torch.int64)
 
@@ -73,8 +77,11 @@ EPILOGUES = {"full": None, "fold": {}, "keep1": {"keep_clbits": [0]},
 @pytest.mark.cuda
 @pytest.mark.parametrize("epilogue", sorted(EPILOGUES))
 @pytest.mark.parametrize("staged", [True, False])
-@pytest.mark.parametrize("span", [1, 3, 36])
-def test_kernel_matches_plain_on_card(card, epilogue, staged, span):
+@pytest.mark.parametrize("cap", [1, 3, 36])
+def test_kernel_matches_plain_on_card(card, epilogue, staged, cap):
+    """Random labels in the order given, runs of at most ``cap`` rows:
+    one launch, rows within 1e-5 of the plain version, a second launch
+    equal bit for bit."""
     virt = _chain()
     blk = _block(virt, 36, 1).to(card)
     kw = EPILOGUES[epilogue]
@@ -91,10 +98,111 @@ def test_kernel_matches_plain_on_card(card, epilogue, staged, span):
     ws = torch.rand((36, n_w, 2), device=card, dtype=torch.float32)
     st = dp.stages(blk)
     before = vk.variant_rows.launches
-    got = vk.variant_rows(dp, ent, ws, st, span)
+    got = vk.variant_rows(dp, ent, ws, st, cap)
+    again = vk.variant_rows(dp, ent, ws, st, cap)
     want = vk.plain_variant_rows(dp, ent, ws)
     torch.cuda.synchronize()
-    assert vk.variant_rows.launches == before + 1
+    assert vk.variant_rows.launches == before + 2
+    assert (got - want).abs().max().item() <= TOL
+    assert torch.equal(got, again)
+
+
+def _wide_chain(nbig: int):
+    """frag0: ``nbig`` data qubits (``nbig + 3`` simulated: 13, 15, 18 for
+    10, 12, 15) under three cuts, a cz, a cp and a cz, with entangling
+    layers between them, so a chunk has three segments: a global
+    checkpoint and the register one; every row kind, and rows on the
+    split bit of a 15-qubit state."""
+    cut = Circuit([Register("frag0", nbig), Register("frag1", 2)], nbig + 2)
+    for q in range(nbig):
+        cut.h(q)
+    for i in range(nbig - 1):
+        cut.cx(i, i + 1)
+    cut.append(Instruction("vgate", [nbig - 1, nbig],
+                           op=VirtualGateOp("cz")))
+    for i in range(nbig - 1):
+        cut.ry(0.3 + 0.05 * i, i)
+        cut.cx(i + 1, i)
+    cut.append(Instruction("vgate", [0, nbig],
+                           op=VirtualGateOp("cp", params=(0.7,))))
+    for i in range(0, nbig - 2, 2):
+        cut.cz(i, i + 2)
+        cut.rx(0.2 + 0.1 * i, i + 1)
+    cut.append(Instruction("vgate", [nbig // 2, nbig + 1],
+                           op=VirtualGateOp("cz")))
+    cut.cx(0, nbig - 1)
+    cut.cx(nbig, nbig + 1)
+    for q in range(nbig + 2):
+        cut.measure(q, q)
+    return VirtualCircuit(cut)
+
+
+_WIDE_CHAINS: dict = {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fold", "full"])
+@pytest.mark.parametrize("order", ["natural", "shuffled"])
+@pytest.mark.parametrize("n", [13, 15, 18])
+def test_kernel_width_classes_on_card(card, n, order, mode):
+    """Every width class of the kernel: one CTA's shared memory (13), a
+    two-CTA cluster (15), global scratch (18); all 216 labels through the
+    row function's call (sorted by slot digits, rows put back), in
+    natural and shuffled order, fold and full rows.  One launch a call,
+    rows within 1e-5 of the plain version on the order given, a second
+    call equal bit for bit."""
+    if n not in _WIDE_CHAINS:
+        _WIDE_CHAINS[n] = _wide_chain(n - 3)
+    virt = _WIDE_CHAINS[n]
+    if mode == "fold":
+        fn, _ = vk.make_folded_chunk_kernel(virt, "frag0", 216, device=card)
+    else:
+        fn, _ = vk.make_chunk_kernel(virt, "frag0", 216, device=card)
+    dp = fn.plan
+    assert dp.plan.n == n and len(dp.plan.row_segments) == 3
+    blk = _block(virt, 216, 0 if order == "shuffled" else None).to(card)
+    before = vk.variant_rows.launches
+    got = vk.label_rows(dp, blk, fn.weigh)
+    torch.cuda.synchronize()
+    launch = dict(vk.variant_rows.last_launch)
+    again = vk.label_rows(dp, blk, fn.weigh)
+    want = vk.plain_variant_rows(dp, dp.gather_entries(blk), fn.weigh(blk))
+    torch.cuda.synchronize()
+    assert vk.variant_rows.launches == before + 2
+    assert launch["cluster"] == (2 if n == 15 else 1)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL
+    assert torch.equal(got, again)
+    # the schedule launch against its plain version: order, stages, runs
+    order = dp.order(blk)
+    stage = dp.stages(blk[order])
+    table, count = vk.run_table(stage, 3, launch["cap"])
+    r = int(count)
+    assert torch.equal(launch["order"].long(), order)
+    assert torch.equal(launch["stage"], stage)
+    assert int(launch["runs"]) == r
+    assert torch.equal(launch["table"][:r], table[:r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("labels", [1, 7, 8192, 9000])
+def test_kernel_schedule_sizes_on_card(card, labels):
+    """Chunks of labels drawn with repeats (equal neighbours resume past
+    the last segment) from one to past the 8192 one schedule launch
+    sorts (then two launches): rows within 1e-5 of the plain version."""
+    virt = _chain()
+    fn, _ = vk.make_folded_chunk_kernel(virt, "frag0", labels, device=card)
+    specs = [vg.spec for vg in virt.vgates]
+    strides, n_inst, total = label_strides(specs, range(len(specs)))
+    vidx = variant_index_table(range(len(specs)), strides, n_inst, total)
+    pick = np.random.default_rng(labels).integers(0, total, labels)
+    blk = torch.as_tensor(vidx[pick], dtype=torch.int64, device=card)
+    before = vk.variant_rows.launches
+    got = vk.label_rows(fn.plan, blk, fn.weigh)
+    torch.cuda.synchronize()
+    assert vk.variant_rows.launches == before + (2 if labels > 8192 else 1)
+    want = vk.plain_variant_rows(fn.plan, fn.plan.gather_entries(blk),
+                                 fn.weigh(blk))
     assert (got - want).abs().max().item() <= TOL
 
 

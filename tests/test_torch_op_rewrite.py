@@ -186,6 +186,68 @@ def test_sv_table_replays_the_original(name):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL)
 
 
+def _chain_cut(nbig: int = 8):
+    """The JAX kernel tests' two-fragment chain (fixed 1q/2q gates, a
+    measuring cz and a parametrised cp slot), built in the port."""
+    cut = Circuit([Register("frag0", nbig), Register("frag1", 2)], nbig + 2)
+    cut.h(0)
+    for i in range(nbig - 1):
+        cut.cx(i, i + 1)
+    for q in range(nbig):
+        cut.rz(0.1 * (q + 1), q)
+    cut.append(Instruction("vgate", [nbig - 1, nbig],
+                           op=VirtualGateOp("cz")))
+    cut.append(Instruction("vgate", [0, nbig],
+                           op=VirtualGateOp("cp", params=(0.7,))))
+    cut.cx(nbig, nbig + 1)
+    for q in range(nbig + 2):
+        cut.measure(q, q)
+    return VirtualCircuit(cut)
+
+
+VARIANT_CASES = {
+    # (circuit, fragments, fold keywords: None = full rows)
+    "chain_cut": lambda: (_chain_cut(), ["frag0", "frag1"], {}),
+    "chain_cut_full_rows": lambda: (_chain_cut(), ["frag0"], None),
+    "chain_cut_z": lambda: (_chain_cut(), ["frag0"],
+                            {"z_clbits": [0, 3, 7]}),
+    "sup20": lambda: (cut("sup", 20, 10, 1), None, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VARIANT_CASES))
+def test_variant_table_replays_the_original(case):
+    """The variant kernel's rewritten table against the plain version's
+    original table, whole and segment by segment (the rewrite cuts its
+    segments at the same slots), on 8 labels of the label grid; sup-20's
+    15-qubit fragments, 38 / 39 rows, become 35 each."""
+    virt, names, kw = VARIANT_CASES[case]()
+    names = names or [r.name for r in virt.fragments]
+    specs = [vg.spec for vg in virt.vgates]
+    rng = np.random.default_rng(4)
+    blk = torch.as_tensor(np.stack(
+        [rng.integers(0, s.num_instantiations, 8) for s in specs], axis=1))
+    for name in names:
+        if kw is None:
+            fn, _ = vk.make_chunk_kernel(virt, name, 8, device="cpu")
+        else:
+            fn, _ = vk.make_folded_chunk_kernel(virt, name, 8, device="cpu",
+                                                **kw)
+        plan = fn.plan.plan
+        assert len(plan.row_segments) == len(plan.segments) >= 1
+        if case == "sup20":
+            assert len(plan.table.rows) == 35 < len(plan.ops)
+        ent = fn.plan.gather_entries(blk)
+        st = fn.plan.prefix.expand(8, 2, 1 << plan.n)
+        want, got = st, st
+        for (a, b), (ka, kb) in zip(plan.segments, plan.row_segments):
+            for row in plan.ops[a:b]:
+                want = vk.apply_op_plain(want, row, plan.n, plan.fixed, ent)
+            seg = rw.Table(plan.table.rows[ka:kb], plan.table.pool)
+            got = rw.replay(got, seg, plan.n, entries=ent)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL)
+
+
 # ---------------------------------------------------------------------------
 # Recounted work
 # ---------------------------------------------------------------------------

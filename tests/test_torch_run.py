@@ -318,6 +318,45 @@ def test_unported_engines_name_their_roadmap_item(engine, kw):
         run_virtual_circuit(tv, engine=engine, device="cpu", **kw)
 
 
+_JAX_KEYWORDS = {
+    # name: (JAX default, a value that is not ported, its ROADMAP item)
+    "tracer": (None, object(), "item 10 \\(tracing\\)"),
+    "checkpoint_dir": (None, "ckpt", "fragment-result checkpoint"),
+    "max_local_qubits": (None, 4, "sharded fragments"),
+    "trunc_eps": (0.0, 0.01, "streamed without the kernel"),
+    "teleport": ("qpd", "execute", "item 4 \\(Teleport execution\\)"),
+}
+
+
+@pytest.mark.parametrize("name,case", [
+    (name, case) for name in sorted(_JAX_KEYWORDS)
+    for case in ("default", "refused")
+] + [("teleport", "unknown")])
+def test_jax_keywords_default_or_refused(name, case):
+    """The JAX keywords the port does not implement: each at its JAX
+    default gives JAX's result, any other value raises
+    NotImplementedError naming its ROADMAP item, an unknown teleport mode
+    ValueError (as in the JAX package)."""
+    jc, tc, jv, tv, chunk = _pair("ghz10_p2q5")
+    default, other, item = _JAX_KEYWORDS[name]
+    if case == "unknown":
+        with pytest.raises(ValueError, match="unknown teleport mode"):
+            run_virtual_circuit(tv, device="cpu", teleport="wire")
+        return
+    if case == "refused":
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP H100 port, queue A.*{item}"):
+            run_virtual_circuit(tv, chunk_size=chunk, device="cpu",
+                                **{name: other})
+        return
+    want, _ = j_run(jv, engine="pallas", chunk_size=chunk,
+                    **{name: default})
+    got, _ = run_virtual_circuit(tv, engine="pallas", chunk_size=chunk,
+                                 device="cpu", **{name: default})
+    assert got.bit_positions == want.bit_positions
+    np.testing.assert_allclose(got.values, want.values, atol=1e-6)
+
+
 @pytest.mark.parametrize("kw", [
     dict(shots=100), dict(noise=object()), dict(trunc_eps=0.01),
     dict(share_prefix=True), dict(dtype=torch.bfloat16),
