@@ -20,8 +20,12 @@ Phases (any failure exits non-zero without the result line):
              sup-20's 15-qubit fragments forced through it at windows 10
              and 13 (one 504-label chunk; the variant kernel's rows are a
              third witness), and hwe-40's two 22-qubit fragments at the
-             default window (14) and at 13, all 36 labels in chunks of
-             16; <= 1e-5;
+             default window (13) and at 14, all 36 labels in chunks of
+             16, and the first chunk of hwe-40 with dense rotations
+             (below); the prefix the card builds and the rows <= 1e-5
+             (and <= 1e-4 of the largest entry), a second call equal bit
+             for bit; the segment launches' time (GB/s against the
+             bound) and the whole blocked_rows';
 4. collapse — the collapse kernel against its plain version on one block
              of sampled labels, of the size the sampled engine's scan
              launches for that epilogue (4096 labels, or what 512 MiB of
@@ -59,11 +63,20 @@ Phases (any failure exits non-zero without the result line):
              <Z...Z> through streamed_expectation_z; the marginal sums to
              1, the two agree, the marginal knitted from the plain version
              agrees, and the blocked kernel was launched segments x chunks
-             times per fragment.  ghz-40 (P2 Q20, stored cut plan): the
+             times per fragment, plus its prefix segments once, in the
+             first call (the device plans are cached on the circuit: a
+             second scan build launches and builds nothing; both builds
+             timed).  ghz-40 (P2 Q20, stored cut plan): the
              marginal is 1/2 on all-zeros and all-ones, <Z> on an even
-             support is 1.  ghz-34 (P2 Q17, solved in the run: two
-             18-qubit fragments, the variant kernel's global-memory path)
-             the same way, its first chunk against the plain version;
+             support is 1.  hwe-40 with dense rotations (its u angles
+             redrawn from default_rng(1), the same stored cut): the
+             marginal on 4 written data clbits a fragment through
+             engine="pallas" (the blocked kernel) against the batched
+             engine in plain PyTorch (engine="xla", no segments),
+             <= 1e-5 and fidelity > 1 - 1e-5.  ghz-34 (P2 Q17, solved
+             in the run: two 18-qubit fragments, the variant kernel's
+             global-memory path) the same way, its first chunk against
+             the plain version;
              hwe-16 (below) through run_virtual_circuit(engine="pallas")
              (13 qubits, one CTA), fidelity > 1 - 1e-5, its first chunk
              against the plain version;
@@ -107,6 +120,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 PKG = "hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch"
 TOL = 1e-5           # kernel vs plain: f32, different summation order
+REL_TOL = 1e-4       # the same, over the largest entry (dense 2^22 rows)
 FID_MIN = 1 - 1e-5   # cut-vs-uncut oracle on the exact path
 CHUNK = 504
 DEV = "cuda"
@@ -166,10 +180,17 @@ def _port(module: str):
     return importlib.import_module(f"{PKG}.{module}")
 
 
-def _cut(name, n, cap, seed, depth=1, stored_plan=None):
+def _cut(name, n, cap, seed, depth=1, stored_plan=None, angles=None):
     """(circuit, VirtualCircuit) of genCirc(name, n, depth, seed) cut into
     2 partitions of at most ``cap`` qubits: by the solver, or by a plan
-    stored in the package (solved once, loaded here)."""
+    stored in the package (solved once, loaded here).  ``angles``: a seed
+    the ``u`` rotations' angles are redrawn from, uniform in [-pi, pi)
+    with numpy's default_rng (the hardware-efficient ansatz's "random"
+    parameters: genCirc's "optimal" ones leave most rotations the
+    identity); the gates and their qubits stay, so a stored plan still
+    fits."""
+    import numpy as np
+
     from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.cutter.cutter import (  # noqa: E501
         Cutter,
     )
@@ -181,6 +202,14 @@ def _cut(name, n, cap, seed, depth=1, stored_plan=None):
     )
 
     circ = genCirc(name, n, depth, seed=seed)
+    if angles is not None:
+        # the ansatz's u gates come in columns of n: u(theta, 0, 0), then
+        # u(0, 0, lambda), and so on
+        rng = np.random.default_rng(angles)
+        us = [ins for ins in circ.instructions if ins.name == "u"]
+        for k, ins in enumerate(us):
+            ins.params = [0.0, 0.0, 0.0]
+            ins.params[2 * ((k // n) % 2)] = float(rng.uniform(-np.pi, np.pi))
     cutter = Cutter(circ, maxNPartitions=2, maxNQubitsPerPartition=cap,
                     maxNQpdCuts=5, maxNCuts=5, maxCutsPerPartitions=5)
     if stored_plan is not None:
@@ -346,21 +375,34 @@ def _label_blocks(virt, chunk, first_only=False):
             for c0 in range(0, stop, chunk)]
 
 
+def _segment_chain(segment_fn, rows_fn, dp, ent):
+    """Every segment launch of ``dp`` on one block's entries, as
+    blocked_rows makes them: the first from the shared prefix, the rest
+    in place, the last writing the |psi|^2 rows."""
+    state = dp.prefix
+    last = len(dp.plan.segments) - 1
+    for k in range(last):
+        state = segment_fn(dp, k, state, ent)
+    return rows_fn(dp, last, state, ent)
+
+
 def phase_blocked(label, virt, window, blocks, report, witness):
     """The blocked kernel against its plain version on every fragment of
-    ``virt`` (forced through it at ``window``) and every label block;
-    times for the first block through all fragments: the segment launches
-    alone (the kernel), and the whole chunk with its re-tiles."""
+    ``virt`` (forced through it at ``window``): the prefix the card built,
+    and every label block's rows, a second call equal bit for bit; times
+    for the first block through all fragments: the segment launches alone
+    (the kernel), and the whole ``blocked_rows`` (segments and
+    |psi|^2)."""
     import torch
 
     bk = _port("ops.blocked_kernel")
     vk = _port("ops.variant_kernel")
-    permute_bits_flat = _port("ops.bits").permute_bits_flat
     labels = blocks[0].shape[0]
-    err = werr = 0.0
-    seg_calls, chunk_calls = [], []
+    err = werr = prefix_err = rel = 0.0
+    repeat_equal = True
+    chunk_calls = []
     work = {"bytes": 0, "flops": 0}
-    segments = {}
+    segments, prefix_segments, rows, folded = {}, {}, {}, {}
     for name in (r.name for r in virt.fragments):
         fn, _ = bk.make_blocked_chunk_kernel(virt, name, labels,
                                              window=window, force=True,
@@ -368,39 +410,40 @@ def phase_blocked(label, virt, window, blocks, report, witness):
         dp = fn.plan
         plan = dp.plan
         segments[name] = len(plan.segments)
+        prefix_segments[name] = plan.n_prefix
+        rows[name] = [r1 - r0 for r0, r1, _, _ in plan.row_segments]
+        folded[name] = sum(a + b for a, b in plan.folded)
+        prefix_err = max(prefix_err, (dp.prefix - bk.plain_prefix_state(dp))
+                         .abs().max().item())
         for blk in blocks:
             ent = dp.gather_entries(blk)
             got = bk.blocked_rows(dp, ent)
+            again = bk.blocked_rows(dp, ent)
             want = bk.plain_blocked_rows(dp, ent)
             torch.cuda.synchronize()
             if not torch.isfinite(got).all():
                 raise RuntimeError(f"{label}/{name}: non-finite kernel rows")
-            err = max(err, (got - want).abs().max().item())
-            del got, want
+            repeat_equal &= bool(torch.equal(got, again))
+            diff = (got - want).abs().max().item()
+            err = max(err, diff)
+            rel = max(rel, diff / want.abs().max().item())
+            del got, again, want
         if witness:
             v_fn, _ = vk.make_chunk_kernel(virt, name, labels, device=DEV)
             werr = max(werr, (fn(blocks[0]) - v_fn(blocks[0])).abs().max()
                        .item())
-        # every segment of the first block with a state of its own to
-        # run on (a launch works in place; its time does not depend on
-        # the values)
         ent = dp.gather_entries(blocks[0])
-        state = dp.prefix
         for k in range(len(plan.segments)):
-            if k:
-                state = permute_bits_flat(
-                    state, list(range(plan.n)), plan.retiles[k - 1]
-                ).clone(memory_format=torch.contiguous_format)
-            seg_calls.append((dp, k, state, ent))
-            state = bk.apply_segment(dp, k, state, ent)
             wk = bk.work_counts(plan, k, labels, ent.cpu().numpy())
             work["bytes"] += wk["bytes"]
             work["flops"] += wk["flops"]
-        del state
         chunk_calls.append((dp, ent))
-    ms = _time_ms(lambda: [bk.apply_segment(*a) for a in seg_calls], reps=5)
-    plain_ms = _time_ms(lambda: [bk.plain_segment(*a) for a in seg_calls],
-                        reps=1, warm=1)
+    # the first block's segment launches (all of blocked_rows's launches)
+    ms = _time_ms(lambda: [_segment_chain(bk.apply_segment, bk.segment_rows,
+                                          *a) for a in chunk_calls], reps=5)
+    plain_ms = _time_ms(lambda: [_segment_chain(bk.plain_segment,
+                                                bk.plain_segment_rows, *a)
+                                 for a in chunk_calls], reps=1, warm=1)
     chunk_ms = _time_ms(lambda: [bk.blocked_rows(*a) for a in chunk_calls],
                         reps=3, warm=1)
     plain_chunk_ms = _time_ms(
@@ -408,13 +451,14 @@ def phase_blocked(label, virt, window, blocks, report, witness):
         warm=0,
     )
     bound_ms, bound_by = _bound(work)
+    gbps = work["bytes"] / ms / 1e6
     report.setdefault("kernels", []).append({
         "name": f"blocked_rows/{label}",
         "route": "cuda",
         "source": f"{PKG}/csrc/blocked_kernel.cu",
         "replaces": TPU_BLOCKED,
         "launches": None,  # filled from the main path's run
-        "max_abs_err": err,
+        "max_abs_err": max(err, prefix_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -422,26 +466,42 @@ def phase_blocked(label, virt, window, blocks, report, witness):
         "library_ms": None,
         "on_main_path": False,  # set by the path that launches it
         "work": work,
+        "gbps": gbps,
         "chunk_ms": chunk_ms,
         "plain_chunk_ms": plain_chunk_ms,
         "window": plan.w,
+        "pinned": plan.pinned,
         "labels": labels,
         "segments": segments,
+        "prefix_segments": prefix_segments,
+        "rows_a_segment": rows,
+        "rows_folded": folded,
+        "prefix_max_abs_err": prefix_err,
+        "max_rel_err": rel,
+        "second_call_equal": repeat_equal,
         "variant_kernel_witness_err": werr if witness else None,
     })
-    print(f"blocked {label}: window={plan.w} segments={segments} "
-          f"blocks={[b.shape[0] for b in blocks]} max_abs_err={err:.3e} "
+    print(f"blocked {label}: window={plan.w} pinned={plan.pinned} "
+          f"segments={segments} "
+          f"prefix_segments={prefix_segments} rows={rows} "
+          f"folded={folded} blocks={[b.shape[0] for b in blocks]} "
+          f"max_abs_err={err:.3e} max_rel_err={rel:.3e} "
+          f"prefix_err={prefix_err:.3e} second_call_equal={repeat_equal} "
           f"witness_err={werr if witness else None} | one {labels}-label "
           f"chunk through {len(segments)} fragments: segment launches "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} "
           f"({bound_by}; {work['bytes'] / 1e9:.3f} GB, "
-          f"{work['flops'] / 1e9:.3f} GFLOP) = "
-          f"{work['bytes'] / ms / 1e6:.1f} GB/s; with re-tiles and "
-          f"|psi|^2 chunk_ms={chunk_ms:.4f} plain_chunk_ms="
+          f"{work['flops'] / 1e9:.3f} GFLOP) = {gbps:.1f} GB/s; "
+          f"blocked_rows chunk_ms={chunk_ms:.4f} plain_chunk_ms="
           f"{plain_chunk_ms:.4f}", flush=True)
-    if not err <= TOL:
-        raise RuntimeError(f"{label}: blocked kernel vs plain {err:.3e} > "
-                           f"{TOL}")
+    if not err <= TOL or not prefix_err <= TOL:
+        raise RuntimeError(f"{label}: blocked kernel vs plain {err:.3e}, "
+                           f"prefix {prefix_err:.3e} > {TOL}")
+    if not rel <= REL_TOL:
+        raise RuntimeError(f"{label}: blocked kernel vs plain {rel:.3e} of "
+                           f"the largest entry > {REL_TOL}")
+    if not repeat_equal:
+        raise RuntimeError(f"{label}: a second call differs")
     if witness and not werr <= TOL:
         raise RuntimeError(f"{label}: blocked vs variant kernel rows "
                            f"{werr:.3e} > {TOL}")
@@ -513,6 +573,67 @@ def phase_forced_sup20(circ, virt, report, window=13):
     row["on_main_path"] = True
 
 
+def phase_dense_wide(label, virt, report, kernel_row, keep_each=4):
+    """hwe-40 with dense rotations (its 22-qubit fragments' states spread
+    over every amplitude) end to end: the marginal on ``keep_each``
+    written data clbits of each fragment through
+    run_virtual_circuit(engine="pallas") (the blocked kernel, launches
+    counted around it) against the batched engine in plain PyTorch
+    (engine="xla": every variant's state gate by gate, no segments,
+    tiles or folded moves), <= 1e-5 and Hellinger fidelity > 1 - 1e-5;
+    the marginal sums to 1 and is spread (no bin above 1/2)."""
+    import numpy as np
+    import torch
+
+    run_virtual_circuit = _port("run").run_virtual_circuit
+    keep = sorted(c for cs in _written_data_clbits(virt)
+                  for c in cs[:keep_each])
+    _reset_counts()
+    t0 = time.perf_counter()
+    dist, _ = run_virtual_circuit(virt, engine="pallas",
+                                  chunk_size=HWE_CHUNK, keep_clbits=keep,
+                                  project=False, device=DEV)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    counts = _counts()
+    _reset_counts()
+    t0 = time.perf_counter()
+    ref, _ = run_virtual_circuit(virt, engine="xla", keep_clbits=keep,
+                                 project=False, device=DEV)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_counts = _counts()
+    got = np.asarray(dist.values, np.float64)
+    want = np.asarray(ref.values, np.float64)
+    err = float(np.abs(got - want).max())
+    fid = _port("evaluate").hellinger_fidelity(dist, ref)
+    out = {"keep_clbits": keep, "launches": counts,
+           "xla_launches": ref_counts, "pallas_s": kernel_s,
+           "xla_s": ref_s, "max_abs_err_vs_xla": err,
+           "fidelity_vs_xla": fid, "marginal_sum": float(got.sum()),
+           "largest_bin": float(got.max())}
+    report[label] = out
+    print(f"main {label}: keep={len(keep)} clbits launches={counts} "
+          f"xla_launches={ref_counts} pallas_s={kernel_s:.4f} "
+          f"xla_s={ref_s:.4f} max_abs_err_vs_xla={err:.3e} "
+          f"fidelity_vs_xla={fid!r} marginal_sum={float(got.sum())!r} "
+          f"largest_bin={got.max():.4f}", flush=True)
+    if not (np.isfinite(got).all() and got.shape == (1 << len(keep),)):
+        raise RuntimeError(f"{label}: marginal not finite or misshaped")
+    if not (counts["blocked"] > 0 and counts == _only(blocked=counts[
+            "blocked"]) and ref_counts == _only()):
+        raise RuntimeError(f"{label}: launches {counts}, xla {ref_counts}")
+    if not abs(got.sum() - 1) <= TOL or not got.max() <= 0.5:
+        raise RuntimeError(f"{label}: marginal sums to {got.sum()!r}, "
+                           f"largest bin {got.max()!r}")
+    if not err <= TOL or not fid > FID_MIN:
+        raise RuntimeError(f"{label}: blocked vs batched engine {err:.3e}, "
+                           f"fidelity {fid!r}")
+    row = _kernel_row(report, kernel_row)
+    row["launches"] = counts["blocked"]
+    row["on_main_path"] = True
+
+
 def _written_data_clbits(virt):
     """Per fragment, the data clbits its measures write, ascending."""
     return [sorted(c for c in virt.programs[r.name].clbit_sources
@@ -527,14 +648,14 @@ def _plain_rows():
     CUDA tensor)."""
     bk = _port("ops.blocked_kernel")
     vk = _port("ops.variant_kernel")
-    segment, rows = bk.apply_segment, vk.label_rows
-    bk.apply_segment = bk.plain_segment
+    kept = bk.apply_segment, bk.segment_rows, vk.label_rows
+    bk.apply_segment, bk.segment_rows = bk.plain_segment, bk.plain_segment_rows
     vk.label_rows = lambda dp, vidx, weigh: vk.plain_variant_rows(
         dp, dp.gather_entries(vidx), weigh(vidx))
     try:
         yield
     finally:
-        bk.apply_segment, vk.label_rows = segment, rows
+        bk.apply_segment, bk.segment_rows, vk.label_rows = kept
 
 
 def _z_of_marginal(values):
@@ -564,11 +685,15 @@ def phase_wide(label, virt, report, analytic, kernel_row=None,
     import torch
 
     streamed = _port("ops.streamed")
+    bk = _port("ops.blocked_kernel")
     run_virtual_circuit = _port("run").run_virtual_circuit
     keep = sorted(c for cs in _written_data_clbits(virt) for c in cs[:10])
     widths = [virt.programs[r.name].num_sim_qubits for r in virt.fragments]
     chunk = streamed.auto_chunk(virt, HWE_CHUNK)
 
+    # the first call builds the blocked plans (earlier phases may have
+    # cached them on the circuit), the later ones find them
+    bk.drop_device_plans(virt)
     torch.cuda.synchronize()
     _reset_counts()
     t0 = time.perf_counter()
@@ -589,16 +714,29 @@ def phase_wide(label, virt, report, analytic, kernel_row=None,
     z_s = time.perf_counter() - t0
     z_counts = _counts()
 
-    # the scan alone, built once: which kernel backs which fragment, warm
-    # times, and the same knit from the plain version's segments
-    t0 = time.perf_counter()
-    step, xs, meta = streamed.make_streamed_knit(virt, chunk,
-                                                 keep_clbits=keep,
-                                                 device=DEV)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    # the scan alone: its host build first with no plan cached (the
+    # blocked prefix launches, once a build), then cached; which kernel
+    # backs which fragment, warm times, and the same knit from the plain
+    # version's segments
+    builds, build_counts, metas = [], [], []
+    bk.drop_device_plans(virt)
+    for _ in range(2):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, xs, meta = streamed.make_streamed_knit(virt, chunk,
+                                                     keep_clbits=keep,
+                                                     device=DEV)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+        build_counts.append(_counts())
+        metas.append(meta)
     segs = {n: len(dp.plan.segments)
             for n, dp in meta["fragment_plans"].items()}
+    prefix_segs = {n: dp.plan.n_prefix
+                   for n, dp in meta["fragment_plans"].items()
+                   if meta["fragment_kernels"][n] == "blocked"}
+    prefix = sum(prefix_segs.values())
     # a blocked launch per segment, a variant launch per fragment, a chunk
     expect = meta["n_chunks"] * (sum(segs.values()) if kernel == "blocked"
                                  else len(segs))
@@ -621,9 +759,11 @@ def phase_wide(label, virt, report, analytic, kernel_row=None,
     out = {
         "labels": meta["global_labels"], "fragment_sim_qubits": widths,
         "chunk": chunk, "n_chunks": meta["n_chunks"], "keep_clbits": keep,
-        "segments": segs, "launches": counts, "expected_launches": expect,
+        "segments": segs, "prefix_segments": prefix_segs,
+        "launches": counts, "expected_launches": expect + prefix,
         "z_launches": z_counts, "first_run_s": first_s,
-        "expectation_z_s": z_s, "host_build_s": build_s,
+        "expectation_z_s": z_s, "host_build_s": builds[0],
+        "host_build_cached_s": builds[1], "build_launches": build_counts,
         "warm_scan_s": walls, "marginal_sum": total, "z_support": z_support,
         "expectation_z": z_val, "plain_knit_max_abs_err": plain_err,
         "rerun_max_abs_err": rerun_err,
@@ -634,9 +774,11 @@ def phase_wide(label, virt, report, analytic, kernel_row=None,
     report[label] = out
     print(f"main {label}: labels={out['labels']} fragment_sim_qubits="
           f"{widths} chunk={chunk} x{meta['n_chunks']} segments={segs} "
-          f"launches={counts} expected={expect} z_launches={z_counts} "
+          f"prefix_segments={prefix_segs} launches={counts} "
+          f"expected={expect}+{prefix} z_launches={z_counts} "
           f"first_run_s={first_s:.4f} expectation_z_s={z_s:.4f} "
-          f"host_build_s={build_s:.4f} warm_scan_s="
+          f"host_build_s={builds[0]:.4f} host_build_cached_s="
+          f"{builds[1]:.4f} build_launches={build_counts} warm_scan_s="
           f"{[round(w, 4) for w in walls]} marginal_sum={total!r} "
           f"expectation_z={z_val!r} plain_knit_err={plain_err:.3e} "
           f"device_busy_ms={out['device_busy_ms']} "
@@ -660,9 +802,16 @@ def phase_wide(label, virt, report, analytic, kernel_row=None,
              "global-memory path")
     need(np.isfinite(values).all() and values.shape == (1 << len(keep),),
          "marginal not finite or of the wrong shape")
-    need(counts == _only(**{kernel: expect}),
-         f"launched {counts}, expected {expect} {kernel} launches only")
-    need(z_counts == counts, f"expectation launched {z_counts}")
+    need(counts == _only(**{kernel: expect + prefix}),
+         f"launched {counts}, expected {expect} + {prefix} {kernel} "
+         "launches only")
+    need(z_counts == _only(**{kernel: expect}),
+         f"expectation launched {z_counts}")
+    need(build_counts == [_only(blocked=prefix), _only()],
+         f"builds launched {build_counts}, expected {prefix} prefix "
+         "launches, then none")
+    need(all(metas[1]["fragment_plans"][n] is metas[0]["fragment_plans"][n]
+             for n in prefix_segs), "the second build built a plan")
     need(plain_counts == _only(),
          f"the plain knit launched kernels: {plain_counts}")
     need(all(meta["pallas_fragments"].values())
@@ -1826,14 +1975,24 @@ def main() -> int:
         phase("blocked_hwe40", phase_blocked, "hwe40", virt,
               _port("ops.blocked_kernel").DEFAULT_WINDOW, blocks, report,
               False)
-        # the other window the shared memory allows two CTAs per SM at
-        phase("blocked_hwe40_w13", phase_blocked, "hwe40_w13", virt, 13,
+        # the widest window: one 128 KB tile a CTA
+        phase("blocked_hwe40_w14", phase_blocked, "hwe40_w14", virt, 14,
               blocks, report, False)
         phase("main_hwe40", phase_wide, "hwe40", virt, report, False,
               "blocked_rows/hwe40")
     if cut("ghz40", "ghz", 40, 20, None, stored_plan="ghz40_p2_q20"):
         phase("main_ghz40", phase_wide, "ghz40", cuts["ghz40"][1], report,
               True)
+    if cut("hwe40_dense", "hwe", 40, 21, 0, depth=2,
+           stored_plan="hwe40_d2_p2_q21", angles=1):
+        # the same cut with dense rotations: every amplitude in play
+        _, virt = cuts["hwe40_dense"]
+        chunk = _port("ops.streamed").auto_chunk(virt, HWE_CHUNK)
+        phase("blocked_hwe40_dense", phase_blocked, "hwe40_dense", virt,
+              _port("ops.blocked_kernel").DEFAULT_WINDOW,
+              _label_blocks(virt, chunk, first_only=True), report, False)
+        phase("main_hwe40_dense", phase_dense_wide, "hwe40_dense", virt,
+              report, "blocked_rows/hwe40_dense")
     if cut("ghz34", "ghz", 34, 17, None):
         # the variant kernel's global-memory path: two 18-qubit fragments
         _, virt = cuts["ghz34"]
@@ -1880,7 +2039,8 @@ def main() -> int:
             # comparison phase alone
             row["launches"] = (report["sup20"]["launches"]
                                if row["on_main_path"] else 0)
-        for key in ("work", "kernel_work", "segments", "fragments"):
+        for key in ("work", "kernel_work", "segments", "fragments",
+                    "rows_a_segment"):
             row.pop(key, None)
         kernels.append(row)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

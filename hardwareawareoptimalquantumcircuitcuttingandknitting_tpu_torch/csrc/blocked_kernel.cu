@@ -1,184 +1,308 @@
-// Segmented blocked statevector kernel: one gate segment over shared-memory
-// tiles of a batch of states that live in global memory.
+// Segmented blocked statevector kernel: one gate segment over tiles of a
+// batch of states that live in global memory, gathered into shared memory.
 //
 // Replaces the JAX package's ops/pallas_blocked.py::_segment_call (the
-// pl.pallas_call at :168), driven by make_blocked_chunk_kernel :184 for
-// fragments of 21..24 simulated qubits.  The host planner lays every qubit
-// that a segment's gates touch on the low w flat bits of the state, so each
-// aligned run of 2^w amplitudes (a tile) is closed under all gates of the
-// segment.  One launch applies one segment to every tile of every label of
-// a chunk; between segments the host re-tiles the states with a bit
-// permutation outside this kernel.
+// pl.pallas_call at :168), driven by make_blocked_chunk_kernel :184 and
+// plan_segments :59, for fragments of 21..24 simulated qubits.  One launch
+// applies one segment to every tile of every label of a chunk; the shared
+// prefix runs through the same launches on one state.
 //
-// One generic interpreter over the op table: a single nvcc build serves
-// every circuit.  Plain C interface, loaded with ctypes.
+// One generic interpreter over the op table rewritten by ops/op_rewrite.py
+// (dense 1q / 2q gates from the pool or the label's entry row, diagonal
+// runs, signed permutations; the row machinery is statevec_common.cuh,
+// shared with kernels 1-3): a single nvcc build serves every circuit.
+// Plain C interface, loaded with ctypes.
 //
-// Design, and what bounds it on an H100:
-//  * Grid = labels x 2^(n-w) tiles, one CTA per tile, in no order: tiles are
-//    independent within a segment.  (The TPU kernel walks the blocks of ONE
-//    label in a sequential grid and scans over labels; here a whole chunk's
-//    states are alive at once and one launch covers them.)
-//  * A CTA loads its tile (re and im planes, 2 * 2^w floats) into dynamic
-//    shared memory with 16-byte loads, applies every op of the segment there
-//    (each thread owns whole XOR pairs or quads, so updates are in place; a
-//    block barrier between ops), and writes the tile back once.  Per segment
-//    the state crosses device memory once in each direction whatever the
-//    number of gates: the kernel is bound by those bytes, 2 * 8 * 2^n per
-//    label and segment, not by its f32 arithmetic.
-//  * The window is bounded by shared memory: 8 * 2^w bytes, 128 KB at
-//    w = 14 (one CTA per SM), 64 KB at w = 13 (two).  Above 48 KB the
-//    launch raises the kernel's dynamic shared memory limit first.
-//  * The first segment reads the host-computed prefix state shared by every
-//    label (label stride 0) and writes the per-label states; later segments
-//    run in place.
-//  * Offsets into the batch are 64-bit: 36 labels of 2^24 complex
-//    amplitudes pass 2^31 floats.
-//  * f32 FFMA throughout; no tensor cores, so no TF32.
+// Design, and what bounds it on an H100 (times: chip_smoke.py's blocked
+// phases, hwe-40's 22-qubit fragments, PERF.md):
+//  * One storage layout, no re-tile.  A state keeps the canonical layout
+//    (qubit q on flat bit n-1-q) for the whole run.  The host planner
+//    gives each segment a window of w storage bits closed under its gates;
+//    a tile is the 2^w amplitudes that differ only in those bits.  A CTA
+//    gathers its tile (tile-local index i from base ^ gather(i)), works on
+//    it in shared memory and scatters it back (to base ^ scatter(i)); both
+//    maps are affine in i's bits, so each is a two-halves XOR table of 2 x
+//    128 ints (bits 0-6 of i, bits 7-13) in shared memory, and the base is
+//    the tile number deposited into the other bits.  Gather and scatter
+//    touch the same addresses, so a segment runs in place and the state
+//    crosses device memory once in each direction a segment, with no torch
+//    pass between segments.
+//  * Moves cost no pass.  The host folds a segment's leading and trailing
+//    signed permutations (x, cx, swap, y: hwe's cx chains) into the
+//    gather and scatter maps, their phases (powers of i) into a byte a
+//    tile-local index, applied as each thread's copies land and in the
+//    store; hwe-40 is left with at most one row a segment.  A swap inside
+//    a segment moves two members of each pair or quad, not all.
+//  * Whole sectors.  The planner pins the 3 lowest storage bits into every
+//    window as tile bits 0..2, so a tile is read in runs of 8 floats a
+//    plane: each 16-byte copy lies in a 32-byte sector the tile reads
+//    whole; the scatter keeps every aligned group of 4 whole (its order
+//    flipped in registers).
+//  * Loads in flight.  The gather is cp.async (LDGSTS, 16 bytes a copy
+//    where tile bits 0 and 1 are storage bits 0 and 1, else 4): no
+//    registers held, the whole tile requested before the first wait.  A
+//    64 KB tile (w = 13) and 256 threads leave two CTAs an SM, so one
+//    CTA's copies overlap the other's.  Measured and not taken (PERF.md):
+//    128 or 512 threads, w = 14 (one 128 KB CTA an SM, or a cluster of
+//    two CTAs splitting the tile), 4 or 5 pinned bits (more segments),
+//    one label a launch (its state left in L2 between segments).  With
+//    the moves folded the kernel runs at the speed of the same launches
+//    with no rows: the copies, ~2.2 TB/s on 32-byte runs, bound it.
+//  * The last segment writes |psi|^2 (one plane) in place of the state.
+//  * 64-bit offsets into the batch (36 labels of 2^24 complex amplitudes
+//    pass 2^31 floats).  f32, IEEE arithmetic (no fast-math), no tensor
+//    cores, no atomics: a launch repeats bit for bit.
 //
-// Layout: planar [labels, 2, 2^n] (re then im); tile t holds flat indices
-// [t * 2^w, (t + 1) * 2^w).  Op rows are (nq, ja, jb, coef) over flat bits
-// below w; gate index m = 2*bit(ja)+bit(jb); coef >= 0 is an offset into the
-// fixed pool, coef < 0 is -1 - offset into the label's entry row.
+// Layout: planar [labels, 2, 2^n] (re then im).  Rows (kRow ints) address
+// tile-local bits below w; a gate's coefficients at a0 >= 0 of this
+// segment's pool slice or at -1 - a0 of the label's entry row.
 
-#include <cuda_runtime.h>
+#include "statevec_common.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
+constexpr int kThreads = 256;  // 16 pairs or 8 quads a thread at w = 13
 constexpr int kMaxWindow = 14;
+constexpr int kDepBits = 7;
+constexpr int kDepHalf = 1 << kDepBits;
 
 struct Params {
   const float* src;        // [labels or 1, 2, N]
   float* dst;              // [labels, 2, N]
-  long long src_stride;    // floats between labels in src (0: shared prefix)
-  const int* ops;          // [n_ops, 4]
-  const float* fixed;      // fixed-gate coefficients: re[m*m] then im[m*m]
+  float* probs;            // [labels, N] |psi|^2 rows in place of dst
+  long long src_stride;    // floats between labels in src (0: shared state)
+  const int* rows;         // [R, kRow] rewritten rows
+  const float* pool;       // this segment's coefficient pool slice
   const float* entries;    // [labels, entry_stride] slot coefficients
-  int op_start, op_end;    // this segment's rows of ops
+  const int* tables;       // [2, 2 * kDepHalf] gather, scatter tables
+  const unsigned char* phase_in;   // [2^w] gather phases (null: none)
+  const unsigned char* phase_out;  // [2^w] scatter phases (null: none)
+  int row_start, row_end;  // this segment's rows
   int entry_stride, n, w;
+  int free_mask;           // the storage bits that number the tiles
+  int vec;                 // floats a copy: 4 or 1
 };
 
-__device__ __forceinline__ int insert_zero(int p, int j) {
-  return ((p >> j) << (j + 1)) | (p & ((1 << j) - 1));
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
 }
 
-__device__ void tile_1q(float* re, float* im, int W, int j, const float* cs) {
-  const float r00 = cs[0], r01 = cs[1], r10 = cs[2], r11 = cs[3];
-  const float i00 = cs[4], i01 = cs[5], i10 = cs[6], i11 = cs[7];
-  const int half = W >> 1, bit = 1 << j;
-  for (int p = threadIdx.x; p < half; p += blockDim.x) {
-    const int a = insert_zero(p, j), b = a | bit;
-    const float ar = re[a], ai = im[a], br = re[b], bi = im[b];
-    re[a] = r00 * ar - i00 * ai + r01 * br - i01 * bi;
-    im[a] = r00 * ai + i00 * ar + r01 * bi + i01 * br;
-    re[b] = r10 * ar - i10 * ai + r11 * br - i11 * bi;
-    im[b] = r10 * ai + i10 * ar + r11 * bi + i11 * br;
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// A tile-local index's offset from the tile's base: an affine map of its
+// bits, so the XOR of its two 7-bit halves' entries.
+__device__ __forceinline__ int offset_of(const int* tab, int i) {
+  return tab[i & (kDepHalf - 1)] ^ tab[kDepHalf + (i >> kDepBits)];
+}
+
+// v's floats in the order that puts float k at k ^ c.
+__device__ __forceinline__ float4 flip4(float4 v, int c) {
+  if (c & 1) v = make_float4(v.y, v.x, v.w, v.z);
+  if (c & 2) v = make_float4(v.z, v.w, v.x, v.y);
+  return v;
+}
+
+// A signed permutation of a pair or a quad that swaps two members and
+// leaves the others in place, with no phase (x, cx, swap): its two
+// members a, b.  Uniform over the CTA (the code is the row's).
+__device__ __forceinline__ bool swap_of(int code, int m, int& a, int& b) {
+  a = b = -1;
+  for (int r = 0; r < m; ++r) {
+    const int nib = (code >> (4 * r)) & 15;
+    if (nib >> 2) return false;  // a phase
+    if ((nib & 3) == r) continue;
+    if (b >= 0) return false;
+    (a < 0 ? a : b) = r;
+  }
+  return b >= 0 && ((code >> (4 * a)) & 3) == b &&
+         ((code >> (4 * b)) & 3) == a;
+}
+
+// The swap of members a and b of every pair (bit ja; mb = 0) or quad
+// (bits ja, jb, ja the gate-index MSB) of the CTA's own tile: two loads
+// and two stores a plane, where the generic permutation moves all
+// members.
+__device__ __forceinline__ void apply_swap(const View& v, float* own,
+                                           int ja, int jb, bool quad, int a,
+                                           int b) {
+  const int ma = 1 << ja, mb = quad ? 1 << jb : 0;
+  const int oa = ((a >> (quad ? 1 : 0)) & 1) * ma + (quad ? (a & 1) * mb : 0);
+  const int ob = ((b >> (quad ? 1 : 0)) & 1) * ma + (quad ? (b & 1) * mb : 0);
+  const int lo = quad ? min(ja, jb) : ja, hi = quad ? max(ja, jb) : ja;
+  const int count = v.L >> (quad ? 2 : 1);
+  const int L = v.L;
+  for (int p = v.t; p < count; p += v.T) {
+    const int base = quad ? insert_zero(insert_zero(p, lo), hi)
+                          : insert_zero(p, lo);
+    const int xa = base | oa, xb = base | ob;
+    const float ar = own[xa], ai = own[L + xa];
+    own[xa] = own[xb];
+    own[L + xa] = own[L + xb];
+    own[xb] = ar;
+    own[L + xb] = ai;
   }
 }
 
-__device__ void tile_2q(float* re, float* im, int W, int ja, int jb,
-                        const float* cs) {
-  const int lo = min(ja, jb), hi = max(ja, jb);
-  const int ma = 1 << ja, mb = 1 << jb;
-  const int quarter = W >> 2;
-  for (int p = threadIdx.x; p < quarter; p += blockDim.x) {
-    const int base = insert_zero(insert_zero(p, lo), hi);
-    const int idx[4] = {base, base | mb, base | ma, base | ma | mb};
-    float xr[4], xi[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      xr[c] = re[idx[c]];
-      xi[c] = im[idx[c]];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float accr = 0.f, acci = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float ur = cs[4 * r + c], ui = cs[16 + 4 * r + c];
-        accr += ur * xr[c] - ui * xi[c];
-        acci += ur * xi[c] + ui * xr[c];
-      }
-      re[idx[r]] = accr;
-      im[idx[r]] = acci;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 blocked_segment_kernel(Params p) {
-  extern __shared__ float4 tile4[];  // re plane [W], then im plane [W]
-  __shared__ float cs[32];
+  extern __shared__ __align__(16) float smem_tile[];  // re [L], then im [L]
+  __shared__ int s_tab[4 * kDepHalf];  // gather table, then scatter
 
-  const int W = 1 << p.w;
+  const int T = kThreads, t = threadIdx.x;
   const long long N = 1LL << p.n;
+  View v;  // the whole tile in this CTA
+  v.L = 1 << p.w;
+  v.T = T;
+  v.t = t;
+  v.split = -1;
+  v.rank = 0;
+  v.base[0] = v.base[1] = v.own = smem_tile;
+  const long long tile = blockIdx.x;
+  const int L = v.L;
+
   const int tile_bits = p.n - p.w;
-  const long long lab = (long long)blockIdx.x >> tile_bits;
-  const long long t = (long long)blockIdx.x & ((1LL << tile_bits) - 1);
-  const float* s = p.src + lab * p.src_stride + t * W;
-  float* d = p.dst + lab * 2 * N + t * W;
-  float* re = reinterpret_cast<float*>(tile4);
-  float* im = re + W;
+  const long long lab = tile >> tile_bits;
+  int tn = (int)(tile & ((1LL << tile_bits) - 1));
+  int base = 0;  // the tile number's bits deposited into free_mask's
+  for (int m = p.free_mask; m; m &= m - 1, tn >>= 1)
+    if (tn & 1) base |= m & -m;
+  for (int i = t; i < 4 * kDepHalf; i += T) s_tab[i] = p.tables[i];
+  __syncthreads();
+  const int* gather = s_tab;
+  const int* scatter = s_tab + 2 * kDepHalf;
 
-  // W >= 4 and every plane offset is a multiple of W floats, so the tile
-  // is 16-byte aligned in global and in shared memory
-  const int W4 = W >> 2;
-  const float4* s_re = reinterpret_cast<const float4*>(s);
-  const float4* s_im = reinterpret_cast<const float4*>(s + N);
-  for (int i = threadIdx.x; i < W4; i += blockDim.x) {
-    tile4[i] = s_re[i];
-    tile4[W4 + i] = s_im[i];
+  const float* s = p.src + lab * p.src_stride + base;
+  float* d = p.dst + lab * 2 * N + base;
+  float* re = smem_tile;
+  float* im = smem_tile + L;
+  if (p.vec == 4) {
+    for (int x = 4 * t; x < L; x += 4 * T) {
+      const int off = offset_of(gather, x);
+      cp_async16(re + x, s + off);
+      cp_async16(im + x, s + N + off);
+    }
+  } else {
+    for (int x = t; x < L; x += T) {
+      const int off = offset_of(gather, x);
+      cp_async4(re + x, s + off);
+      cp_async4(im + x, s + N + off);
+    }
   }
-
-  const float* erow = p.entries + lab * p.entry_stride;
-  for (int o = p.op_start; o < p.op_end; ++o) {
-    const int nq = p.ops[4 * o], ja = p.ops[4 * o + 1];
-    const int jb = p.ops[4 * o + 2], coef = p.ops[4 * o + 3];
-    const float* csrc = coef >= 0 ? p.fixed + coef : erow + (-1 - coef);
-    if (threadIdx.x < (nq == 1 ? 8 : 32)) cs[threadIdx.x] = csrc[threadIdx.x];
-    __syncthreads();  // coefficients and the previous op's tile are visible
-    if (nq == 1)
-      tile_1q(re, im, W, ja, cs);
-    else
-      tile_2q(re, im, W, ja, jb, cs);
-    __syncthreads();  // cs is free for the next op
+  cp_async_wait_all();
+  if (p.phase_in != nullptr) {  // each thread its own copies' floats
+    if (p.vec == 4) {
+      for (int x = 4 * t; x < L; x += 4 * T) {
+        const uchar4 ph =
+            *reinterpret_cast<const uchar4*>(p.phase_in + x);
+        rotate(re[x], im[x], ph.x);
+        rotate(re[x + 1], im[x + 1], ph.y);
+        rotate(re[x + 2], im[x + 2], ph.z);
+        rotate(re[x + 3], im[x + 3], ph.w);
+      }
+    } else {
+      for (int x = t; x < L; x += T) rotate(re[x], im[x], p.phase_in[x]);
+    }
   }
   __syncthreads();
 
-  float4* d_re = reinterpret_cast<float4*>(d);
-  float4* d_im = reinterpret_cast<float4*>(d + N);
-  for (int i = threadIdx.x; i < W4; i += blockDim.x) {
-    d_re[i] = tile4[i];
-    d_im[i] = tile4[W4 + i];
+  const float* erow = p.entries + lab * p.entry_stride;
+  for (int r = p.row_start; r < p.row_end; ++r) {
+    const int* row = p.rows + kRow * r;
+    const int kind = row[0], ja = row[1], jb = row[2];
+    int a, b;
+    if ((kind == kPerm1 || kind == kPerm2) &&
+        swap_of(row[3], kind == kPerm1 ? 2 : 4, a, b)) {
+      apply_swap(v, smem_tile, ja, jb, kind == kPerm2, a, b);
+      __syncthreads();
+      continue;
+    }
+    apply_row<true>(v, row, p.pool, erow, smem_tile);
+  }
+
+  // every row ended in a barrier: the tile is final
+  if (p.probs != nullptr) {  // |psi|^2: a phase changes nothing
+    float* pr = p.probs + lab * N + base;
+    if (p.vec == 4) {
+      for (int x = 4 * t; x < L; x += 4 * T) {
+        const int off = offset_of(scatter, x), c = off & 3;
+        const float4 a = *reinterpret_cast<const float4*>(re + x);
+        const float4 b = *reinterpret_cast<const float4*>(im + x);
+        *reinterpret_cast<float4*>(pr + (off ^ c)) = flip4(
+            make_float4(a.x * a.x + b.x * b.x, a.y * a.y + b.y * b.y,
+                        a.z * a.z + b.z * b.z, a.w * a.w + b.w * b.w),
+            c);
+      }
+    } else {
+      for (int x = t; x < L; x += T)
+        pr[offset_of(scatter, x)] = re[x] * re[x] + im[x] * im[x];
+    }
+  } else if (p.vec == 4) {
+    // float k of the 4 at x goes to off ^ k: one aligned group
+    for (int x = 4 * t; x < L; x += 4 * T) {
+      const int off = offset_of(scatter, x), c = off & 3;
+      float4 a = *reinterpret_cast<const float4*>(re + x);
+      float4 b = *reinterpret_cast<const float4*>(im + x);
+      if (p.phase_out != nullptr) {
+        const uchar4 ph =
+            *reinterpret_cast<const uchar4*>(p.phase_out + x);
+        rotate(a.x, b.x, ph.x);
+        rotate(a.y, b.y, ph.y);
+        rotate(a.z, b.z, ph.z);
+        rotate(a.w, b.w, ph.w);
+      }
+      *reinterpret_cast<float4*>(d + (off ^ c)) = flip4(a, c);
+      *reinterpret_cast<float4*>(d + N + (off ^ c)) = flip4(b, c);
+    }
+  } else {
+    for (int x = t; x < L; x += T) {
+      const int off = offset_of(scatter, x);
+      float a = re[x], b = im[x];
+      if (p.phase_out != nullptr) rotate(a, b, p.phase_out[x]);
+      d[off] = a;
+      d[N + off] = b;
+    }
   }
 }
+
+size_t tile_smem(int w) { return (size_t)2 * sizeof(float) << w; }
 
 }  // namespace
 
 extern "C" int blocked_kernel_max_window() { return kMaxWindow; }
 
 // Returns a cudaError_t: 0 on success.  The launch is refused with
-// cudaErrorInvalidValue for a window outside [2, kMaxWindow] or n, and
-// with cudaErrorInvalidConfiguration for a grid past 2^31 - 1 blocks.
+// cudaErrorInvalidValue for a window outside [2, kMaxWindow] or n, or a
+// copy width other than 4 or 1, and with cudaErrorInvalidConfiguration
+// for a grid past 2^31 - 1 blocks.
 extern "C" int blocked_segment_launch(
-    const float* src, float* dst, long long src_stride, const int* ops,
-    const float* fixed, const float* entries, int op_start, int op_end,
-    int entry_stride, int n, int w, int labels, int threads, void* stream) {
+    const float* src, float* dst, float* probs, long long src_stride,
+    const int* rows,
+    const float* pool, const float* entries, const int* tables,
+    const unsigned char* phase_in, const unsigned char* phase_out,
+    int row_start, int row_end, int entry_stride, int n, int w,
+    int free_mask, int vec, int labels, void* stream) {
   if (w < 2 || w > kMaxWindow || w > n || n > 30 || labels < 1 ||
-      threads < 1 || threads > kMaxThreads)
+      (vec != 4 && vec != 1) || row_start > row_end)
     return (int)cudaErrorInvalidValue;
   const long long grid = (long long)labels << (n - w);
   if (grid > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = (size_t)2 * sizeof(float) << w;
-  cudaError_t err = cudaFuncSetAttribute(
-      blocked_segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  Params p{src, dst, src_stride, ops, fixed, entries, op_start, op_end,
-           entry_stride, n, w};
-  blocked_segment_kernel<<<(unsigned)grid, threads, smem,
-                           (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  Params p{src,     dst,       probs,     src_stride, rows,
+           pool,    entries,   tables,    phase_in,   phase_out,
+           row_start, row_end, entry_stride, n,       w,
+           free_mask, vec};
+  return (int)launch_clustered(blocked_segment_kernel, p, (int)grid, kThreads,
+                               tile_smem(w), 1, stream);
 }
 
 extern "C" const char* blocked_kernel_error_string(int code) {

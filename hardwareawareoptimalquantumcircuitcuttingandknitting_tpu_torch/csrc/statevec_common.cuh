@@ -1,5 +1,6 @@
 // Shared machinery of the state-vector interpreters: the collapse kernel
-// (collapse_kernel.cu) and the whole-variant kernel (variant_kernel.cu).
+// (collapse_kernel.cu), the whole-variant kernel (variant_kernel.cu) and
+// the blocked kernel (blocked_kernel.cu, on one gathered tile).
 //
 // A state is planar [2, L] f32 (re then im) in one CTA's shared memory, in
 // a per-CTA slice of global memory, or split over a cluster of two CTAs on

@@ -6,7 +6,8 @@ permutation of the 2^m entries.  Runs of bits that move together are
 compressed, so block-structured permutations (two fragments' contiguous
 clbit ranges) become rank-2/3 transposes; scattered permutations (full
 bit reversal) fall back to a 1-D gather whose index vector is built with
-shift arithmetic on the tensor's device.
+shift arithmetic on the tensor's device (once, where the caller keeps a
+``memo`` for it).
 """
 from __future__ import annotations
 
@@ -31,10 +32,12 @@ def _compress_runs(order: list[int]) -> tuple[list[tuple[int, int]], bool]:
 
 
 def permute_bits_flat(x: torch.Tensor, src_bits: list[int],
-                      dst_bits: list[int]) -> torch.Tensor:
+                      dst_bits: list[int], memo: dict | None = None
+                      ) -> torch.Tensor:
     """Reorder the last axis of ``x`` (length 2^m) from little-endian bit
     labels ``src_bits`` to ``dst_bits`` (same label set).  Leading axes are
-    untouched."""
+    untouched.  ``memo``: a dict the caller keeps, where the gather
+    fallback's index is built once per permutation and device."""
     m = len(src_bits)
     assert sorted(src_bits) == sorted(dst_bits)
     if m == 0 or src_bits == dst_bits:
@@ -62,9 +65,14 @@ def permute_bits_flat(x: torch.Tensor, src_bits: list[int],
         return y.reshape(lead + (1 << m,))
 
     # gather fallback: dst index d reads src index built by bit arithmetic
-    src_lsb = {b: j for j, b in enumerate(src_bits)}
-    d = torch.arange(1 << m, dtype=torch.int64, device=x.device)
-    s = torch.zeros_like(d)
-    for j, b in enumerate(dst_bits):
-        s = s | (((d >> j) & 1) << src_lsb[b])
+    key = (tuple(src_bits), tuple(dst_bits), x.device)
+    s = None if memo is None else memo.get(key)
+    if s is None:
+        src_lsb = {b: j for j, b in enumerate(src_bits)}
+        d = torch.arange(1 << m, dtype=torch.int64, device=x.device)
+        s = torch.zeros_like(d)
+        for j, b in enumerate(dst_bits):
+            s = s | (((d >> j) & 1) << src_lsb[b])
+        if memo is not None:
+            memo[key] = s
     return torch.index_select(x, x.dim() - 1, s)

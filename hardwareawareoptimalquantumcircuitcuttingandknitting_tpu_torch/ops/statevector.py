@@ -234,12 +234,14 @@ class Distribution:
 
 
 def marginalize_flat(
-    probs: torch.Tensor, n: int, keep_axes: list[int]
+    probs: torch.Tensor, n: int, keep_axes: list[int],
+    memo: dict | None = None,
 ) -> torch.Tensor:
     """Sum a ``[..., 2^n]`` probability tensor over qubits not in
     ``keep_axes`` via pairwise reductions, then reorder the kept bits so
     ``keep_axes[0]`` is the LSB of the flattened index.  Leading axes
-    (labels) are untouched."""
+    (labels) are untouched.  ``memo``: as ``bits.permute_bits_flat``
+    takes it, for a caller that reorders many blocks the same way."""
     lead = tuple(probs.shape[:-1])
     kept = list(range(n))
     cur = n
@@ -260,7 +262,7 @@ def marginalize_flat(
 
         probs = permute_bits_flat(
             probs.reshape(lead + (-1,)), list(reversed(kept)),
-            list(keep_axes),
+            list(keep_axes), memo,
         )
     return probs.reshape(lead + (-1,))
 

@@ -15,6 +15,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.circuit.circ
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
     blocked_kernel as bk,
+    op_rewrite,
     sv_kernel as sv,
     variant_kernel as vk,
 )
@@ -231,25 +232,31 @@ def _deep_chain(nbig: int = 14):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [8, 13, 14])
+@pytest.mark.parametrize("pinned", [3, 5])
 @pytest.mark.parametrize("labels", [1, 3, 36])
-def test_blocked_kernel_matches_plain_on_card(card, window, labels):
-    """Every segment launch counted; rows against the plain version and,
-    marginalised, against the variant kernel's rows."""
+def test_blocked_kernel_matches_plain_on_card(card, window, pinned, labels):
+    """Every segment launch counted; the prefix and the rows against the
+    plain version, a second launch equal bit for bit, and the rows,
+    marginalised, against the variant kernel's."""
     virt = _deep_chain()
     assert virt.programs["frag0"].num_sim_qubits >= 15
     blk = _block(virt, labels, 2).to(card)
     fn, pos = bk.make_blocked_chunk_kernel(virt, "frag0", labels,
                                            window=window, force=True,
-                                           device=card)
+                                           device=card, pinned=pinned)
     dp = fn.plan
-    assert dp.plan.w == window
+    assert dp.plan.w == window and dp.plan.pinned == pinned
+    assert dp.plan.n_prefix >= 1
     if window == 8:
         assert len(dp.plan.segments) >= 3
+    prefix_err = (dp.prefix - bk.plain_prefix_state(dp)).abs().max().item()
+    assert prefix_err <= TOL
     ent = dp.gather_entries(blk)
     before = bk.blocked_rows.launches
     got = bk.blocked_rows(dp, ent)
     torch.cuda.synchronize()
     assert bk.blocked_rows.launches == before + len(dp.plan.segments)
+    assert torch.equal(bk.blocked_rows(dp, ent), got)
     want = bk.plain_blocked_rows(dp, ent)
     assert (got - want).abs().max().item() <= TOL
     v_fn, v_pos = vk.make_chunk_kernel(virt, "frag0", labels, device=card)
@@ -257,19 +264,141 @@ def test_blocked_kernel_matches_plain_on_card(card, window, labels):
     assert (fn(blk) - v_fn(blk)).abs().max().item() <= TOL
 
 
+def _pauli_chain(nbig: int = 14):
+    """A 16-qubit fragment whose gates fuse into signed permutations with
+    phases (cx, y, swap, x), so segments fold moves with phases into
+    their copies, around a cut and a dense gate."""
+    cut = Circuit([Register("frag0", nbig), Register("frag1", 2)], nbig + 2)
+    cut.h(0)
+    cut.ry(0.4, 3)
+    for i in range(nbig - 1):
+        cut.cx(i, i + 1)
+        cut.y(i)
+    cut.append(Instruction("vgate", [nbig - 1, nbig],
+                           op=VirtualGateOp("cz")))
+    for i in range(nbig - 1):
+        cut.swap(i, i + 1)
+        cut.x(i + 1)
+    cut.rx(0.3, 5)
+    for i in range(nbig - 1):
+        cut.cx(i + 1, i)
+        cut.y(i + 1)
+    cut.rx(0.2, 9)
+    cut.cx(nbig, nbig + 1)
+    for q in range(nbig + 2):
+        cut.measure(q, q)
+    return VirtualCircuit(cut)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [8, 13])
+@pytest.mark.parametrize("pinned", [0, 3])
+def test_blocked_kernel_folded_moves_match_plain(card, window, pinned):
+    """Moves with phases folded into the gathers and scatters, with
+    4-float copies (3 pinned bits) and with 1-float ones (none): the
+    prefix and the rows equal the plain version's."""
+    virt = _pauli_chain()
+    fn, _ = bk.make_blocked_chunk_kernel(virt, "frag0", 3, window=window,
+                                         force=True, device=card,
+                                         pinned=pinned)
+    dp = fn.plan
+    assert dp.plan.pinned == pinned
+    assert any(a for a, _ in dp.plan.phased)
+    assert any(b for _, b in dp.plan.phased)
+    assert sum(a + b for a, b in dp.plan.folded) > 0
+    assert (dp.prefix - bk.plain_prefix_state(dp)).abs().max().item() <= TOL
+    ent = dp.gather_entries(_block(virt, 3, 5).to(card))
+    got = bk.blocked_rows(dp, ent)
+    assert torch.equal(bk.blocked_rows(dp, ent), got)
+    assert (got - bk.plain_blocked_rows(dp, ent)).abs().max().item() <= TOL
+
+
+def _low_bit_ladder(n: int = 16):
+    """An uncut circuit whose moves (cx) are controlled by the qubits on
+    storage bits 0 and 1 and target the qubits above: segments start with
+    such a move, between dense rotation layers."""
+    circ = Circuit(n, n)
+    for q in range(n):
+        circ.ry(0.3 + 0.1 * q, q)
+    for _ in range(2):
+        for t in range(n - 2):
+            circ.cx(n - 1 - t % 2, t)
+    for q in range(n):
+        circ.rx(0.5 + 0.1 * q, q)
+    for q in range(n):
+        circ.measure(q, q)
+    return circ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [8, 13])
+def test_blocked_kernel_moves_on_the_low_bits_match_plain(card, window):
+    """4-float copies (3 pinned bits) on segments that start with a cx on
+    tile bit 0 or 1 and a bit above: the card's prefix equals the plain
+    version's and the rows the uncut oracle's, a second launch bit for
+    bit."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.statevector import (  # noqa: E501
+        simulate_circuit,
+    )
+
+    circ = _low_bit_ladder()
+    virt = VirtualCircuit(circ)
+    name = virt.fragments[0].name
+    fn, pos = bk.make_blocked_chunk_kernel(virt, name, 1, window=window,
+                                           force=True, device=card,
+                                           pinned=3)
+    dp = fn.plan
+    starts = [dp.plan.table.rows[r0] for r0, r1, _, _ in
+              dp.plan.row_segments if r1 > r0]
+    assert any(r[0] == op_rewrite.OP_PERM2
+               and min(r[1], r[2]) < 2 <= max(r[1], r[2]) for r in starts)
+    assert (dp.prefix - bk.plain_prefix_state(dp)).abs().max().item() <= TOL
+    blk = torch.zeros((1, 0), dtype=torch.int64, device=card)
+    got = fn(blk)
+    assert torch.equal(fn(blk), got)
+    want = simulate_circuit(circ, device=card)
+    assert list(want.bit_positions) == pos
+    err = np.abs(got[0].cpu().numpy() - np.asarray(want.values)).max()
+    assert err <= TOL
+
+
+@pytest.mark.cuda
+def test_blocked_plan_cache_is_per_device(card):
+    """The plan cache keeps one entry a device: the CPU's plan and the
+    card's are built apart and agree."""
+    virt = _deep_chain()
+    cpu_fn, _ = bk.make_blocked_chunk_kernel(virt, "frag0", 3, window=13,
+                                             force=True, device="cpu")
+    card_fn, _ = bk.make_blocked_chunk_kernel(virt, "frag0", 3, window=13,
+                                              force=True, device=card)
+    assert cpu_fn.plan is not card_fn.plan
+    assert len(virt.__dict__[bk._CACHE]) == 2
+    again, _ = bk.make_blocked_chunk_kernel(virt, "frag0", 3, window=13,
+                                            force=True, device=card)
+    assert again.plan is card_fn.plan
+    blk = _block(virt, 3, 2)
+    assert (card_fn(blk.to(card)).cpu() - cpu_fn(blk)).abs().max().item() \
+        <= TOL
+
+
 @pytest.mark.cuda
 def test_blocked_kernel_refuses_a_wrong_state(card):
     """On a CUDA tensor the wrapper launches or raises: a state of the
-    wrong shape is refused before any launch."""
+    wrong shape, or a strided one (segments run in place on one layout,
+    so the wrapper copies nothing), is refused before any launch."""
     virt = _deep_chain()
     fn, _ = bk.make_blocked_chunk_kernel(virt, "frag0", 3, window=8,
                                          force=True, device=card)
     dp = fn.plan
     ent = dp.gather_entries(_block(virt, 3, 2).to(card))
-    bad = torch.zeros((2, 2, 1 << dp.plan.n), device=card)
+    big = 1 << dp.plan.n
+    bad = torch.zeros((2, 2, big), device=card)
+    strided = torch.zeros((3, 2, 2 * big), device=card)[:, :, ::2]
     before = bk.blocked_rows.launches
     with pytest.raises(ValueError, match="shape"):
         bk.apply_segment(dp, 0, bad, ent)
+    with pytest.raises(ValueError, match="contiguous"):
+        bk.apply_segment(dp, 1, strided, ent)
     assert bk.blocked_rows.launches == before
 
 
