@@ -5,8 +5,9 @@ PyTorch and CUDA port of the JAX package
 NVIDIA H100.  It imports ``torch`` and never ``jax``, and nothing of the
 JAX package: the host layers it needs are its own copies.
 
-Layers (the ``engine="pallas"`` exact path and the ``engine="sampled"``
-Monte-Carlo path):
+Layers (the ``engine="pallas"`` exact path, the ``engine="streamed"``
+scan without a kernel, the batched ``engine="xla"`` and the
+``engine="sampled"`` Monte-Carlo path):
   circuit/   — typed circuit IR + gate library
   models/    — supremacy, Sycamore, hardware-efficient-ansatz, QFT / AQFT
                and GHZ generators
@@ -19,8 +20,12 @@ Monte-Carlo path):
                (csrc/blocked_kernel.cu, 21..24 qubits) and the collapse
                kernel (csrc/collapse_kernel.cu, sampled labels with
                mid-circuit measure-and-collapse), each with its plain
-               PyTorch version; the streamed label scan; the QPD sampler
-               (qpd_sampling.py); the uncut oracle
+               PyTorch version; the streamed label scan (with the
+               kernels, or in plain PyTorch with ancestor banks, bf16
+               states, truncation, checkpoints and shots); the batched
+               engine; the QPD sampler (qpd_sampling.py); shot sampling
+               (sampling.py); the uncut oracle
+  utils/     — logging, fragment-result checkpoints (checkpoint.py)
   run.py, evaluate.py — the entry point and the fidelity harness
   convert.py — circuits, plans and label blocks across packages, tables
                onto devices

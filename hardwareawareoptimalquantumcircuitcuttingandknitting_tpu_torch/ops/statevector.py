@@ -104,6 +104,39 @@ def apply_slices(state: torch.Tensor, ur, ui, axes, n: int) -> torch.Tensor:
     return out.reshape(b, 2, 1 << n)
 
 
+def apply_block_einsum(state: torch.Tensor, block, axes,
+                       n: int) -> torch.Tensor:
+    """Apply a k-qubit real block to ``state [B, 2, 2^n]`` as one einsum
+    (the JAX package's route for blocks wider than 3 qubits, where a
+    slice combination would cost 4^k multiply-adds).  ``block``: a host
+    ``[2, m, 2, m]`` array shared by every label, or a per-label ``[B, 2,
+    m, 2, m]`` tensor; it is cast to the state's dtype.  Exact f32 with
+    TF32 off (PyTorch's default)."""
+    k = len(axes)
+    b = state.shape[0]
+    per_label = isinstance(block, torch.Tensor)
+    blk = (block if per_label else torch.as_tensor(block)).to(
+        device=state.device, dtype=state.dtype)
+    blk = blk.reshape(((b,) if per_label else ()) + (2,) * (2 * k + 2))
+    letters = iter("abcdefghijklmnopqrstuvw")
+    outs = [next(letters) for _ in range(k)]
+    ins = [next(letters) for _ in range(k)]
+    lead = "Z" if per_label else ""
+    blk_sub = lead + "x" + "".join(outs) + "y" + "".join(ins)
+    st_sub, out_sub = "Zy", "Zx"
+    for q in sorted(axes):
+        gap = next(letters)
+        i = list(axes).index(q)
+        st_sub += gap + ins[i]
+        out_sub += gap + outs[i]
+    gap = next(letters)
+    st_sub += gap
+    out_sub += gap
+    st = state.reshape((b, 2) + tuple(_split_shape(axes, n)))
+    out = torch.einsum(f"{blk_sub},{st_sub}->{out_sub}", blk, st)
+    return out.reshape(b, 2, 1 << n)
+
+
 def apply_matrix(state: torch.Tensor, u, axes, n: int | None = None):
     """Apply a host-constant complex (m, m) unitary to a flat real-rep
     state ``[2, 2^n]`` on the given qubit indices (``axes[0]`` = MSB of

@@ -1,27 +1,47 @@
 """Streaming cut-simulate-knit over the global QPD label space.
 
-Port of the JAX package's ``ops/streamed.py`` for the ``engine="pallas"``
-exact path: the global labels (cartesian product over all vgates, last
-vgate fastest — reference qvm/virtual_circuit.py:133-137) are processed in
-fixed-size chunks, and per chunk
+Port of the JAX package's ``ops/streamed.py``.  The global labels
+(cartesian product over all vgates, last vgate fastest — reference
+qvm/virtual_circuit.py:133-137) are processed in fixed-size chunks, and
+per chunk
 
     carry[d1, ..., dF]  +=  sum_c  prod_f  E_f[c, d_f]
 
-where each fragment's folded rows ``E_f`` come from a hand-written
-kernel, routed by the fragment's simulated width as in the JAX package:
-up to 20 qubits the fold-fused variant kernel (ops/variant_kernel.py,
-rows arrive folded), 21..24 qubits the segmented blocked kernel
-(ops/blocked_kernel.py, rows arrive unfolded and are folded here in
-torch: vgate weights, dropped bits, z signs).  The chunk loop is a Python
-loop over device work; the carry contraction is a plain ``torch.einsum``
-outside the kernels, in float32 (PyTorch's default ``allow_tf32=False``
-keeps it full precision).
+where each fragment's rows ``E_f`` are folded with the labels' knit
+weights.  The chunk loop is a Python loop over device work; the carry
+contraction is one plain ``torch.einsum`` in float32 (PyTorch's default
+``allow_tf32=False`` keeps it full precision), whatever the states'
+dtype.  Two routes make the rows:
+
+* ``pallas_variant=False`` (the default, ``engine="streamed"``): the
+  scan without a kernel.  Each fragment runs its lazy plan
+  (ops/variant_engine.make_sim_fn, fused slots, 3- or 5-qubit fused
+  blocks by the JAX byte model) in plain PyTorch on slot blocks gathered
+  on the device by each label's variant index.  ``share_prefix`` runs
+  each fragment's plan prefix once per ancestor (a combination of the
+  shared vgates' variants) into a bank and the labels run only the
+  suffix, staged in-chunk where the chunk is aligned
+  (``meta["stage_align"]``); ``hoist_banks`` / ``meta["bank_fn"]`` build
+  the banks once for many calls.  ``dtype=torch.bfloat16`` stores states
+  and banks in bf16 (rows, folds, carry and knit stay float32).
+  ``trunc_eps`` drops the labels of least certified weight.
+* ``pallas_variant=True`` (``engine="pallas"``): every fragment's rows
+  from a hand-written kernel, routed by simulated width as in the JAX
+  package: up to 20 qubits the fold-fused variant kernel
+  (ops/variant_kernel.py, rows arrive folded), 21..24 qubits the
+  segmented blocked kernel (ops/blocked_kernel.py, rows folded here in
+  torch).  A fragment no kernel serves raises, and so does a bf16
+  ``dtype`` (the JAX package would quietly run the route without a
+  kernel instead).
+
+:func:`run_virtual_circuit_streamed` adds carry checkpoints
+(``checkpoint_dir``: the scan in segments, ``stream_carry.npz`` written
+atomically after each) and ``shots`` (without a checkpoint: projection
+and inverse-CDF draws on the device, only the indices fetched).
 
 Refused here with NotImplementedError (ROADMAP H100 port, queue A):
-trajectory noise, certified truncation, shared-prefix ancestor banks,
-bf16 states, shot sampling and fragments past 24 qubits (the sharded
-engine).  The streamed scan without a kernel and carry checkpoints are
-not ported either.
+trajectory noise (``noise``, ``trajectories``) and fragments past 24
+qubits on the kernel route (the sharded engine).
 """
 from __future__ import annotations
 
@@ -35,9 +55,26 @@ from ..utils.logger import get_logger
 from ..virt.virtual_circuit import VirtualCircuit
 from .bits import permute_bits_flat
 from .blocked_kernel import MAX_BLOCKED_QUBITS, make_blocked_chunk_kernel
-from .knit import fold_weights, smolin_project
+from .knit import (
+    fold_weights,
+    nearest_probability_distribution,
+    smolin_project,
+)
 from .statevector import Distribution
-from .variant_engine import label_strides, variant_index_table
+from .variant_engine import (
+    _slot_tables,
+    _steps_hbm_bytes,
+    exec_plan_steps,
+    finish_row,
+    ideal_stage_align,
+    label_strides,
+    make_sim_fn,
+    make_prefix_fn,
+    split_plan,
+    suffix_stages,
+    truncate_labels,
+    variant_index_table,
+)
 from .variant_kernel import make_folded_chunk_kernel
 
 _ITEM = "ROADMAP H100 port, queue A, 'other engines'"
@@ -47,6 +84,33 @@ def _refuse(what: str) -> None:
     raise NotImplementedError(
         f"{what} is not ported to the torch package yet: {_ITEM}"
     )
+
+
+def _itemsize(dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def default_bank_budget(dtype=None) -> int:
+    """Per-fragment ancestor-bank budget: 512 MiB for f32 states, 1 GiB
+    for bf16 (a bf16 bank holds twice the ancestors a byte) — the JAX
+    package's budgets, so both packages choose the same splits."""
+    if dtype is not None and _itemsize(dtype) == 2:
+        return 1024 << 20
+    return 512 << 20
+
+
+def _pick_fuse_qubits(virt, name, dtype) -> int:
+    """Fusion width for one fragment, the JAX package's byte model: build
+    the plan at width 3 and 5 and keep 5 only where the counted
+    per-variant bytes drop by at least 8%."""
+    sizes = {}
+    for fq in (3, 5):
+        s, _, _, _ = make_sim_fn(
+            virt, name, build_matrices=False, fused_slots=True,
+            dtype=dtype, fuse_qubits=fq,
+        )
+        sizes[fq], _ = _steps_hbm_bytes(s.run_plan, s.prefix_width)
+    return 5 if sizes[5] <= 0.92 * sizes[3] else 3
 
 
 def _fold_plan(virt: VirtualCircuit, name: str, positions, keep_clbits,
@@ -150,57 +214,212 @@ def _fragment_rows(virt, name, chunk, keep_clbits, z_clbits, dev,
     return "blocked", folded_rows, kept, rows_fn.plan
 
 
+class _SimRows:
+    """One fragment's rows without a kernel: the flat per-label plan, or
+    an ancestor bank plus a staged suffix (the JAX package's
+    ``_rows_for_fragment``, with the batched closures of
+    :func:`~.variant_engine.make_sim_fn` in place of ``vmap``)."""
+
+    def __init__(self, sim_fn, tables, gcols, split, chunk, specs, dev,
+                 dtype):
+        self.sim_fn = sim_fn
+        self.tables = tables        # per slot: tuple of [nI, ...] blocks
+        self.gcols = gcols          # per slot: its global vgate column
+        self.split = split          # None | (SplitPlan, prefix_fn, stages,
+                                    #         r_anc)
+        self.chunk = chunk
+        self.specs = specs
+        self.dev = dev
+        self.dtype = dtype
+
+    def _mats(self, sids, reps):
+        return {sid: tuple(t[reps[:, self.gcols[sid]]]
+                           for t in self.tables[sid]) for sid in sids}
+
+    def bank(self, chunk_bytes):
+        """``[n_anc, 2, 2^m_split]`` ancestor states: one prefix run per
+        combination of the shared vgates' variants, at most
+        ``chunk_bytes`` of states at a time."""
+        sp, prefix_fn, _, _ = self.split
+        per_anc = (1 << (sp.m_split + 1)) * _itemsize(self.dtype)
+        achunk = int(max(8, min(sp.n_anc, chunk_bytes // per_anc)))
+        n_inst = {g: self.specs[g].num_instantiations for g in sp.shared}
+        avidx = to_device(variant_index_table(
+            sp.shared, sp.astrides, n_inst, sp.n_anc), self.dev,
+            torch.int64)
+        col = {g: j for j, g in enumerate(sp.shared)}
+        sids = sorted({stp[1] for stp in sp.prefix_steps
+                       if stp[0].startswith("slot")})
+        parts = []
+        for a0 in range(0, sp.n_anc, achunk):
+            av = avidx[a0:a0 + achunk]
+            mats = {sid: tuple(t[av[:, col[self.gcols[sid]]]]
+                               for t in self.tables[sid]) for sid in sids}
+            parts.append(prefix_fn(mats))
+        return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+    def rows(self, vidx_chunk, bank=None):
+        """Rows ``[chunk, 2^k]`` (float32) of one chunk of labels."""
+        sim_fn = self.sim_fn
+        if self.split is None:
+            if not self.tables:
+                return sim_fn([], self.dev).expand(self.chunk, -1)
+            return sim_fn([tuple(t[vidx_chunk[:, g]] for t in tabs)
+                           for g, tabs in zip(self.gcols, self.tables)])
+        # staged suffix: each stage runs once per group of r_out
+        # consecutive labels, its states repeated to the next stage's
+        # finer groups; every r_out == 1 is the per-label suffix
+        sp, _, stages, r_anc = self.split
+        reps0 = vidx_chunk[::r_anc]
+        anc = torch.zeros(reps0.shape[0], dtype=torch.int64,
+                          device=self.dev)
+        for g in sp.shared:
+            anc = anc + reps0[:, g] * sp.astrides[g]
+        states = bank[anc]
+        cur, m = r_anc, sp.m_split
+        for st in stages:
+            if st.r_out != cur:
+                states = states.repeat_interleave(cur // st.r_out, dim=0)
+                cur = st.r_out
+            states, m = exec_plan_steps(
+                states, st.m_in, st.steps,
+                self._mats(st.sids, vidx_chunk[::cur]),
+                slot_masks=sim_fn.slot_masks,
+            )
+        rows = finish_row(states, m, sim_fn.active_final, sim_fn.sources)
+        # rows of a group are equal: repeat them, not the states
+        return rows.repeat_interleave(cur, dim=0) if cur != 1 else rows
+
+
 def make_streamed_knit(
     virt: VirtualCircuit, chunk: int = 512, keep_clbits=None,
-    noise=None, z_clbits=None, share_prefix: bool = False, dtype=None,
-    trunc_eps: float = 0.0, device=None, blocked_window: int | None = None,
+    noise=None, trajectories: int | None = None,
+    z_clbits=None, share_prefix: bool = False,
+    bank_budget_bytes: int | None = None,
+    hoist_banks: bool = False, dtype=None, trunc_eps: float = 0.0,
+    pallas_variant: bool = False, device=None,
+    blocked_window: int | None = None,
 ):
-    """Build ``(step_fn, xs, meta)``: ``step_fn(xs)`` runs every global
-    label chunk and returns the flat knitted quasi-distribution values
-    (a float32 tensor on ``device``, None = "cuda").
+    """Build ``(step_fn, xs, meta)``: ``step_fn(xs)`` (or ``step_fn(xs,
+    banks)``) runs every global label chunk and returns the flat knitted
+    quasi-distribution values (a float32 tensor on ``device``, None =
+    "cuda").
 
     ``xs`` = ``(vidx [n_chunks, chunk, num_vgates] int64, valid
     [n_chunks, chunk] float32)``, both on the device: per-label variant
-    indices plus a validity mask for the padded tail.  Every fragment's
-    rows come from a kernel (module docstring), folded in-kernel or here
-    (``keep_clbits``: marginal knit; ``z_clbits``: every data bit
-    contracted, signed on the support).  ``meta`` carries ``carry_shape``,
-    ``segment_fn`` and ``finish_fn``: ``finish_fn(segment_fn(carry,
-    xs_seg))`` == ``step_fn(xs)`` when the segments tile all chunks;
-    ``pallas_fragments`` (fragment -> kernel-backed, always True here:
-    a fragment no kernel serves raises), ``fragment_kernels`` (fragment
-    -> ``"variant"`` | ``"blocked"``) and ``fragment_plans`` (fragment ->
-    the kernel's device plan).
+    indices plus a validity mask for the padded tail.  ``keep_clbits``:
+    marginal knit (the carry lives on the marginal); ``z_clbits``: every
+    data bit contracted, signed on the support (a scalar carry).
 
-    ``blocked_window``: test hook: send EVERY fragment through the
-    blocked kernel at this window, whatever its width."""
+    ``pallas_variant``: rows from the hand-written kernels (module
+    docstring; ``share_prefix`` and ``hoist_banks`` then have no effect,
+    as in the JAX package) or, False, from the plan in plain PyTorch,
+    fused into 3- or 5-qubit blocks per fragment by the JAX byte model
+    (:func:`_pick_fuse_qubits`).  ``share_prefix``: ancestor banks and staged suffixes
+    (per fragment where the JAX byte model says a split wins and the bank
+    fits ``bank_budget_bytes``, default :func:`default_bank_budget`);
+    ``hoist_banks``: score splits for banks built once
+    (``meta["bank_fn"]()``) and passed to every ``step_fn(xs, banks)``.
+    ``dtype``: the states' storage dtype (``torch.bfloat16``: the serving
+    mode, route without a kernel only).  ``trunc_eps``: drop the labels
+    of least certified weight while their summed bound stays <=
+    trunc_eps (``meta["kept_labels"]``, ``meta["dropped_mass"]``: the
+    result moves at most that far in L1).
+
+    ``meta`` carries ``carry_shape``, ``segment_fn`` and ``finish_fn``
+    (``finish_fn(segment_fn(carry, xs_seg[, banks]))`` == ``step_fn(xs)``
+    when the segments tile all chunks), ``bank_fn`` (None without a
+    split), ``splits`` / ``stages`` per fragment, ``stage_align`` (the
+    chunk multiple at which staging engages fully), ``fuse_qubits``,
+    ``pallas_fragments`` (fragment -> kernel-backed), ``fragment_kernels``
+    (fragment -> ``"variant"`` | ``"blocked"`` | None) and
+    ``fragment_plans`` (fragment -> the kernel's device plan, or None).
+
+    ``blocked_window``: test hook of the kernel route: send EVERY
+    fragment through the blocked kernel at this window."""
     if noise is not None:
         _refuse("noise=")
-    if trunc_eps:
-        _refuse("trunc_eps=")
-    if share_prefix:
-        _refuse("share_prefix=")
-    if dtype is not None and dtype != torch.float32:
-        _refuse("dtype= other than float32")
+    if trajectories is not None:
+        _refuse("trajectories=")
+    dtype = torch.float32 if dtype is None else dtype
+    if blocked_window is not None and not pallas_variant:
+        raise ValueError("blocked_window is a hook of the kernel route "
+                         "(pallas_variant=True)")
+    if pallas_variant and dtype != torch.float32:
+        raise ValueError(
+            "the hand-written kernels are float32; dtype= (bf16 serving) "
+            "runs on engine=\"streamed\" (pallas_variant=False)"
+        )
+    if bank_budget_bytes is None:
+        bank_budget_bytes = default_bank_budget(dtype)
     dev = resolve_device(device)
     specs = [vg.spec for vg in virt.vgates]
     num_g = len(specs)
     gstride, n_inst, total = label_strides(specs, range(num_g))
-    n_chunks = max(1, math.ceil(total / chunk))
+    kept_labels, dropped_mass = None, 0.0
+    if trunc_eps > 0.0:
+        kept_labels, dropped_mass = truncate_labels(
+            specs, gstride, n_inst, total, trunc_eps)
+    n_labels = total if kept_labels is None else len(kept_labels)
+    n_chunks = max(1, math.ceil(n_labels / chunk))
     padded = n_chunks * chunk
-    valid = (np.arange(padded) < total).astype(np.float32)
-    vidx = variant_index_table(range(num_g), gstride, n_inst, padded)
+    valid = (np.arange(padded) < n_labels).astype(np.float32)
+    vidx = variant_index_table(range(num_g), gstride, n_inst, padded,
+                               labels=kept_labels)
 
     frag_names = [r.name for r in virt.fragments]
-    rows_fns = []
-    data_positions = []
-    kernels, plans = {}, {}
+    rows_fns, data_positions = [], []
+    kernels, plans, splits, fqs = {}, {}, [], {}
+    sims: list[_SimRows | None] = []
     for name in frag_names:
-        kernels[name], rows_fn, kept, plans[name] = _fragment_rows(
-            virt, name, chunk, keep_clbits, z_clbits, dev, blocked_window
+        if pallas_variant:
+            kernels[name], rows_fn, kept, plans[name] = _fragment_rows(
+                virt, name, chunk, keep_clbits, z_clbits, dev,
+                blocked_window,
+            )
+            rows_fns.append(rows_fn)
+            data_positions.append(kept)
+            splits.append(None)
+            sims.append(None)
+            continue
+        prog = virt.programs[name]
+        fq = fqs[name] = _pick_fuse_qubits(virt, name, dtype)
+        sim_fn, _, positions, _ = make_sim_fn(
+            virt, name, build_matrices=False, fused_slots=True,
+            dtype=dtype, fuse_qubits=fq,
         )
-        rows_fns.append(rows_fn)
+        tables = [to_device(list(t), dev, dtype)
+                  for t in _slot_tables(prog, specs, fused=True)]
+        split = None
+        if share_prefix:
+            # sized against the labels that actually run
+            sp = split_plan(sim_fn, prog, specs, n_labels,
+                            bank_budget_bytes, hoisted=hoist_banks,
+                            state_bytes=_itemsize(dtype))
+            if sp is not None:
+                prefix_fn = make_prefix_fn(sim_fn, sp)
+                # a truncated label set is no mixed-radix block sequence:
+                # chunk=-1 fails every r > 1 and stages per label
+                stages, r_anc = suffix_stages(
+                    sp, prog, specs, gstride,
+                    chunk if kept_labels is None else -1)
+                split = (sp, prefix_fn, stages, r_anc)
+        splits.append(split)
+        sim = _SimRows(sim_fn, tables, [s.vgate_idx for s in prog.slots],
+                       split, chunk, specs, dev, dtype)
+        sims.append(sim)
+        steps, w_tabs, kept = _fold_plan(virt, name, positions,
+                                         keep_clbits, z_clbits)
+        w_dev = [(g, to_device(t, dev)) for g, t in w_tabs]
+
+        def sim_rows(vidx_chunk, bank=None, _sim=sim, _steps=steps,
+                     _w=w_dev):
+            return _apply_fold(_sim.rows(vidx_chunk, bank), _steps, _w,
+                               vidx_chunk)
+
+        rows_fns.append(sim_rows)
         data_positions.append(kept)
+        kernels[name], plans[name] = None, None
     shape = tuple(1 << len(p) for p in data_positions)
     # 'z' is the chunk label — fragment labels must not collide with it
     letters = "abdefghijklm"
@@ -209,11 +428,26 @@ def make_streamed_knit(
         ",".join(f"z{letters[i]}" for i in range(len(frag_names)))
         + "->" + letters[: len(frag_names)]
     )
+    any_split = any(s is not None for s in splits)
 
-    def segment_fn(carry, xs_seg):
+    def bank_fn():
+        """The ancestor banks, one per fragment (an empty tensor where a
+        fragment has no split)."""
+        return tuple(
+            sims[fi].bank(_CHUNK_BYTES_BUDGET) if splits[fi] is not None
+            else torch.zeros((0,), device=dev)
+            for fi in range(len(frag_names))
+        )
+
+    def segment_fn(carry, xs_seg, banks=None):
+        if banks is None and any_split:
+            banks = bank_fn()
         vidx_seg, valid_seg = xs_seg
         for c in range(vidx_seg.shape[0]):
-            es = [fn(vidx_seg[c]) for fn in rows_fns]
+            es = [fn(vidx_seg[c]) if sims[fi] is None
+                  else fn(vidx_seg[c], None if banks is None
+                          else banks[fi])
+                  for fi, fn in enumerate(rows_fns)]
             es[0] = es[0] * valid_seg[c][:, None]
             carry = carry + torch.einsum(expr, *es)
         return carry
@@ -227,40 +461,59 @@ def make_streamed_knit(
             carry.reshape(-1), src_bits, sorted(src_bits)
         )
 
-    def step_fn(xs):
+    def step_fn(xs, banks=None):
         carry0 = torch.zeros(shape, dtype=torch.float32, device=dev)
-        return finish_fn(segment_fn(carry0, xs))
+        return finish_fn(segment_fn(carry0, xs, banks))
 
     xs = (
         to_device(vidx.reshape(n_chunks, chunk, -1), dev, torch.int64),
         to_device(valid.reshape(n_chunks, chunk), dev),
     )
+    # the chunk multiple at which staging engages fully (lcm over the
+    # split fragments); a truncated label set never stages: 1
+    align = 1
+    if kept_labels is None:
+        for fi, s in enumerate(splits):
+            if s is not None:
+                a = ideal_stage_align(
+                    s[0], virt.programs[frag_names[fi]], specs, gstride)
+                align = align * a // math.gcd(align, a)
     meta = {
         "positions": sorted(
             p for pos_list in data_positions for p in pos_list
         ),
         "global_labels": total,
+        "kept_labels": n_labels,
+        "dropped_mass": dropped_mass,
         "n_chunks": n_chunks,
         "chunk": chunk,
         "carry_shape": shape,
         "segment_fn": segment_fn,
         "finish_fn": finish_fn,
-        "pallas_fragments": {name: True for name in frag_names},
+        "bank_fn": bank_fn if any_split else None,
+        "splits": [s[0] if s is not None else None for s in splits],
+        "stages": [s[2] if s is not None else None for s in splits],
+        "stage_align": align,
+        "fuse_qubits": fqs,
+        "pallas_fragments": {name: pallas_variant for name in frag_names},
         "fragment_kernels": kernels,
         "fragment_plans": plans,
     }
-    get_logger(__name__).info(
-        "engine='pallas': " + "; ".join(
-            f"{kind} kernel backs "
-            f"{[n for n in frag_names if kernels[n] == kind]}"
-            for kind in sorted(set(kernels.values()))
+    if pallas_variant:
+        get_logger(__name__).info(
+            "engine='pallas': " + "; ".join(
+                f"{kind} kernel backs "
+                f"{[n for n in frag_names if kernels[n] == kind]}"
+                for kind in sorted(set(kernels.values()))
+            )
         )
-    )
     return step_fn, xs, meta
 
 
 # Per-buffer budget for one chunk's [chunk, 2, 2^n] states (the JAX
-# package's bound, kept so both packages pick the same chunk).
+# package's bound, sized at f32 even for bf16 states, kept so both
+# packages pick the same chunk); the ancestor banks are built in pieces
+# of at most this many bytes.
 _CHUNK_BYTES_BUDGET = 512 * 1024 * 1024
 
 
@@ -277,47 +530,187 @@ def auto_chunk(virt: VirtualCircuit, requested: int) -> int:
     return int(max(1, min(requested, cap, total)))
 
 
+# ---------------------------------------------------------------------------
+# Segmented (checkpointable) execution
+# ---------------------------------------------------------------------------
+
+_STREAM_CKPT = "stream_carry.npz"
+
+
+def _stream_fingerprint(virt, chunk, segment_chunks, seed, dtype=None,
+                        trunc_eps: float = 0.0, keep_clbits=None) -> str:
+    """Identity of a segmented scan's carry: the circuit's results
+    fingerprint (utils/checkpoint), the chunking, the seed, truncation
+    and the marginal — the JAX package's digest for a noise-free run."""
+    import hashlib
+
+    from ..utils.checkpoint import checkpoint_fingerprint
+
+    h = hashlib.sha256()
+    h.update(checkpoint_fingerprint(virt, dtype=dtype).encode())
+    h.update(f"|chunk={chunk}|seg={segment_chunks}|seed={seed}".encode())
+    if trunc_eps:
+        # a truncated run's carry covers another label subset
+        h.update(f"|trunc_eps={trunc_eps!r}".encode())
+    if keep_clbits is not None:
+        # a marginal run's carry has the marginal's width and layout
+        h.update(f"|keep={sorted(keep_clbits)}".encode())
+    for _ in virt.fragments:
+        h.update(b"none")  # no noise model on any fragment
+    return h.hexdigest()
+
+
+def _load_stream_checkpoint(directory, fingerprint, carry_shape):
+    import pathlib
+
+    path = pathlib.Path(directory) / _STREAM_CKPT
+    if not path.exists():
+        return None, 0
+    data = np.load(path, allow_pickle=False)
+    if str(data["fingerprint"]) != fingerprint:
+        return None, 0
+    carry = data["carry"]
+    if carry.shape != tuple(carry_shape):
+        return None, 0
+    return carry, int(data["next_segment"])
+
+
+def _save_stream_checkpoint(directory, fingerprint, carry, next_segment):
+    import os
+    import pathlib
+
+    directory = pathlib.Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    tmp = directory / (_STREAM_CKPT + ".tmp")
+    np.savez(
+        tmp, carry=carry, next_segment=next_segment, fingerprint=fingerprint
+    )
+    # np.savez appends .npz to a name without it; handle both layouts
+    src = tmp if tmp.exists() else tmp.with_suffix(".tmp.npz")
+    os.replace(src, directory / _STREAM_CKPT)
+
+
+def _run_segments(virt, meta, xs, chunk, checkpoint_dir, segment_chunks,
+                  seed, dtype, trunc_eps, keep_clbits):
+    """The scan in segments of ``segment_chunks`` chunks, the carry saved
+    after each; resumes at the first unfinished segment of a matching
+    checkpoint.  The banks are built once, not once a segment.  Returns
+    the finished values on the device."""
+    n_chunks = meta["n_chunks"]
+    seg = segment_chunks or max(1, min(n_chunks, 16))
+    nseg = math.ceil(n_chunks / seg)
+    pad = nseg * seg - n_chunks
+    if pad:
+        # padded chunks carry valid=0, so their contribution is masked
+        xs = tuple(torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
+                   for a in xs)
+    fp = _stream_fingerprint(virt, chunk, seg, seed, dtype=dtype,
+                             trunc_eps=trunc_eps, keep_clbits=keep_clbits)
+    carry, start = _load_stream_checkpoint(checkpoint_dir, fp,
+                                           meta["carry_shape"])
+    dev = xs[0].device
+    if carry is None:
+        carry, start = np.zeros(meta["carry_shape"], np.float32), 0
+    carry = to_device(carry, dev)
+    banks = meta["bank_fn"]() if meta["bank_fn"] is not None else None
+    for si in range(start, nseg):
+        xs_seg = tuple(a[si * seg:(si + 1) * seg] for a in xs)
+        carry = meta["segment_fn"](carry, xs_seg, banks)
+        _save_stream_checkpoint(checkpoint_dir, fp, carry.cpu().numpy(),
+                                si + 1)
+    return meta["finish_fn"](carry)
+
+
 def run_virtual_circuit_streamed(
     virt: VirtualCircuit,
     chunk: int = 512,
     project: bool = False,
     noise=None,
+    trajectories: int | None = None,
     shots: int | None = None,
-    share_prefix: bool = False,
+    seed: int = 0,
+    checkpoint_dir=None,
+    segment_chunks: int | None = None,
+    share_prefix: bool | None = None,
     dtype=None,
     trunc_eps: float = 0.0,
     keep_clbits=None,
+    pallas_variant: bool = False,
     device=None,
 ) -> Distribution:
     """End-to-end streamed execution on ``device`` (None = "cuda").
-    ``chunk`` is capped by :func:`auto_chunk`.  ``keep_clbits``: marginal
-    knit (the carry lives on the marginal).  ``project``: Smolin
-    projection onto the simplex, on the device before the fetch."""
-    if shots is not None:
-        _refuse("shots=")
+    ``chunk`` is capped by :func:`auto_chunk` (never rounded to
+    ``meta["stage_align"]``: staging engages where the caller's chunk is
+    aligned).  ``share_prefix``: None = on.  ``keep_clbits``: marginal
+    knit.  ``project``: Smolin projection onto the simplex, on the
+    device before the fetch.
+
+    ``checkpoint_dir``: run the scan in segments of ``segment_chunks``
+    chunks (default min(n_chunks, 16)), saving the carry after each; a
+    rerun with the same arguments resumes at the first unfinished
+    segment (a stale or mismatching checkpoint is ignored by its
+    fingerprint).
+
+    ``shots``: multinomial counts / shots of the projected knit.  Without
+    ``checkpoint_dir`` the projection (``knit.smolin_project``) and an
+    inverse-CDF draw from a ``torch.Generator`` seeded with ``seed`` run
+    on the device, and only the ``[shots]`` outcome indices and the mass
+    are fetched; with it, numpy's :func:`~.sampling.sample_distribution`
+    on the fetched values.  A non-positive mass raises ValueError."""
     chunk = auto_chunk(virt, chunk)
     step_fn, xs, meta = make_streamed_knit(
         virt, chunk, keep_clbits=keep_clbits, noise=noise,
-        share_prefix=share_prefix, dtype=dtype, trunc_eps=trunc_eps,
+        trajectories=trajectories,
+        share_prefix=True if share_prefix is None else share_prefix,
+        dtype=dtype, trunc_eps=trunc_eps, pallas_variant=pallas_variant,
         device=device,
     )
-    values = step_fn(xs)
+    positions = meta["positions"]
+    if checkpoint_dir is None and shots is not None:
+        from .sampling import sample_indices_device
+
+        proj = smolin_project(step_fn(xs))
+        gen = torch.Generator(device=proj.device).manual_seed(seed)
+        idx = sample_indices_device(proj, shots, gen)
+        if float(proj.sum()) <= 0.0:
+            raise ValueError(
+                "cannot sample from an all-nonpositive distribution"
+            )
+        counts = np.bincount(idx.cpu().numpy(),
+                             minlength=1 << len(positions)) / float(shots)
+        return Distribution(counts.astype(np.float32), positions,
+                            virt.num_clbits)
+    if checkpoint_dir is None:
+        values = step_fn(xs)
+    else:
+        values = _run_segments(virt, meta, xs, chunk, checkpoint_dir,
+                               segment_chunks, seed, dtype, trunc_eps,
+                               keep_clbits)
+    if shots is not None:
+        from .sampling import sample_distribution
+
+        dist = nearest_probability_distribution(Distribution(
+            values.cpu().numpy(), positions, virt.num_clbits))
+        return sample_distribution(dist, shots, seed)
     if project:
         values = smolin_project(values).to(torch.float32)
-    return Distribution(values.cpu().numpy(), meta["positions"],
-                        virt.num_clbits)
+    return Distribution(values.cpu().numpy(), positions, virt.num_clbits)
 
 
 def streamed_expectation_z(
     virt: VirtualCircuit, z_clbits, chunk: int = 512, noise=None,
-    trajectories: int | None = None, share_prefix: bool = False,
-    dtype=None, device=None,
+    trajectories: int | None = None, seed: int = 0,
+    share_prefix: bool = True, dtype=None, pallas_variant: bool = False,
+    device=None,
 ) -> float:
     """<prod_{c in z_clbits} Z_c> of the reconstructed distribution,
     computed with a SCALAR carry: every data bit is contracted per
     fragment and label (signed on the Z support), so no distribution of
-    any size materialises for any circuit width; one scalar fetch.  Exact,
-    noise-free, float32 on ``device`` (None = "cuda")."""
+    any size materialises for any circuit width; one scalar fetch.
+    Exact and noise-free, on ``device`` (None = "cuda"); the rows come
+    from the kernels with ``pallas_variant=True``.  ``seed`` is the JAX
+    package's trajectory seed: it takes effect with ``noise``, which is
+    not ported yet."""
     # every Z support bit must be WRITTEN by a measure — an unmeasured
     # clbit would silently contract as (+1,+1) and report 1.0
     written = {
@@ -330,10 +723,10 @@ def streamed_expectation_z(
             f"z_clbits {sorted(missing)} are never measured "
             f"(written data clbits: {sorted(written)})"
         )
-    if trajectories is not None:
-        _refuse("trajectories=")
     step_fn, xs, _ = make_streamed_knit(
         virt, auto_chunk(virt, chunk), z_clbits=frozenset(z_clbits),
-        noise=noise, share_prefix=share_prefix, dtype=dtype, device=device,
+        noise=noise, trajectories=trajectories,
+        share_prefix=share_prefix, dtype=dtype,
+        pallas_variant=pallas_variant, device=device,
     )
     return float(step_fn(xs).reshape(()))

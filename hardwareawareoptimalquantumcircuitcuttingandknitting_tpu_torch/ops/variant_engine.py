@@ -10,13 +10,20 @@ coefficients, and large fan-outs run in chunks capped by bytes.  The
 per-variant program is the JAX package's lazy plan: qubits are introduced
 at the start of the slot-delimited segment of their first op, the
 variant-independent prefix runs once on the host, fixed-gate runs are
-fused (ops/fusion.py).  Exact, noise-free, float32 only: ``noise``, a
-``dtype`` other than float32 and ``collapse=True`` raise
-``NotImplementedError`` naming their ROADMAP item.
+fused (ops/fusion.py).  Exact and noise-free, in float32 or (``dtype=
+torch.bfloat16``, the serving mode) bf16 states with float32 rows:
+``noise`` and ``collapse=True`` raise ``NotImplementedError`` naming
+their ROADMAP item.
+
+The shared-prefix planners of the streamed scan (:func:`split_plan`,
+:func:`suffix_stages`, :func:`ideal_stage_align`, :func:`make_prefix_fn`)
+and the certified truncation (:func:`truncate_labels`) are host logic
+over that plan, as in the JAX package.
 
 The host helpers (``_slot_tables``, ``label_strides``,
-``variant_index_table``, ``label_weight_bounds``, ``_fuse_slot_ops``,
-:func:`collapse_stream`) are numpy, as in the JAX package.
+``variant_index_table``, ``label_weight_bounds``, ``truncate_labels``,
+``_fuse_slot_ops``, :func:`collapse_stream`) are numpy, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from ..convert import resolve_device, to_device
 from ..virt.tables import VGateSpec
 from ..virt.virtual_circuit import FragmentProgram, VirtualCircuit
 from .statevector import (
+    apply_block_einsum,
     apply_matrix_host,
     apply_slices,
     marginalize_flat,
@@ -200,6 +208,22 @@ def label_weight_bounds(specs, gstride: dict, n_inst: dict,
     return w
 
 
+def truncate_labels(specs, gstride: dict, n_inst: dict, total: int,
+                    eps: float) -> tuple[np.ndarray, float]:
+    """(kept label ids ascending, certified dropped L1 mass): drop the
+    smallest-bound labels while their cumulative bound stays <= eps.
+    At least one label is always kept (the JAX package's certified
+    truncation, arXiv:2212.01270 role)."""
+    w = label_weight_bounds(specs, gstride, n_inst, total)
+    order = np.argsort(w, kind="stable")
+    csum = np.cumsum(w[order])
+    n_drop = int(np.searchsorted(csum, eps, side="right"))
+    n_drop = min(n_drop, total - 1)
+    kept = np.sort(order[n_drop:])
+    dropped = float(csum[n_drop - 1]) if n_drop else 0.0
+    return kept, dropped
+
+
 def collapse_stream(virt, frag_name: str):
     """Host side of collapse mode for one fragment: ``(prefix_ops,
     suffix_steps, active, positions, sources)``.
@@ -293,6 +317,13 @@ def splice_zero_bits(rows: torch.Tensor, present) -> torch.Tensor:
     return rows
 
 
+def _round_block(blk: np.ndarray, dtype) -> np.ndarray:
+    """A host block rounded to the state's ``dtype`` (kept as float32
+    numbers): a bf16 state meets bf16 gate constants, the JAX package's
+    rule that constants follow the state's dtype."""
+    return torch.as_tensor(blk).to(dtype).to(torch.float32).numpy()
+
+
 def _block_coefs(blk, mask=None):
     """``(ur, ui)`` entry functions for :func:`apply_slices` from a real
     block: a host ``[2, m, 2, m]`` array (Python floats, zeros skipped) or
@@ -313,13 +344,32 @@ def _block_coefs(blk, mask=None):
     return entry(0), entry(1)
 
 
+def _apply_block(state, blk, axes, m, mask=None):
+    """One plan step's block on ``state [V, 2, 2^m]``: a slice
+    combination up to 3 qubits, one einsum above (the JAX package's
+    ``apply_matrix`` routes: fused blocks of 4-5 qubits would cost 4^k
+    slice multiply-adds).  A bf16 state is combined in float32 with its
+    bf16 constants and stored back once: one rounding a pass, as a fused
+    pass would round, not one per multiply-add."""
+    dtype = state.dtype
+    if dtype != torch.float32:
+        return _apply_block(state.to(torch.float32), blk if isinstance(
+            blk, torch.Tensor) else _round_block(blk, dtype), axes, m,
+            mask).to(dtype)
+    if len(axes) > 3:
+        return apply_block_einsum(state, blk, axes, m)
+    ur, ui = _block_coefs(blk, mask)
+    return apply_slices(state, ur, ui, axes, m)
+
+
 def exec_plan_steps(state, m, steps, slot_mats, slot_masks=None):
     """Run a slice of a fragment's lazy execution plan (the step list
     built by :func:`make_sim_fn`) on flat real-rep states ``[V, 2, 2^m]``,
-    one per variant.  ``slot_mats`` maps slot id -> (pre, m4, post) real
-    blocks ``[V, 2, k, 2, k]`` (a 1-tuple of composed blocks for a fused
-    ``"slot"`` step).  ``slot_masks`` (slot id -> union nonzero pattern of
-    the slot's fused table) lets a fused slot block skip its structurally
+    one per variant, in the states' dtype.  ``slot_mats`` maps slot id ->
+    (pre, m4, post) real blocks ``[V, 2, k, 2, k]`` (a 1-tuple of
+    composed blocks for a fused ``"slot"`` step; a list or a dict keyed
+    by slot id).  ``slot_masks`` (slot id -> union nonzero pattern of the
+    slot's fused table) lets a fused slot block skip its structurally
     zero entries.  Returns ``(state, m)``."""
     v = state.shape[0]
     for stp in steps:
@@ -332,25 +382,22 @@ def exec_plan_steps(state, m, steps, slot_mats, slot_masks=None):
             )
             m += 1
             continue
+        mask = None
         if kind == "u":
-            ur, ui = _block_coefs(stp[1])
+            blk = stp[1]
         elif kind == "slot":
-            ur, ui = _block_coefs(
-                slot_mats[stp[1]][0],
-                None if slot_masks is None else slot_masks.get(stp[1]),
-            )
+            blk = slot_mats[stp[1]][0]
+            mask = None if slot_masks is None else slot_masks.get(stp[1])
         elif kind in ("slot_pre", "slot_meas", "slot_post"):
             pre, m4, post = slot_mats[stp[1]]
-            ur, ui = _block_coefs(
-                pre if kind == "slot_pre"
-                else m4 if kind == "slot_meas" else post
-            )
+            blk = (pre if kind == "slot_pre"
+                   else m4 if kind == "slot_meas" else post)
         else:
             raise NotImplementedError(
                 f"plan step {kind!r} is not ported to the torch package "
                 f"yet: {_ITEM}"
             )
-        state = apply_slices(state, ur, ui, stp[2], m)
+        state = _apply_block(state, blk, stp[2], m, mask)
     return state, m
 
 
@@ -358,13 +405,271 @@ def finish_row(state, m, active_final, sources):
     """``|psi|^2`` + marginalisation onto the written clbits, for states
     ``[V, 2, 2^m]``.  Marginalises over the ACTIVE qubits; a source qubit
     that never saw an op is deterministically |0>: its bit is spliced in
-    as a zero-bit after the reduction."""
-    p = (state * state).sum(dim=1)
+    as a zero-bit after the reduction.  Squares in float32 whatever the
+    state's dtype (a bf16 serving state's rows are f32)."""
+    s32 = state.to(torch.float32)
+    p = (s32 * s32).sum(dim=1)
     act_sources = [q for q in sources if q in active_final]
     rows = marginalize_flat(
         p, m, [active_final.index(q) for q in act_sources]
     )
     return splice_zero_bits(rows, [q in active_final for q in sources])
+
+
+# ---------------------------------------------------------------------------
+# Shared-prefix splits and staged suffixes (the streamed scan's planners)
+# ---------------------------------------------------------------------------
+
+def _steps_hbm_bytes(steps, m: int) -> tuple[int, int]:
+    """Minimal device-memory bytes to execute ``steps`` from width ``m``
+    (the JAX package's counting rules: an "ins" reads 2^m and writes
+    2^(m+1) complex64, a gate reads and writes the state once).  Returns
+    (bytes, m)."""
+    b = 0
+    for stp in steps:
+        if stp[0] == "ins":
+            b += (1 << m) * 8 + (1 << (m + 1)) * 8
+            m += 1
+        elif stp[0] == "pauli":
+            continue
+        else:
+            b += 2 * (1 << m) * 8
+    return b, m
+
+
+@dataclass
+class SplitPlan:
+    """A shared-prefix split of one fragment's per-variant plan.
+
+    Labels whose variant indices agree on the ``shared`` vgates run the
+    plan's prefix identically, so the prefix runs once per *ancestor*
+    (one combination of the shared vgates' variants, ``n_anc`` in all)
+    into a bank of ``[n_anc, 2, 2^m_split]`` states, and the per-label
+    scan gathers its ancestor state and runs only the suffix.
+    """
+
+    shared: list            # vgate indices (fragment slot-stream order)
+    astrides: dict          # vgate -> ancestor-index stride (last fastest)
+    n_anc: int
+    split_idx: int          # plan step index where the suffix starts
+    m_split: int            # state width at the split
+    prefix_steps: list
+    suffix_steps: list
+    bank_bytes: int         # n_anc * 2^(m_split+1) * state_bytes
+    est_bytes: int          # modelled bytes with this split
+    est_flat_bytes: int     # modelled bytes without sharing
+    build_bytes: int = 0    # one-time bank-build bytes (prefix + write)
+
+
+def split_plan(sim_fn, prog, specs, global_labels: int,
+               bank_budget_bytes: int = 512 << 20,
+               hoisted: bool = False,
+               state_bytes: int = 4) -> SplitPlan | None:
+    """The best shared-prefix split of one fragment (least modelled
+    bytes, subject to the ancestor bank fitting ``bank_budget_bytes``),
+    or None when no split beats the flat plan (no slot, or a first slot
+    at step 0).  The JAX package's planner, decision for decision.
+
+    ``hoisted=True`` scores candidates for the serving shape (banks built
+    once through ``meta["bank_fn"]`` and passed to every ``step_fn(xs,
+    banks)``): the one-time build bytes are left out, so deeper splits
+    win.  ``state_bytes``: 4 for f32 states, 2 for bf16 (a bf16 bank
+    holds twice the ancestors a byte)."""
+    plan = sim_fn.run_plan
+    slot_vg = [s.vgate_idx for s in prog.slots]
+    if any(stp[0] == "pauli" for stp in plan):
+        return None  # trajectory noise: states diverge per label
+    # candidate splits: before each newly-seen vgate's first slot step
+    # (stepping back over the segment's preceding "ins" widenings), plus
+    # the all-shared split at the end of the plan
+    cands: list[tuple[int, int, list]] = []  # (split_idx, m_split, shared)
+    seen: list[int] = []
+    m = sim_fn.prefix_width
+    for i, stp in enumerate(plan):
+        if stp[0].startswith("slot"):
+            g = slot_vg[stp[1]]
+            if g not in seen:
+                j, mm = i, m
+                while j > 0 and plan[j - 1][0] == "ins":
+                    j -= 1
+                    mm -= 1
+                cands.append((j, mm, list(seen)))
+                seen.append(g)
+        if stp[0] == "ins":
+            m += 1
+    cands.append((len(plan), m, list(seen)))
+
+    finish_bytes = (1 << m) * 8 + (1 << max(0, m - 1)) * 4 + 2 * (1 << m) * 4
+    best = None
+    flat_est = None
+    for split_idx, m_split, shared in cands:
+        n_anc = 1
+        for g in shared:
+            n_anc *= specs[g].num_instantiations
+        bank_bytes = n_anc * (1 << (m_split + 1)) * state_bytes
+        pre_b, _ = _steps_hbm_bytes(plan[:split_idx], sim_fn.prefix_width)
+        suf_b, _ = _steps_hbm_bytes(plan[split_idx:], m_split)
+        build = pre_b * n_anc + bank_bytes             # build + write bank
+        step = (
+            (suf_b + finish_bytes) * global_labels     # per-label suffix
+            + (0 if not shared else
+               global_labels * (1 << (m_split + 1)) * 4)  # ancestor gather
+        )
+        est = step if hoisted else build + step
+        if not shared:
+            flat_est = est
+        if shared and bank_bytes > bank_budget_bytes:
+            continue
+        if best is None or est < best[0]:
+            best = (
+                est, split_idx, m_split, shared, n_anc, bank_bytes, build,
+            )
+    if best is None or not best[3]:
+        return None
+    est, split_idx, m_split, shared, n_anc, bank_bytes, build = best
+    if flat_est is not None and est >= flat_est:
+        return None
+    astrides: dict[int, int] = {}
+    stride = 1
+    for g in reversed(shared):
+        astrides[g] = stride
+        stride *= specs[g].num_instantiations
+    return SplitPlan(
+        shared=shared,
+        astrides=astrides,
+        n_anc=n_anc,
+        split_idx=split_idx,
+        m_split=m_split,
+        prefix_steps=plan[:split_idx],
+        suffix_steps=plan[split_idx:],
+        bank_bytes=int(bank_bytes),
+        est_bytes=int(est),
+        est_flat_bytes=int(flat_est) if flat_est is not None else int(est),
+        build_bytes=int(build),
+    )
+
+
+@dataclass
+class SuffixStage:
+    """One group-deduplicated segment of a SplitPlan's suffix: ``steps``
+    run once per group of ``r_out`` consecutive labels (the states
+    entering the next stage are repeated from group representatives);
+    ``sids`` are the slot ids whose blocks this stage gathers, at the
+    representative rows ``vidx[::r_out]``."""
+
+    steps: list
+    m_in: int
+    r_out: int
+    sids: list
+
+
+def suffix_stages(sp: SplitPlan, prog, specs, gstride: dict,
+                  chunk: int) -> tuple[list, int]:
+    """Partition ``sp.suffix_steps`` into in-chunk deduplicated stages
+    (the JAX package's rule).  The global label order is mixed-radix
+    (last vgate fastest), so within an aligned block of R labels vgate
+    column g is constant iff ``R | gstride[g]``.  Each suffix vgate opens
+    a stage, run once per group of ``r_out`` labels (the largest
+    trailing-product group that divides ``chunk`` and every dependency's
+    stride) and repeated to the next stage's finer groups.  An unaligned
+    ``chunk`` (or -1, a truncated label set) drives every ``r_out`` to 1:
+    the per-label suffix.
+
+    Returns ``(stages, r_anc)``: ``r_anc`` is the ancestor-gather group
+    size (bank rows are fetched once per r_anc labels)."""
+    slot_vg = [s.vgate_idx for s in prog.slots]
+    bounds: list[tuple[int, int, int]] = []  # (step_idx, m_in, vgate)
+    seen = list(sp.shared)
+    m = sp.m_split
+    for i, stp in enumerate(sp.suffix_steps):
+        if stp[0].startswith("slot") and slot_vg[stp[1]] not in seen:
+            j, mm = i, m
+            while j > 0 and sp.suffix_steps[j - 1][0] == "ins":
+                j -= 1
+                mm -= 1
+            bounds.append((j, mm, slot_vg[stp[1]]))
+            seen.append(slot_vg[stp[1]])
+        if stp[0] == "ins":
+            m += 1
+    if not bounds or bounds[0][0] != 0:
+        # no suffix slot introduces a new vgate (all-shared split, or a
+        # shared vgate's second endpoint in the suffix): one per-label
+        # stage gathering whatever slots the suffix carries
+        sids = sorted({
+            stp[1] for stp in sp.suffix_steps if stp[0].startswith("slot")
+        })
+        return (
+            [SuffixStage(list(sp.suffix_steps), sp.m_split, 1, sids)], 1,
+        )
+
+    suffix_vgs = [g for (_, _, g) in bounds]
+    # natural group-size ladder: r_t = prod insts of vgates introduced
+    # after stage t (trailing block of the mixed radix)
+    ladder = [1]
+    for g in reversed(suffix_vgs[1:]):
+        ladder.append(ladder[-1] * specs[g].num_instantiations)
+    ladder.reverse()
+    r_first = ladder[0] * specs[suffix_vgs[0]].num_instantiations
+
+    def _valid(r: int, deps) -> bool:
+        return (
+            r >= 1 and chunk % r == 0
+            and all(gstride[g] % r == 0 for g in deps)
+        )
+
+    stages: list[SuffixStage] = []
+    deps = list(sp.shared)
+    # fine-to-coarse, so every stage's groups refine the previous one's
+    r_eff = [1] * len(bounds)
+    for t in range(len(bounds) - 1, -1, -1):
+        d = deps + suffix_vgs[: t + 1]
+        nat = ladder[t]
+        r_eff[t] = nat if _valid(nat, d) else (
+            r_eff[t + 1] if t + 1 < len(bounds) else 1
+        )
+    for t, (j, mm, _g) in enumerate(bounds):
+        j_next = bounds[t + 1][0] if t + 1 < len(bounds) else len(
+            sp.suffix_steps
+        )
+        seg = list(sp.suffix_steps[j:j_next])
+        sids = sorted({
+            stp[1] for stp in seg if stp[0].startswith("slot")
+        })
+        stages.append(SuffixStage(seg, mm, r_eff[t], sids))
+    r_anc = r_first if _valid(r_first, sp.shared) else r_eff[0]
+    return stages, r_anc
+
+
+def ideal_stage_align(sp: SplitPlan, prog, specs, gstride: dict) -> int:
+    """The chunk multiple at which :func:`suffix_stages` engages fully
+    for this fragment (the stride-valid coarsest group size, ignoring
+    chunk divisibility): ``meta["stage_align"]`` of the streamed scan.
+    Chunks are not rounded to it; a caller passes an aligned chunk."""
+    # chunk=0 sentinel: 0 % r == 0 for every r, so only strides bind
+    stages, r_anc = suffix_stages(sp, prog, specs, gstride, 0)
+    return max([r_anc] + [st.r_out for st in stages])
+
+
+def make_prefix_fn(sim_fn, sp: SplitPlan):
+    """``prefix_fn(slot_mats)`` for a :class:`SplitPlan` and a closure
+    from :func:`make_sim_fn`: the ancestor states ``[V, 2, 2^m_split]``
+    in the closure's dtype (the JAX package's ``make_split_fns`` prefix;
+    the scan runs the suffix as staged steps).  ``slot_mats``: slot id ->
+    tuple of ``[V, ...]`` blocks on one device (a dict)."""
+    m0 = sim_fn.prefix_width
+    dtype = sim_fn.dtype
+
+    def prefix_fn(slot_mats):
+        first = next(iter(slot_mats.values()))[0]
+        v, dev = first.shape[0], first.device
+        state = to_device(sim_fn.prefix_state, dev, dtype).expand(
+            v, 2, 1 << m0)
+        state, m = exec_plan_steps(state, m0, sp.prefix_steps, slot_mats,
+                                   slot_masks=sim_fn.slot_masks)
+        assert m == sp.m_split
+        return state
+
+    return prefix_fn
 
 
 def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
@@ -382,29 +687,34 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
     the slot matrices of ``V`` variants (per slot a tuple of ``[V, ...]``
     tensors on one device) to their probability rows ``[V, 2^k]``; with an
     empty list it returns the single row ``[1, 2^k]`` of a fragment
-    without slots, on its second argument ``device`` (default the CPU;
+    without slots, on its second argument ``device`` (None = "cuda";
     slot matrices bring their own device).  ``slot_mats`` is the
     list of per-slot stacked numpy blocks over all ``flat_count`` variants
     — or ``None`` with ``build_matrices=False``.
 
     ``sim_fn.run_plan`` (the per-variant steps after the shared host
     prefix), ``prefix_width``, ``prefix_state``, ``active_final``,
-    ``sources`` and ``slot_masks`` are the JAX closure's attributes.
+    ``sources``, ``slot_masks`` and ``dtype`` are the JAX closure's
+    attributes.
 
-    ``noise`` (trajectory noise), ``dtype`` other than float32 (the bf16
-    serving mode) and ``collapse=True`` (sampled measurement: the sampled
-    engine's collapse kernel serves it, ops/collapse_kernel.py) are not
-    ported to this function and raise ``NotImplementedError``."""
+    ``dtype``: the states' storage dtype (default float32).
+    ``torch.bfloat16`` is the serving mode: the prefix state, every pass
+    and the slot blocks are bf16, host gate constants are rounded to it,
+    and :func:`finish_row` squares in float32, so rows are float32.
+
+    ``noise`` (trajectory noise) and ``collapse=True`` (sampled
+    measurement: the sampled engine's collapse kernel serves it,
+    ops/collapse_kernel.py) are not ported to this function and raise
+    ``NotImplementedError``."""
     for what, on in (("noise=", noise is not None),
-                     ("dtype= other than float32",
-                      dtype is not None and dtype != torch.float32),
                      ("collapse=True", collapse)):
         if on:
             raise NotImplementedError(
                 f"make_sim_fn({what}) is not ported to the torch package "
-                f"yet: {_ITEM} (the batched engine is exact, noise-free, "
-                "float32)"
+                f"yet: {_ITEM} (the batched engine is exact and "
+                "noise-free)"
             )
+    dtype = torch.float32 if dtype is None else dtype
     from .fusion import fused_stream
 
     prog = virt.programs[frag_name]
@@ -505,11 +815,13 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
             v, dev = first.shape[0], first.device
         else:
             v, dev = 1, resolve_device(device)
-        state = to_device(prefix_state, dev).expand(v, 2, 1 << m0)
+        state = to_device(prefix_state, dev, dtype).expand(v, 2, 1 << m0)
+        slot_mats = [tuple(t.to(dtype) for t in tabs) for tabs in slot_mats]
         state, m = exec_plan_steps(state, m0, run_plan, slot_mats,
                                    slot_masks=slot_masks)
         return finish_row(state, m, active_final, sources)
 
+    sim_fn.dtype = dtype
     sim_fn.slot_masks = slot_masks
     sim_fn.run_plan = run_plan
     sim_fn.prefix_width = m0

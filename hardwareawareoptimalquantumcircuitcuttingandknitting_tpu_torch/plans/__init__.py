@@ -17,6 +17,12 @@ JSON file beside this module, and adopted with ``Cutter.use_plan``:
   maxNQubitsPerPartition=15, gammaMode=True)``: 15 ``cp`` gate cuts with
   gamma_total 8.57, the sampled engine's flagship plan.  The ``rz`` angles
   do not enter the plan.
+* ``sup25_p2_q13`` — ``genCirc("sup", 25, 1, seed=0)`` cut into 2
+  partitions of at most 13 qubits (the same three limits at 5): four cz
+  gate cuts and one wire cut, 10368 labels, fragments of 18 and 17
+  simulated qubits — the streamed engine's configuration (the port's
+  solver takes some 12 s on it).  The supremacy circuit's single-qubit
+  gates do not enter the plan.
 """
 from __future__ import annotations
 

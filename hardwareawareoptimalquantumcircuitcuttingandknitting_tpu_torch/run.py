@@ -4,19 +4,29 @@ Port of the JAX package's ``run.run_virtual_circuit``.
 
 ``engine="xla"``: the batched engine.  Every fragment's variants run at
 once in plain PyTorch (ops/variant_engine.run_all_fragments), then one
-einsum knits them (ops/knit.knit_values).  ``engine="auto"`` takes that
-route up to ``AUTO_STREAM_LABELS`` global labels and the streamed scan
-above.  In this package that scan is the kernel-backed one of
-``engine="pallas"``; it becomes ``engine="streamed"`` once the scan without
-a kernel is ported.
+einsum knits them (ops/knit.knit_values).  ``shots`` samples the variant
+rows (ops/sampling.sample_fragment_results); ``checkpoint_dir`` saves the
+fragment results and resumes from them (utils/checkpoint.py).
 
-``engine="pallas"``: the streamed label scan with every fragment's rows
-from a hand-written kernel, exact (``shots=None``).  Fragments of up to 20
-simulated qubits run the fold-fused variant kernel
+``engine="streamed"``: the streamed label scan without a kernel
+(ops/streamed.py, ``pallas_variant=False``): constant memory in the
+label count, ancestor banks and staged suffixes (``share_prefix``), bf16
+states (``dtype=torch.bfloat16``), certified truncation (``trunc_eps``),
+carry checkpoints (``checkpoint_dir``) and ``shots`` drawn from the
+knitted distribution.  ``engine="auto"`` takes it for ``trunc_eps``, a
+``dtype`` other than float32, or above ``AUTO_STREAM_LABELS`` global
+labels, and the batched engine otherwise, as the JAX package does.
+
+``engine="pallas"`` (this package's default): the same scan with every
+fragment's rows from a hand-written kernel, float32.  Fragments of up to
+20 simulated qubits run the fold-fused variant kernel
 (ops/variant_kernel.py), 21..24 qubits the segmented blocked kernel
 (ops/blocked_kernel.py); past 24 the call raises naming the sharded
-engine's ROADMAP item.  At widths where the full distribution cannot
-exist (2^40 outcomes), ask for a marginal (``keep_clbits``) or use
+engine's ROADMAP item.  ``trunc_eps`` raises the JAX package's
+ValueError, and a bf16 ``dtype`` a ValueError naming
+``engine="streamed"`` (the JAX package would run the route without a
+kernel instead).  At widths where the full distribution cannot exist
+(2^40 outcomes), ask for a marginal (``keep_clbits``) or use
 ``ops.streamed.streamed_expectation_z``.
 
 ``engine="sampled"``: Monte-Carlo QPD sampling (ops/qpd_sampling.py) for
@@ -47,7 +57,6 @@ AUTO_STREAM_LABELS = 16384
 
 # engines of the JAX package and the ROADMAP item that ports each
 _NOT_PORTED = {
-    "streamed": "queue A, 'other engines' (streamed without the kernel)",
     "sharded": "queue A, 'other engines' (sharded fragments)",
 }
 _ITEM = "ROADMAP H100 port, queue A, 'other engines'"
@@ -55,9 +64,7 @@ _ITEM = "ROADMAP H100 port, queue A, 'other engines'"
 # ROADMAP item that ports them).  Their defaults give the JAX result.
 _NOT_PORTED_KW = {
     "tracer": (None, "ROADMAP H100 port, queue A, item 10 (tracing)"),
-    "checkpoint_dir": (None, f"{_ITEM} (fragment-result checkpoint)"),
     "max_local_qubits": (None, f"{_ITEM} (sharded fragments)"),
-    "trunc_eps": (0.0, f"{_ITEM} (streamed without the kernel)"),
     "teleport": ("qpd", "ROADMAP H100 port, queue A, item 4 (Teleport "
                         "execution)"),
 }
@@ -120,6 +127,12 @@ def _run_sampled(virt, shots, seed, project, head_labels, sample_method,
     return dist, RunTimeInfo(time.perf_counter() - now, 0.0)
 
 
+def _is_f32(dtype) -> bool:
+    import torch
+
+    return dtype is None or dtype == torch.float32
+
+
 def run_virtual_circuit(
     virt: VirtualCircuit,
     shots: int | None = None,
@@ -150,20 +163,31 @@ def run_virtual_circuit(
     ``engine="xla"``: the batched engine in plain PyTorch: every
     fragment's variants at once, ``chunk_size`` variants per step (capped
     by bytes), then the einsum knit; ``RunTimeInfo`` carries both phases.
-    ``engine="auto"``: that route up to ``AUTO_STREAM_LABELS`` global
-    labels, above it the streamed scan, which in this package is the
-    kernel-backed one of ``engine="pallas"``.
+    ``shots`` samples every variant row (``seed``); ``checkpoint_dir``
+    saves the fragment results after the simulation and, where a
+    checkpoint of the same circuit is there, loads them instead.
+    ``engine="auto"``: the streamed scan for ``trunc_eps``, a ``dtype``
+    other than float32 or more than ``AUTO_STREAM_LABELS`` global labels,
+    the batched engine otherwise (the JAX package's routing).
 
-    ``engine="pallas"`` (the default): the streamed scan over ALL global
-    label chunks of ``chunk_size`` (capped by the widest fragment's state
-    size), every fragment's rows from its kernel and folded per chunk, so
-    sim and knit fuse and ``RunTimeInfo.knit_time`` is 0.  Exact.
+    ``engine="streamed"``: the scan over ALL global label chunks of
+    ``chunk_size`` (capped by the widest fragment's state size), rows in
+    plain PyTorch with ancestor banks and staged suffixes, sim and knit
+    fused (``RunTimeInfo.knit_time`` is 0).  ``dtype=torch.bfloat16``:
+    bf16 states and banks, float32 rows and knit.  ``trunc_eps``:
+    certified truncation (the result moves at most the dropped bound in
+    L1).  ``checkpoint_dir``: the carry checkpointed a segment at a time
+    (resume mid-scan).  ``shots``: counts drawn from the projected knit
+    (on the device without a checkpoint, ``seed``).
+    ``engine="pallas"`` (the default): the same scan with every
+    fragment's rows from its kernel, float32, exact; ``shots`` and
+    ``checkpoint_dir`` as there.
 
     ``engine="sampled"``: Monte-Carlo QPD sampling
     (ops/qpd_sampling.py) — ``shots`` is the label-sample budget;
     unbiased with std ~ gamma/sqrt(shots), for cut counts whose label
     grid is too large to enumerate.  Its knobs, each refused on the other
-    engine as in the JAX package: ``seed``; ``head_labels`` (stratified:
+    engines as in the JAX package: ``seed``; ``head_labels`` (stratified:
     the heaviest labels enumerated, the budget spent on the tail);
     ``sample_method`` ("iid" or "lhs", balanced label sampling);
     ``sample_cv`` (control-variate regression against the signed total
@@ -173,19 +197,22 @@ def run_virtual_circuit(
     the only ported route, False raises).
 
     ``keep_clbits``: marginal knit (any engine).  ``device``: None =
-    "cuda" (raises without a card); "cpu" runs the kernels' plain PyTorch
-    versions.  ``run_time`` ends after the result reached the host.
-    ``noise``, ``dtype`` and ``mesh`` are knobs of the JAX package that
-    are not ported: anything but None raises NotImplementedError.  So do
-    ``tracer``, ``checkpoint_dir``, ``max_local_qubits``, ``trunc_eps``
-    and ``teleport`` at anything but the JAX defaults (None, None, None,
-    0.0, "qpd": teleport-flagged cuts run through the QPD route, the JAX
-    package's reference-parity mode); a ``teleport`` outside ("qpd",
-    "execute") raises ValueError, as in the JAX package."""
+    "cuda" (raises without a card); "cpu" runs the plain versions.
+    ``run_time`` ends after the result reached the host.
+
+    Refused as in the JAX package, with ValueError: ``trunc_eps`` on an
+    engine but "auto" and "streamed", a ``dtype`` other than float32 on
+    "xla", an unknown engine or ``teleport`` mode, a sampled-engine knob
+    on another engine.  Refused by this package, with ValueError: a
+    ``dtype`` other than float32 on "pallas" (the kernels are float32;
+    use "streamed").  Not ported, NotImplementedError naming the ROADMAP
+    item: ``noise``, ``mesh``, ``tracer``, ``max_local_qubits``,
+    ``teleport="execute"``, ``engine="sharded"``, ``sample_pallas=False``
+    and a bf16 sampled engine.  Their JAX defaults (None, None, None,
+    None, "qpd") give the JAX result."""
     if teleport not in ("qpd", "execute"):
         raise ValueError(f"unknown teleport mode {teleport!r}")
-    given = {"tracer": tracer, "checkpoint_dir": checkpoint_dir,
-             "max_local_qubits": max_local_qubits, "trunc_eps": trunc_eps,
+    given = {"tracer": tracer, "max_local_qubits": max_local_qubits,
              "teleport": teleport}
     for name, (default, item) in _NOT_PORTED_KW.items():
         if given[name] != default:
@@ -198,17 +225,20 @@ def run_virtual_circuit(
             f"engine={engine!r} is not ported to the torch package yet: "
             f"ROADMAP H100 port, {_NOT_PORTED[engine]}"
         )
-    if engine not in ("auto", "xla", "pallas", "sampled"):
+    if engine not in ("auto", "xla", "streamed", "pallas", "sampled"):
         raise ValueError(f"unknown engine {engine!r}")
-    for name, value, what in (
-        ("noise", noise, "noise"), ("dtype", dtype, "bf16"),
-        ("mesh", mesh, "mesh"),
-    ):
+    for name, value, what in (("noise", noise, "noise"),
+                              ("mesh", mesh, "mesh")):
         if value is not None:
             raise NotImplementedError(
                 f"{name}= is not ported to the torch package yet: {_ITEM} "
                 f"({what})"
             )
+    if trunc_eps and engine not in ("auto", "streamed"):
+        raise ValueError(
+            "trunc_eps (certified truncation) is a streamed-engine "
+            f"feature, not engine={engine!r}"
+        )
     if head_labels and engine != "sampled":
         raise ValueError(
             "head_labels (stratified estimation) is a sampled-engine "
@@ -236,41 +266,61 @@ def run_virtual_circuit(
                 f"ported to the torch package yet: {_ITEM} (sampled "
                 "engine: rows without a kernel)"
             )
+        if not _is_f32(dtype):
+            raise NotImplementedError(
+                "dtype= (bf16) on the sampled engine is not ported to the "
+                f"torch package yet: {_ITEM} (sampled engine: bf16)"
+            )
         return _run_sampled(virt, shots, seed, project, head_labels,
                             sample_method, sample_eps, sample_cv,
                             keep_clbits, device)
-    if shots is not None:
-        raise NotImplementedError(
-            "shots= is not ported to the torch package yet: ROADMAP H100 "
-            "port, queue A, 'other engines' (sampling)"
-        )
     log = get_logger(__name__)
     if engine == "auto":
         labels = 1
         for vg in virt.vgates:
             labels *= vg.spec.num_instantiations
-        if labels > AUTO_STREAM_LABELS:
+        if trunc_eps or not _is_f32(dtype):
+            # bf16 serving and certified truncation are streamed
+            # capabilities: routed at any size
+            log.info("auto engine: dtype/trunc_eps -> streamed scan")
+            engine = "streamed"
+        elif labels > AUTO_STREAM_LABELS:
             log.info(f"auto engine: {labels} global labels > "
                      f"{AUTO_STREAM_LABELS} -> streamed scan")
-            engine = "pallas"
-    if engine == "pallas":
+            engine = "streamed"
+    if engine == "pallas" and not _is_f32(dtype):
+        raise ValueError(
+            "dtype= (bf16 serving) runs on engine=\"streamed\" (or "
+            "\"auto\"); engine=\"pallas\" is the float32 kernels' route"
+        )
+    if engine == "xla" and not _is_f32(dtype):
+        raise ValueError(
+            "dtype= (bf16 serving) is supported by the streamed, "
+            f"sharded and sampled engines, not engine={engine!r}"
+        )
+    if engine in ("streamed", "pallas"):
         from .ops.streamed import run_virtual_circuit_streamed
 
         log.info(
             f"Running {len(virt.fragments)} fragments over "
-            f"{virt.total_instantiations()} instances (engine='pallas')..."
+            f"{virt.total_instantiations()} instances (engine={engine!r})..."
         )
         now = time.perf_counter()
         dist = run_virtual_circuit_streamed(
-            virt, chunk=chunk_size, project=project,
-            keep_clbits=keep_clbits, device=device,
+            virt, chunk=chunk_size, project=project, shots=shots,
+            seed=seed, checkpoint_dir=checkpoint_dir, dtype=dtype,
+            trunc_eps=trunc_eps, keep_clbits=keep_clbits,
+            pallas_variant=engine == "pallas", device=device,
         )
         return dist, RunTimeInfo(time.perf_counter() - now, 0.0)
-    return _run_batched(virt, chunk_size, project, keep_clbits, device)
+    return _run_batched(virt, chunk_size, project, keep_clbits, device,
+                        shots, seed, checkpoint_dir)
 
 
-def _run_batched(virt, chunk_size, project, keep_clbits, device):
-    """``engine="xla"``: all variants of every fragment, then the knit."""
+def _run_batched(virt, chunk_size, project, keep_clbits, device,
+                 shots=None, seed=0, checkpoint_dir=None):
+    """``engine="xla"``: all variants of every fragment (or a checkpoint
+    of them), optionally shot-sampled, then the knit."""
     import torch
 
     from .convert import resolve_device
@@ -293,7 +343,40 @@ def _run_batched(virt, chunk_size, project, keep_clbits, device):
     )
     log.info(f"Running {virt.total_instantiations()} instances...")
     now = clock()
-    results = run_all_fragments(virt, chunk_size, dev)
+    results = None
+    if checkpoint_dir is not None:
+        from .utils.checkpoint import (
+            checkpoint_fingerprint,
+            has_checkpoint,
+            load_fragment_results,
+        )
+
+        fingerprint = checkpoint_fingerprint(virt)
+        if has_checkpoint(checkpoint_dir):
+            results = load_fragment_results(
+                checkpoint_dir, expect_fingerprint=fingerprint)
+            if results is None:
+                log.warning(
+                    f"Checkpoint at {checkpoint_dir} belongs to a different "
+                    "circuit/cut plan; re-simulating."
+                )
+            else:
+                log.info(f"Resumed fragment results from {checkpoint_dir}.")
+                for res in results:
+                    res.values = torch.as_tensor(res.values,
+                                                 dtype=torch.float32,
+                                                 device=dev)
+    if results is None:
+        results = run_all_fragments(virt, chunk_size, dev)
+        if checkpoint_dir is not None:
+            from .utils.checkpoint import save_fragment_results
+
+            save_fragment_results(results, checkpoint_dir,
+                                  fingerprint=fingerprint)
+    if shots is not None:
+        from .ops.sampling import sample_fragment_results
+
+        results = sample_fragment_results(results, shots, seed)
     run_time = clock() - now
 
     log.info("Knitting...")

@@ -234,9 +234,24 @@ def test_chunk_cap_bounds_bytes():
     dict(noise=object()), dict(dtype=torch.bfloat16), dict(collapse=True),
 ], ids=["noise", "dtype", "collapse"])
 def test_make_sim_fn_refusals_name_their_roadmap_item(kw):
-    _, tv, _, _ = _case("chain5")
-    with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
-        tve.make_sim_fn(tv, "frag0", **kw)
+    """Noise and collapse stay refused; bf16 states (the serving mode)
+    run since the streamed engine landed: float32 rows within 5e-3 of
+    the f32 closure's."""
+    jv, tv, _, _ = _case("chain5")
+    if "dtype" not in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
+            tve.make_sim_fn(tv, "frag0", **kw)
+        return
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        sim_fn, mats, _, _ = tve.make_sim_fn(tv, "frag0", fused_slots=True,
+                                             **dict(kw, dtype=dtype))
+        assert sim_fn.dtype == dtype
+        rows[dtype] = sim_fn([tuple(torch.as_tensor(t) for t in tabs)
+                              for tabs in mats])
+    assert rows[torch.bfloat16].dtype == torch.float32
+    assert float((rows[torch.bfloat16] - rows[torch.float32]).abs().max()) \
+        < 5e-3
 
 
 # ---------------------------------------------------------------------------
@@ -472,14 +487,46 @@ def test_auto_takes_the_streamed_scan_above_its_threshold(monkeypatch):
     dict(mesh=object()),
 ], ids=["shots", "noise", "dtype", "mesh"])
 def test_batched_engine_refusals_name_their_roadmap_item(engine, kw):
+    """Noise and a mesh stay refused, naming their ROADMAP item.  Since
+    the streamed engine landed: shots run (variant rows sampled; GHZ
+    counts near 1/2 on its two outcomes); bf16 is JAX's ValueError
+    on "xla" and routes "auto" to the streamed scan (within 5e-3)."""
     _, _, _, tv = _slice("ghz10_p2q5")
+    if "shots" in kw:
+        got, _ = trun.run_virtual_circuit(tv, engine=engine, device="cpu",
+                                          **kw)
+        # 100 sampled shots a row knit to a mass near 1 (as in the JAX
+        # package), nearly all of it on the two GHZ outcomes
+        total = float(got.values.sum())
+        assert abs(total - 1.0) < 0.25
+        assert got.values[0] > 0.25 and got.values[-1] > 0.25
+        assert got.values[0] + got.values[-1] >= 0.9 * total
+        return
+    if "dtype" in kw and engine == "xla":
+        with pytest.raises(ValueError, match="not engine='xla'"):
+            trun.run_virtual_circuit(tv, engine=engine, device="cpu", **kw)
+        return
+    if "dtype" in kw:
+        got, info = trun.run_virtual_circuit(tv, engine=engine,
+                                             device="cpu", **kw)
+        want, _ = trun.run_virtual_circuit(tv, engine=engine, device="cpu")
+        assert info.knit_time == 0.0
+        np.testing.assert_allclose(got.values, want.values, atol=5e-3)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
         trun.run_virtual_circuit(tv, engine=engine, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("engine", ["streamed", "sharded"])
 def test_engines_still_to_port_name_their_roadmap_item(engine):
+    """"sharded" raises naming its ROADMAP item; "streamed" (ported)
+    equals the batched engine."""
     _, _, _, tv = _slice("ghz10_p2q5")
+    if engine == "streamed":
+        got, _ = trun.run_virtual_circuit(tv, engine=engine, device="cpu")
+        want, _ = trun.run_virtual_circuit(tv, engine="xla", device="cpu")
+        np.testing.assert_allclose(got.values, want.values, atol=ATOL)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
         trun.run_virtual_circuit(tv, engine=engine, device="cpu")
 

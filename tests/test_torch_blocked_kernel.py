@@ -341,16 +341,19 @@ def test_device_plan_is_cached_on_the_circuit(monkeypatch):
     monkeypatch.setattr(bk, "build_plan",
                         lambda *a, **k: built.append(a[1]) or build(*a, **k))
     step, xs, meta = make_streamed_knit(tv, 64, device="cpu",
-                                        blocked_window=8)
+                                        blocked_window=8,
+                                        pallas_variant=True)
     assert sorted(built) == sorted(meta["fragment_plans"])
     first = step(xs)
     step2, xs2, meta2 = make_streamed_knit(tv, 64, device="cpu",
-                                           blocked_window=8)
+                                           blocked_window=8,
+                                           pallas_variant=True)
     assert len(built) == len(meta["fragment_plans"])
     assert all(meta2["fragment_plans"][k] is dp
                for k, dp in meta["fragment_plans"].items())
     assert torch.equal(step2(xs2), first)
-    _, _, meta3 = make_streamed_knit(tv, 64, device="cpu", blocked_window=9)
+    _, _, meta3 = make_streamed_knit(tv, 64, device="cpu", blocked_window=9,
+                                  pallas_variant=True)
     assert len(built) == 2 * len(meta["fragment_plans"])
     assert all(dp.plan.w == 9 for dp in meta3["fragment_plans"].values())
 

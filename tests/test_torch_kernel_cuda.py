@@ -760,3 +760,97 @@ def test_sv_kernel_reads_no_lane_table_on_card(card, case, monkeypatch):
         got = got.values.reshape(want.shape)
         err = (got - want).abs().max().item()
         assert err <= TOL and err <= TOL * want.abs().max().item() + 1e-12
+
+
+# ---------------------------------------------------------------------------
+# The streamed scan without a kernel (plain PyTorch): the card against the
+# same scan on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL),
+                                       (torch.bfloat16, 5e-3)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("share_prefix", [False, True])
+def test_streamed_scan_on_card_matches_cpu(card, dtype, tol, share_prefix):
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.streamed import (  # noqa: E501
+        make_streamed_knit,
+    )
+
+    virt = _chain()
+    got = {}
+    for dev in ("cpu", card):
+        step, xs, meta = make_streamed_knit(virt, 4, share_prefix=share_prefix,
+                                            dtype=dtype, device=dev)
+        got[dev] = step(xs).cpu().numpy()
+        assert meta["pallas_fragments"] == {r.name: False
+                                            for r in virt.fragments}
+    np.testing.assert_allclose(got[card], got["cpu"], atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", [1e-2, 5e-2])
+def test_streamed_truncation_on_card_matches_cpu(card, eps):
+    """Certified truncation that drops labels (cp cuts of small angle:
+    skewed QPD weights), with banks, so the card runs the gather over the
+    kept labels and the per-label staged suffix: equal to the same scan
+    on the CPU, within the certified L1 bound of the exact result."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.cutter.cutter import (  # noqa: E501
+        Cutter,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.streamed import (  # noqa: E501
+        make_streamed_knit,
+        run_virtual_circuit_streamed,
+    )
+
+    n = 6
+    circ = Circuit(n, n)
+    for q in range(n):
+        circ.h(q)
+    circ.cp(np.pi / 8, 0, n - 1)
+    circ.cp(np.pi / 16, 1, n - 2)
+    for i in range(n - 1):
+        circ.cx(i, i + 1)
+    for q in range(n):
+        circ.measure(q, q)
+    cutter = Cutter(circ, maxNPartitions=2, maxNQubitsPerPartition=4,
+                    maxNQpdCuts=5, maxNCuts=5, maxCutsPerPartitions=5)
+    assert cutter.solve()
+    virt = VirtualCircuit(cutter.getResultCircs()[3])
+    exact = run_virtual_circuit_streamed(virt, 32, device=card).values
+    got = {}
+    for dev in ("cpu", card):
+        step, xs, meta = make_streamed_knit(virt, 32, trunc_eps=eps,
+                                            share_prefix=True, device=dev)
+        got[dev] = step(xs).cpu().numpy()
+    assert meta["kept_labels"] < meta["global_labels"]
+    assert all(sp is not None for sp in meta["splits"])
+    np.testing.assert_allclose(got[card], got["cpu"], atol=TOL)
+    assert meta["dropped_mass"] <= eps
+    assert float(np.abs(got[card].astype(np.float64) - exact).sum()) \
+        <= meta["dropped_mass"] + TOL
+
+
+@pytest.mark.cuda
+def test_streamed_shots_on_card(card):
+    """Device shots: counts on the card's draw, non-negative, summing to 1,
+    only on outcomes the exact distribution holds."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.sampling import (  # noqa: E501
+        sample_indices_device,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.streamed import (  # noqa: E501
+        run_virtual_circuit_streamed,
+    )
+
+    virt = _chain()
+    exact = run_virtual_circuit_streamed(virt, 4, project=True, device="cpu")
+    dist = run_virtual_circuit_streamed(virt, 4, shots=4000, device=card)
+    assert (dist.values >= 0).all()
+    assert abs(float(dist.values.sum()) - 1.0) < 1e-6
+    assert set(np.nonzero(dist.values)[0]) <= set(
+        np.nonzero(exact.values > 0)[0])
+    probs = torch.tensor([0.0, 0.25, 0.0, 0.75], device=card)
+    idx = sample_indices_device(probs, 4096,
+                                torch.Generator(device=card).manual_seed(0))
+    assert idx.device.type == "cuda" and idx.shape == (4096,)
+    assert set(idx.tolist()) <= {1, 3}

@@ -127,7 +127,7 @@ def test_z_contraction_matches_jax():
     zc = [1, 4, 9]
     want = j_expectation_z(jv, zc, chunk=chunk, pallas_variant=True)
     step, xs, _ = make_streamed_knit(tv, chunk, z_clbits=frozenset(zc),
-                                     device="cpu")
+                                     device="cpu", pallas_variant=True)
     assert abs(float(step(xs).reshape(())) - want) < 1e-6
 
 
@@ -148,7 +148,8 @@ def test_forced_blocked_route_matches_jax(window, keep):
     want, _ = j_run(jv, engine="pallas", chunk_size=chunk, keep_clbits=keep,
                     project=False)
     step, xs, meta = make_streamed_knit(tv, chunk, keep_clbits=keep,
-                                        device="cpu", blocked_window=window)
+                                        device="cpu", blocked_window=window,
+                                        pallas_variant=True)
     assert set(meta["fragment_kernels"].values()) == {"blocked"}
     assert all(meta["pallas_fragments"].values())
     assert all(len(dp.plan.segments) >= 2
@@ -170,7 +171,8 @@ def test_width_routing_matches_jax(narrow_variant_gate):
     got, _ = run_virtual_circuit(tv, engine="pallas", chunk_size=chunk,
                                  device="cpu")
     np.testing.assert_allclose(got.values, want.values, atol=1e-6)
-    _, _, meta = make_streamed_knit(tv, chunk, device="cpu")
+    _, _, meta = make_streamed_knit(tv, chunk, device="cpu",
+                                    pallas_variant=True)
     assert set(meta["fragment_kernels"].values()) == {"blocked"}
 
 
@@ -189,7 +191,8 @@ def test_streamed_expectation_z_matches_jax(route, request):
     jc, tc, jv, tv, chunk = _pair("sup12_p2q7")
     zc = [1, 4, 9]
     want = j_expectation_z(jv, zc, chunk=chunk, pallas_variant=True)
-    got = streamed_expectation_z(tv, zc, chunk=chunk, device="cpu")
+    got = streamed_expectation_z(tv, zc, chunk=chunk, device="cpu",
+                                 pallas_variant=True)
     assert abs(got - want) < 1e-6
     # and equal to the observable of the knitted distribution
     dist, _ = run_virtual_circuit(tv, chunk_size=chunk, project=False,
@@ -218,9 +221,18 @@ def test_streamed_expectation_z_rejects_unmeasured_support():
     dict(dtype=torch.bfloat16),
 ])
 def test_streamed_expectation_z_refusals(kw):
-    _, _, _, tv, chunk = _pair("ghz10_p2q5")
-    with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
-        streamed_expectation_z(tv, [10], chunk=chunk, device="cpu", **kw)
+    """Trajectory noise stays refused, naming its ROADMAP item; the scan
+    without a kernel's banks and bf16 states run since the streamed
+    engine landed: banks as JAX within 1e-6, bf16 within 5e-3 of f32."""
+    jc, tc, jv, tv, chunk = _pair("sup12_p2q7")
+    zc = [1, 4, 9]
+    if "noise" in kw or "trajectories" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
+            streamed_expectation_z(tv, zc, chunk=chunk, device="cpu", **kw)
+        return
+    want = j_expectation_z(jv, zc, chunk=chunk, share_prefix=True)
+    got = streamed_expectation_z(tv, zc, chunk=chunk, device="cpu", **kw)
+    assert abs(got - want) < (1e-6 if "share_prefix" in kw else 5e-3)
 
 
 @pytest.mark.parametrize("name,n,depth", [("hwe", 16, 3), ("hwe", 40, 2),
@@ -313,7 +325,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
     pytest.param("sampled", dict(sample_pallas=False), id="sampled"),
 ])
 def test_unported_engines_name_their_roadmap_item(engine, kw):
-    _, _, _, tv, _ = _pair("ghz10_p2q5")
+    """The engines still to port raise naming their ROADMAP item;
+    "streamed" is ported and gives the JAX engine's result."""
+    _, _, jv, tv, chunk = _pair("ghz10_p2q5")
+    if engine == "streamed":
+        want, _ = j_run(jv, engine="streamed", chunk_size=chunk)
+        got, _ = run_virtual_circuit(tv, engine=engine, chunk_size=chunk,
+                                     device="cpu")
+        np.testing.assert_allclose(got.values, want.values, atol=1e-6)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
         run_virtual_circuit(tv, engine=engine, device="cpu", **kw)
 
@@ -321,9 +341,9 @@ def test_unported_engines_name_their_roadmap_item(engine, kw):
 _JAX_KEYWORDS = {
     # name: (JAX default, a value that is not ported, its ROADMAP item)
     "tracer": (None, object(), "item 10 \\(tracing\\)"),
-    "checkpoint_dir": (None, "ckpt", "fragment-result checkpoint"),
+    "checkpoint_dir": (None, "ckpt", None),
     "max_local_qubits": (None, 4, "sharded fragments"),
-    "trunc_eps": (0.0, 0.01, "streamed without the kernel"),
+    "trunc_eps": (0.0, 0.01, None),
     "teleport": ("qpd", "execute", "item 4 \\(Teleport execution\\)"),
 }
 
@@ -332,16 +352,35 @@ _JAX_KEYWORDS = {
     (name, case) for name in sorted(_JAX_KEYWORDS)
     for case in ("default", "refused")
 ] + [("teleport", "unknown")])
-def test_jax_keywords_default_or_refused(name, case):
-    """The JAX keywords the port does not implement: each at its JAX
-    default gives JAX's result, any other value raises
-    NotImplementedError naming its ROADMAP item, an unknown teleport mode
-    ValueError (as in the JAX package)."""
+def test_jax_keywords_default_or_refused(name, case, tmp_path):
+    """The JAX keywords of ``run_virtual_circuit``: each at its JAX
+    default gives JAX's result; a value the port does not implement
+    raises NotImplementedError naming its ROADMAP item, an unknown
+    teleport mode ValueError (as in the JAX package).  Ported since the
+    streamed engine landed: ``checkpoint_dir`` (the default engine's
+    carry checkpoint gives JAX's result) and ``trunc_eps``, which
+    ``engine="pallas"`` refuses with JAX's ValueError."""
     jc, tc, jv, tv, chunk = _pair("ghz10_p2q5")
     default, other, item = _JAX_KEYWORDS[name]
     if case == "unknown":
         with pytest.raises(ValueError, match="unknown teleport mode"):
             run_virtual_circuit(tv, device="cpu", teleport="wire")
+        return
+    if case == "refused" and name == "trunc_eps":
+        for run, kw in ((j_run, {}), (run_virtual_circuit,
+                                      dict(device="cpu"))):
+            with pytest.raises(ValueError, match="not engine='pallas'"):
+                run(jv if run is j_run else tv, engine="pallas",
+                    chunk_size=chunk, trunc_eps=other, **kw)
+        return
+    if case == "refused" and name == "checkpoint_dir":
+        want, _ = j_run(jv, engine="pallas", chunk_size=chunk,
+                        checkpoint_dir=tmp_path / "jax")
+        got, _ = run_virtual_circuit(tv, engine="pallas", chunk_size=chunk,
+                                     device="cpu",
+                                     checkpoint_dir=tmp_path / "port")
+        assert (tmp_path / "port" / "stream_carry.npz").exists()
+        np.testing.assert_allclose(got.values, want.values, atol=1e-6)
         return
     if case == "refused":
         with pytest.raises(NotImplementedError,
@@ -362,13 +401,31 @@ def test_jax_keywords_default_or_refused(name, case):
     dict(share_prefix=True), dict(dtype=torch.bfloat16),
 ])
 def test_streamed_refusals(kw):
+    """``run_virtual_circuit_streamed``: noise stays refused, naming its
+    ROADMAP item; shots, truncation, banks and bf16 run since the scan
+    without a kernel landed: truncation and banks as JAX within 1e-6,
+    bf16 within 5e-3 of f32, shots on the GHZ support summing to 1."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.ops.streamed import (  # noqa: E501
+        run_virtual_circuit_streamed as j_streamed,
+    )
     from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.streamed import (  # noqa: E501
         run_virtual_circuit_streamed,
     )
 
-    _, _, _, tv, chunk = _pair("ghz10_p2q5")
-    with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
-        run_virtual_circuit_streamed(tv, chunk, device="cpu", **kw)
+    _, _, jv, tv, chunk = _pair("ghz10_p2q5")
+    if "noise" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
+            run_virtual_circuit_streamed(tv, chunk, device="cpu", **kw)
+        return
+    got = run_virtual_circuit_streamed(tv, chunk, device="cpu", **kw)
+    if "shots" in kw:
+        assert abs(float(got.values.sum()) - 1.0) < 1e-6
+        assert set(np.nonzero(got.values)[0]) <= {0, len(got.values) - 1}
+        return
+    want = j_streamed(jv, chunk, **{k: v for k, v in kw.items()
+                                    if k != "dtype"})
+    np.testing.assert_allclose(got.values, want.values,
+                               atol=5e-3 if "dtype" in kw else 1e-6)
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):
