@@ -114,12 +114,30 @@ Phases (any failure exits non-zero without the result line):
              against the distribution's Z within 1e-5; splits, stages,
              times, a device-only trace (busy, idle share) and the peak
              memory;
-10. where the time goes — host build of the scan, the run without the
+10. noise  — plain PyTorch, no kernel launched.  sup-20 under
+             fake_kolkata_v2 with 8 trajectories (chunk 32: 243 chunks)
+             through run_noisy_virtual_circuit(engine="streamed",
+             shots=1000, seed=7) cold and warm: mass 1, support <= 1000,
+             peak memory, a device-only trace; without shots: non-negative
+             with the unprojected knit's mass, and the first chunk's rows
+             of each fragment (the scan's meta["fragment_rows"]) equal to
+             the CPU's from the same draws within 1e-5 (absolute and of
+             the largest entry); gate noise zeroed, readout kept, one
+             trajectory: streamed = batched within 2e-5; no noise at all
+             (routed): fidelity > 1 - 1e-5 against engine="pallas".
+             ghz-24 (P2 Q12): compare_original_with_cut with the
+             untranspiled fake_kolkata_v2 at 1000 shots (a 2^24 uncut noisy
+             simulation): input fidelity in [0.65, 0.80], cut fidelity
+             > 0.97.  GHZ-8 (two 5-qubit fragments): ZNE of <Z^8> over the
+             noisy streamed observable with T1/T2 nearer 1 than the raw
+             value, mitigate_readout inverting apply_readout_error within
+             1e-5;
+11. where the time goes — host build of the scan, the run without the
              simplex projection, and a torch.profiler trace (device time
              by kernel, device idle share of the wall) for sup-20, ghz-24,
              hwe-40, qft-16 (there also the host's label sampling) and
              the two hwe-16 routes (lane table, upload, kernel, knit);
-11. report — one JSON line of kernels (launches, error, times, bound), the
+12. report — one JSON line of kernels (launches, error, times, bound), the
              card's name and power limit, and the contract's last line.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Details go to
@@ -2128,6 +2146,226 @@ def phase_streamed_sup20(circ, virt, report):
          f"draws {out['shots_draws']}")
 
 
+NOISY_TRAJ = 8           # sup-20 noisy: fake_kolkata_v2, 8 trajectories
+NOISY_SHOTS = 1000
+NOISY_SEED = 7
+NOISY_CHUNK = 512        # capped by auto_chunk to 32 labels (8 traj, noisy)
+NOISY_ROWS_TOL = 2e-5    # the batched and streamed routes, same model
+
+
+def phase_main_noisy_sup20(circ, virt, report):
+    """sup-20 under ``fake_kolkata_v2`` with 8 trajectories, as the JAX
+    package's noisy serving run (benchmarks/noisy_streamed_tpu.py "sup20")
+    calls it: ``run_noisy_virtual_circuit(engine="streamed", shots=1000,
+    seed=7)`` cold and warm (mass 1, support <= 1000, peak memory, a
+    device-only trace of a warm call); the same call without shots
+    (non-negative, the projection keeping the unprojected knit's mass)
+    and the first chunk's rows of each fragment, from the scan's own
+    per-chunk function, against the same draws on the CPU;
+    with the gate noise zeroed, readout kept and one trajectory, the
+    streamed and batched routes against each other; with no noise at
+    all, the routed scan against ``engine="pallas"``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    noise = _port("ops.noise")
+    streamed = _port("ops.streamed")
+    fidelity = _port("evaluate").hellinger_fidelity
+    nm = dataclasses.replace(noise.fake_kolkata_v2(), trajectories=NOISY_TRAJ)
+
+    def run(model=nm, engine="streamed", **kw):
+        return noise.run_noisy_virtual_circuit(
+            virt, model, engine=engine, seed=NOISY_SEED,
+            chunk_size=NOISY_CHUNK, device=DEV, **kw)[0]
+
+    chunk = streamed.auto_chunk(virt, NOISY_CHUNK, NOISY_TRAJ, noisy=True)
+    out = {"trajectories": NOISY_TRAJ, "chunk": chunk, "model": nm.name}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    shot, out["cold_s"] = _timed(lambda: run(shots=NOISY_SHOTS))
+    out["launches"] = _counts()
+    _, out["warm_s"] = _timed(lambda: run(shots=NOISY_SHOTS))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out.update(shots=NOISY_SHOTS,
+               shots_mass=float(np.sum(shot.values, dtype=np.float64)),
+               shots_support=int(np.count_nonzero(shot.values)),
+               outcomes=len(shot.values))
+    print(f"main noisy sup20: chunk={chunk} cold_s={out['cold_s']:.3f} "
+          f"warm_s={out['warm_s']:.3f} peak_gb={out['peak_gb']:.3f} "
+          f"mass={out['shots_mass']!r} support={out['shots_support']}",
+          flush=True)
+    out.update(_profile(lambda: run(shots=NOISY_SHOTS), cpu=False))
+    print(f"  profiled_wall_s={out['profiled_wall_s']:.3f} "
+          f"trace_processing_s={out['trace_processing_s']:.1f} "
+          f"device_busy_ms={out['device_busy_ms']} "
+          f"idle_share={out['device_idle_share']}", flush=True)
+    for row in out["device_ms_by_kernel"][:6]:
+        print(f"  device {row['ms']:.3f} ms x{row['calls']}: "
+              f"{row['kernel']}", flush=True)
+
+    # without shots: the projected distribution (the projection moves no
+    # mass: it keeps the knit's, which finite trajectories move off 1 as
+    # an unbiased estimate), and the first chunk's rows of each fragment
+    # against the same draws on the CPU
+    full, out["no_shots_s"] = _timed(run)
+    raw = streamed.run_virtual_circuit_streamed(
+        virt, NOISY_CHUNK, noise=nm, seed=NOISY_SEED, device=DEV)
+    out.update(no_shots_mass=float(np.sum(full.values, dtype=np.float64)),
+               no_shots_min=float(np.min(full.values)),
+               unprojected_mass=float(np.sum(raw.values, dtype=np.float64)))
+    del raw
+    metas = {dev: streamed.make_streamed_knit(
+        virt, chunk, noise=nm, seed=NOISY_SEED, device=dev)[1:]
+        for dev in (DEV, "cpu")}
+    out.update(n_chunks=metas[DEV][1]["n_chunks"],
+               labels=metas[DEV][1]["global_labels"], rows=[])
+    for fi, reg in enumerate(virt.fragments):
+        rows = {}
+        for dev, (xs, meta) in metas.items():
+            t0 = time.perf_counter()
+            rows[dev] = meta["fragment_rows"][fi](
+                xs[0][0], None, xs[2 + fi][0]).cpu().numpy()
+            rows[dev + "_s"] = time.perf_counter() - t0
+        err = float(np.abs(rows[DEV] - rows["cpu"]).max())
+        big = float(np.abs(rows["cpu"]).max())
+        same_draws = bool(torch.equal(metas[DEV][0][2 + fi].cpu(),
+                                      metas["cpu"][0][2 + fi]))
+        out["rows"].append({"fragment": reg.name,
+                            "shape": list(rows["cpu"].shape),
+                            "max_abs_err": err, "rel_err": err / big,
+                            "same_draws": same_draws,
+                            "card_s": rows[DEV + "_s"],
+                            "cpu_s": rows["cpu_s"]})
+    del metas
+
+    # gate noise zeroed, readout kept, one trajectory: streamed = batched
+    zero = dataclasses.replace(nm, p1=0.0, p2=0.0, trajectories=1,
+                               p1_q=np.zeros_like(nm.p1_q),
+                               p2_q=np.zeros_like(nm.p2_q))
+    ro_s, out["readout_streamed_s"] = _timed(lambda: run(zero))
+    ro_b, out["readout_batched_s"] = _timed(lambda: run(zero, "auto"))
+    out["readout_streamed_vs_batched"] = float(
+        np.abs(ro_s.values - ro_b.values).max())
+    # no noise at all (routed): the exact distribution
+    free = noise.NoiseModel(name="noiseless", p1=0.0, p2=0.0,
+                            readout01=0.0, readout10=0.0, trajectories=1,
+                            num_qubits=27, coupling=nm.coupling)
+    exact, out["noiseless_s"] = _timed(lambda: run(free))
+    pallas = _port("run").run_virtual_circuit(virt, engine="pallas",
+                                              chunk_size=CHUNK, device=DEV)[0]
+    out["noiseless_fidelity"] = fidelity(pallas, exact)
+    report["noisy_sup20"] = out
+    print(f"  no_shots_s={out['no_shots_s']:.3f} mass="
+          f"{out['no_shots_mass']!r} (unprojected "
+          f"{out['unprojected_mass']!r}) n_chunks={out['n_chunks']}",
+          flush=True)
+    for row in out["rows"]:
+        print(f"  first chunk rows {row}", flush=True)
+    print(f"  readout only: streamed {out['readout_streamed_s']:.3f} s, "
+          f"batched {out['readout_batched_s']:.3f} s, max diff "
+          f"{out['readout_streamed_vs_batched']:.3e}; noiseless "
+          f"{out['noiseless_s']:.3f} s fidelity "
+          f"{out['noiseless_fidelity']!r}", flush=True)
+
+    def need(ok, what):
+        if not ok:
+            raise RuntimeError(f"noisy sup20: {what}")
+
+    need(out["labels"] == 7776 and chunk == 32,
+         f"labels {out['labels']}, chunk {chunk}")
+    need(out["launches"] == _only(), f"launched {out['launches']}")
+    need(abs(out["shots_mass"] - 1.0) <= 1e-6
+         and out["shots_support"] <= NOISY_SHOTS,
+         f"shots mass {out['shots_mass']!r}, support "
+         f"{out['shots_support']}")
+    need(out["no_shots_min"] >= 0.0
+         and abs(out["no_shots_mass"] - out["unprojected_mass"]) <= TOL,
+         f"projected mass {out['no_shots_mass']!r} (unprojected "
+         f"{out['unprojected_mass']!r}, least entry "
+         f"{out['no_shots_min']!r})")
+    for row in out["rows"]:
+        need(row["same_draws"] and row["max_abs_err"] <= TOL
+             and row["rel_err"] <= TOL, f"first chunk rows {row}")
+    need(out["readout_streamed_vs_batched"] <= NOISY_ROWS_TOL,
+         f"streamed vs batched {out['readout_streamed_vs_batched']:.3e}")
+    need(out["noiseless_fidelity"] > FID_MIN,
+         f"noiseless fidelity {out['noiseless_fidelity']!r}")
+
+
+def phase_noisy_parity_ghz24(circ, virt, report):
+    """The reference's noisy experiment on ghz-24 (P2 Q12):
+    ``compare_original_with_cut`` with the untranspiled
+    ``fake_kolkata_v2`` at 1000 shots, so the uncut leg runs
+    ``simulate_noisy_circuit`` at 2^24 on the card (the exact first-order
+    mixture of its calibration-bound sites).  The reference records an
+    input fidelity of 0.731 (the JAX package 0.715, noisy_parity.json):
+    held within [0.65, 0.80]; the cut fidelity above 0.97 (the bracket of
+    noisy_spread.json starts at 0.9746)."""
+    import dataclasses
+
+    nm = dataclasses.replace(_port("ops.noise").fake_kolkata_v2(),
+                             untranspiled=True)
+    res, wall = _timed(lambda: _port("evaluate").compare_original_with_cut(
+        circ, virt._circuit, noise_model=nm, shots=NOISY_SHOTS, seed=0,
+        chunk_size=CHUNK, device=DEV))
+    out = {"input_fidelity": res.input_fidelity,
+           "cut_fidelity": res.cut_fidelity,
+           "cut_vs_uncut_fidelity": res.cut_vs_uncut_fidelity,
+           "wall_s": wall, "shots": NOISY_SHOTS}
+    report["noisy_parity_ghz24"] = out
+    print(f"noisy parity ghz24: {out}", flush=True)
+    if not (0.65 <= res.input_fidelity <= 0.80 and res.cut_fidelity > 0.97):
+        raise RuntimeError(f"noisy parity ghz24: {out}")
+
+
+def phase_noisy_mitigation(report):
+    """The flow of examples/mitigation.py on the card: GHZ-8 cut into two
+    5-qubit fragments, ZNE (exponential fit over scales 1, 2, 3) of
+    <Z^8> through the noisy streamed observable with depolarising noise
+    and T1/T2 brings it nearer to 1 than the unmitigated value;
+    ``mitigate_readout`` inverts ``apply_readout_error`` (calibrated
+    per-qubit rates) within 1e-5."""
+    import numpy as np
+
+    cutter_mod = _port("cutter.cutter")
+    noise = _port("ops.noise")
+    mit = _port("ops.mitigation")
+    circ = _port("models.zoo").genCirc("ghz", 8, 1)
+    cutter = cutter_mod.Cutter(circ, maxNPartitions=2,
+                               maxNQubitsPerPartition=5)
+    if not cutter.solve():
+        raise RuntimeError("noisy mitigation: no cut plan for ghz-8")
+    virt = _port("virt.virtual_circuit").VirtualCircuit(
+        cutter.getResultCircs()[3])
+    z = sorted(ins.clbits[0] for ins in circ.instructions
+               if ins.name == "measure")
+    nm = noise.NoiseModel(p1=0.01, p2=0.05, readout01=0.0, readout10=0.0,
+                          t1=20e-6, t2=25e-6, trajectories=96)
+    (est, vals), zne_s = _timed(lambda: mit.zne_expectation_z(
+        virt, z, nm, scales=(1.0, 2.0, 3.0), method="exp", seed=1,
+        device=DEV))
+    exact = _port("ops.statevector").simulate_circuit(circ, device=DEV)
+    kol = noise.fake_kolkata_v2()
+    qubits = list(range(len(exact.bit_positions)))
+    noisy = noise.apply_readout_error(exact, kol, bit_qubits=qubits,
+                                      device=DEV)
+    back = mit.mitigate_readout(noisy, kol, bit_qubits=qubits)
+    out = {"zne": est, "per_scale": vals, "zne_s": zne_s,
+           "readout_shift": float(np.abs(noisy.values
+                                         - exact.values).max()),
+           "readout_inverse_err": float(np.abs(back.values
+                                               - exact.values).max())}
+    report["noisy_mitigation"] = out
+    print(f"noisy mitigation: {out}", flush=True)
+    if not (abs(est - 1.0) < abs(vals[0] - 1.0) and vals[0] < 0.99):
+        raise RuntimeError(f"noisy mitigation: ZNE {est!r} from {vals}")
+    if not (out["readout_inverse_err"] <= TOL
+            and out["readout_shift"] > 1e-3):
+        raise RuntimeError(f"noisy mitigation: readout {out}")
+
+
 def _profile(fn, cpu=True):
     """A torch.profiler trace of one ``fn()``: device time by kernel and
     the device's busy share of the wall.  ``cpu=False`` traces the
@@ -2414,6 +2652,12 @@ def main() -> int:
               "variant_rows/ghz34_folded_staged", "variant")
     if "sup20" in cuts:
         phase("streamed_sup20", phase_streamed_sup20, *cuts["sup20"], report)
+        phase("main_noisy_sup20", phase_main_noisy_sup20, *cuts["sup20"],
+              report)
+    if "ghz24" in cuts:
+        phase("noisy_parity_ghz24", phase_noisy_parity_ghz24,
+              *cuts["ghz24"], report)
+    phase("noisy_mitigation", phase_noisy_mitigation, report)
     if cut("sup25", "sup", 25, 13, 0, stored_plan="sup25_p2_q13"):
         phase("main_sup25_streamed", phase_main_sup25_streamed,
               *cuts["sup25"], report)

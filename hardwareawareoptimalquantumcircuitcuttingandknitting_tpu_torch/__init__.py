@@ -8,7 +8,8 @@ JAX package: the host layers it needs are its own copies.
 Layers (the ``engine="pallas"`` exact path, the ``engine="streamed"``
 scan without a kernel, the batched ``engine="xla"`` and the
 ``engine="sampled"`` Monte-Carlo path):
-  circuit/   — typed circuit IR + gate library
+  circuit/   — typed circuit IR + gate library; routing onto a device
+               coupling map (routing.py)
   models/    — supremacy, Sycamore, hardware-efficient-ansatz, QFT / AQFT
                and GHZ generators
   cutter/    — optimal joint wire+gate cut search (pure-Python solver; the
@@ -24,11 +25,13 @@ scan without a kernel, the batched ``engine="xla"`` and the
                kernels, or in plain PyTorch with ancestor banks, bf16
                states, truncation, checkpoints and shots); the batched
                engine; the QPD sampler (qpd_sampling.py); shot sampling
-               (sampling.py); the uncut oracle
+               (sampling.py); the uncut oracle; noise models and noisy
+               execution through the batched and streamed engines
+               (noise.py) and error mitigation (mitigation.py)
   utils/     — logging, fragment-result checkpoints (checkpoint.py)
   run.py, evaluate.py — the entry point and the fidelity harness
-  convert.py — circuits, plans and label blocks across packages, tables
-               onto devices
+  convert.py — circuits, plans, noise models and label blocks across
+               packages, tables onto devices
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; they raise when no card is present.

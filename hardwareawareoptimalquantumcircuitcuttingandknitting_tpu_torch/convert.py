@@ -11,8 +11,10 @@ without either importing the other.  A cut plan crosses as its JSON text
 draws as numpy arrays (:func:`sampled_block_to_device`), unchanged.  A
 fragment's variant rows cross as numpy (:func:`fragment_result_from_other`
 into this package, :func:`fragment_result_to_numpy` out of it), so either
-package's rows can feed either package's knit.  Host tables become device
-tensors through :func:`to_device`.
+package's rows can feed either package's knit.  A noise model crosses
+field by field (:func:`noise_model_from_other`: numbers, numpy arrays and
+the coupling list), so both packages compute with one model.  Host
+tables become device tensors through :func:`to_device`.
 """
 from __future__ import annotations
 
@@ -172,3 +174,22 @@ def fragment_result_to_numpy(res):
         res.name, res.values.detach().cpu().numpy(),
         list(res.bit_positions), list(res.touching),
     )
+
+
+def noise_model_from_other(nm):
+    """This package's ``ops.noise.NoiseModel`` with every field of ``nm``
+    (this package's or the JAX package's model: scalars, per-qubit numpy
+    vectors copied, the coupling list as tuples)."""
+    import dataclasses
+
+    from .ops.noise import NoiseModel
+
+    kw = {}
+    for f in dataclasses.fields(NoiseModel):
+        v = getattr(nm, f.name)
+        if isinstance(v, np.ndarray):
+            v = np.array(v)
+        elif f.name == "coupling" and v is not None:
+            v = [tuple(int(q) for q in e) for e in v]
+        kw[f.name] = v
+    return NoiseModel(**kw)

@@ -161,12 +161,18 @@ class CompiledCircuit:
     ops: list                    # (matrix np.ndarray, axes tuple)
     clbit_sources: dict[int, int]  # clbit -> sim-qubit holding its value
     num_clbits: int
+    op_names: list | None = None  # per-op source gate name ("_defer" for
+                                  # measure-deferral / reset / c_if
+                                  # bookkeeping); None after fusion
 
 
 def compile_circuit(circ: Circuit, fuse: bool = False) -> CompiledCircuit:
-    """``fuse=True`` merges adjacent gates (ops/fusion.py)."""
+    """``fuse=True`` merges adjacent gates (ops/fusion.py) — exact paths
+    only; the trajectory noise engine needs the per-gate ops and their
+    names (``op_names``: the untranspiled noise binding reads them)."""
     n = circ.num_qubits
     ops: list[tuple[np.ndarray, tuple[int, ...]]] = []
+    names: list[str] = []
     clbit_sources: dict[int, int] = {}
     next_anc = n
 
@@ -191,6 +197,7 @@ def compile_circuit(circ: Circuit, fuse: bool = False) -> CompiledCircuit:
                 anc = next_anc
                 next_anc += 1
                 ops.append((CX, (q, anc)))
+                names.append("_defer")
                 clbit_sources[c] = anc
             continue
         if ins.name == "reset":
@@ -200,6 +207,7 @@ def compile_circuit(circ: Circuit, fuse: bool = False) -> CompiledCircuit:
             anc = next_anc
             next_anc += 1
             ops.append((SWAP, (q, anc)))
+            names.append("_defer")
             continue
         if ins.condition is not None:
             cbit, val = ins.condition
@@ -210,21 +218,27 @@ def compile_circuit(circ: Circuit, fuse: bool = False) -> CompiledCircuit:
                 raise NotImplementedError("only c_if(bit == 1) supported")
             if ins.name == "x":
                 ops.append((CX, (src, ins.qubits[0])))
+                names.append("_defer")
             elif ins.name == "z":
                 ops.append((CZ, (src, ins.qubits[0])))
+                names.append("_defer")
             else:
                 raise NotImplementedError(f"conditioned {ins.name}")
             continue
         if ins.name == "unitary":
             ops.append((np.asarray(ins.op), tuple(ins.qubits)))
+            names.append("unitary")
             continue
         ops.append((ins.matrix(), tuple(ins.qubits)))
+        names.append(ins.name)
 
     if fuse:
         from .fusion import fuse_ops
 
         ops = fuse_ops(ops)
-    return CompiledCircuit(next_anc, ops, clbit_sources, circ.num_clbits)
+        return CompiledCircuit(next_anc, ops, clbit_sources, circ.num_clbits)
+    return CompiledCircuit(next_anc, ops, clbit_sources, circ.num_clbits,
+                           op_names=names)
 
 
 def run_statevector(compiled: CompiledCircuit, device=None) -> torch.Tensor:

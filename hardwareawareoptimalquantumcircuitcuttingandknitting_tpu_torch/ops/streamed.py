@@ -24,15 +24,23 @@ dtype.  Two routes make the rows:
   (``meta["stage_align"]``); ``hoist_banks`` / ``meta["bank_fn"]`` build
   the banks once for many calls.  ``dtype=torch.bfloat16`` stores states
   and banks in bf16 (rows, folds, carry and knit stay float32).
-  ``trunc_eps`` drops the labels of least certified weight.
+  ``trunc_eps`` drops the labels of least certified weight.  ``noise``
+  (a NoiseModel, or one per fragment) runs a fragment's unfused plan with
+  ``trajectories`` balanced trajectories a label: the branch indices are
+  drawn on the host with numpy (the JAX package's draws, from
+  ``default_rng(seed)``) and streamed with the chunk, each row gathers
+  its sites' Kraus blocks on the device, the rows are averaged over the
+  trajectories and go through the per-bit readout channel before the
+  fold.  Noisy fragments take no bank, and noise refuses bf16,
+  ``trunc_eps`` and PEC models, as in the JAX package.
 * ``pallas_variant=True`` (``engine="pallas"``): every fragment's rows
   from a hand-written kernel, routed by simulated width as in the JAX
   package: up to 20 qubits the fold-fused variant kernel
   (ops/variant_kernel.py, rows arrive folded), 21..24 qubits the
   segmented blocked kernel (ops/blocked_kernel.py, rows folded here in
-  torch).  A fragment no kernel serves raises, and so does a bf16
-  ``dtype`` (the JAX package would quietly run the route without a
-  kernel instead).
+  torch).  A fragment no kernel serves raises, and so do a bf16
+  ``dtype`` and ``noise`` (the JAX package would quietly run the route
+  without a kernel instead): the kernels are exact and noise-free.
 
 :func:`run_virtual_circuit_streamed` adds carry checkpoints
 (``checkpoint_dir``: the scan in segments, ``stream_carry.npz`` written
@@ -40,8 +48,7 @@ atomically after each) and ``shots`` (without a checkpoint: projection
 and inverse-CDF draws on the device, only the indices fetched).
 
 Refused here with NotImplementedError (ROADMAP H100 port, queue A):
-trajectory noise (``noise``, ``trajectories``) and fragments past 24
-qubits on the kernel route (the sharded engine).
+fragments past 24 qubits on the kernel route (the sharded engine).
 """
 from __future__ import annotations
 
@@ -77,13 +84,33 @@ from .variant_engine import (
 )
 from .variant_kernel import make_folded_chunk_kernel
 
-_ITEM = "ROADMAP H100 port, queue A, 'other engines'"
+
+def _resolve_noise(virt: VirtualCircuit, noise):
+    """None | NoiseModel | list-per-fragment -> list per fragment."""
+    if noise is None:
+        return [None] * len(virt.fragments)
+    if isinstance(noise, (list, tuple)):
+        if len(noise) < len(virt.fragments):
+            raise ValueError(f"{len(noise)} noise models for "
+                             f"{len(virt.fragments)} fragments")
+        return list(noise)
+    return [noise] * len(virt.fragments)
 
 
-def _refuse(what: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported to the torch package yet: {_ITEM}"
-    )
+def _sample_pauli_indices(rng, site_tabs, count: int, traj: int) -> np.ndarray:
+    """[count, traj, n_sites] int32 branch indices into each site's own
+    Kraus bank (depolarising sites: 0 = identity, 1..3 = Pauli;
+    relaxation sites: 0 = no jump, 1 = decay, 2 = phase jump), the traj
+    axis balanced per (label, site) (ops/noise._site_idx) — the JAX
+    package's draws, site by site in the same order."""
+    from .noise import _site_idx
+
+    if not site_tabs:
+        return np.zeros((count, traj, 0), np.int32)
+    return np.stack([
+        _site_idx(rng, pr, (count, traj), balance_axis=1)
+        for pr, _ in site_tabs
+    ], axis=2)
 
 
 def _itemsize(dtype) -> int:
@@ -216,12 +243,13 @@ def _fragment_rows(virt, name, chunk, keep_clbits, z_clbits, dev,
 
 class _SimRows:
     """One fragment's rows without a kernel: the flat per-label plan, or
-    an ancestor bank plus a staged suffix (the JAX package's
+    an ancestor bank plus a staged suffix, or with noise the flat plan
+    over every (label, trajectory) (the JAX package's
     ``_rows_for_fragment``, with the batched closures of
     :func:`~.variant_engine.make_sim_fn` in place of ``vmap``)."""
 
     def __init__(self, sim_fn, tables, gcols, split, chunk, specs, dev,
-                 dtype):
+                 dtype, site_banks=None, readout=None):
         self.sim_fn = sim_fn
         self.tables = tables        # per slot: tuple of [nI, ...] blocks
         self.gcols = gcols          # per slot: its global vgate column
@@ -231,6 +259,8 @@ class _SimRows:
         self.specs = specs
         self.dev = dev
         self.dtype = dtype
+        self.site_banks = site_banks  # noise: site -> its plan's bank
+        self.readout = readout        # noise: [k, 2, 2] per-bit channel
 
     def _mats(self, sids, reps):
         return {sid: tuple(t[reps[:, self.gcols[sid]]]
@@ -258,9 +288,33 @@ class _SimRows:
             parts.append(prefix_fn(mats))
         return torch.cat(parts) if len(parts) > 1 else parts[0]
 
-    def rows(self, vidx_chunk, bank=None):
+    def noisy_rows(self, vidx_chunk, pidx):
+        """Rows ``[chunk, 2^k]`` of one chunk of labels under trajectory
+        noise: ``pidx [chunk, T, S]`` branch indices; each (label,
+        trajectory) row gathers its sites' blocks, the rows are averaged
+        over T, then the readout channel."""
+        from .noise import readout_rows
+
+        c, t = pidx.shape[:2]
+        mats = [tuple(tab[vidx_chunk[:, g]].repeat_interleave(t, dim=0)
+                      for tab in tabs)
+                for g, tabs in zip(self.gcols, self.tables)]
+        flat = pidx.reshape(c * t, -1)
+        pauli = {s: bank[flat[:, s]] for s, bank in self.site_banks.items()}
+        if mats or pauli:
+            rows = self.sim_fn(mats, self.dev, pauli)
+            rows = rows.reshape(c, t, -1).mean(dim=1)
+        else:
+            rows = self.sim_fn([], self.dev).expand(c, -1)
+        if self.readout is not None:
+            rows = readout_rows(rows, self.readout)
+        return rows
+
+    def rows(self, vidx_chunk, bank=None, pidx=None):
         """Rows ``[chunk, 2^k]`` (float32) of one chunk of labels."""
         sim_fn = self.sim_fn
+        if self.site_banks is not None:
+            return self.noisy_rows(vidx_chunk, pidx)
         if self.split is None:
             if not self.tables:
                 return sim_fn([], self.dev).expand(self.chunk, -1)
@@ -293,7 +347,7 @@ class _SimRows:
 
 def make_streamed_knit(
     virt: VirtualCircuit, chunk: int = 512, keep_clbits=None,
-    noise=None, trajectories: int | None = None,
+    noise=None, trajectories: int | None = None, seed: int = 0,
     z_clbits=None, share_prefix: bool = False,
     bank_budget_bytes: int | None = None,
     hoist_banks: bool = False, dtype=None, trunc_eps: float = 0.0,
@@ -306,8 +360,11 @@ def make_streamed_knit(
     "cuda").
 
     ``xs`` = ``(vidx [n_chunks, chunk, num_vgates] int64, valid
-    [n_chunks, chunk] float32)``, both on the device: per-label variant
-    indices plus a validity mask for the padded tail.  ``keep_clbits``:
+    [n_chunks, chunk] float32, *pidx)``, on the device: per-label variant
+    indices, a validity mask for the padded tail, then per fragment its
+    noise branch indices ``[n_chunks, chunk, T, S]`` int64 (``[...,
+    0, 0]`` for a noise-free fragment): every entry has the chunk axis
+    first, so a slice of each is a segment.  ``keep_clbits``:
     marginal knit (the carry lives on the marginal); ``z_clbits``: every
     data bit contracted, signed on the support (a scalar carry).
 
@@ -324,7 +381,10 @@ def make_streamed_knit(
     mode, route without a kernel only).  ``trunc_eps``: drop the labels
     of least certified weight while their summed bound stays <=
     trunc_eps (``meta["kept_labels"]``, ``meta["dropped_mass"]``: the
-    result moves at most that far in L1).
+    result moves at most that far in L1).  ``noise``: a NoiseModel or one
+    per fragment (None: exact), ``trajectories`` a label (default the
+    model's), branch indices drawn from ``default_rng(seed)`` fragment by
+    fragment as in the JAX package (module docstring).
 
     ``meta`` carries ``carry_shape``, ``segment_fn`` and ``finish_fn``
     (``finish_fn(segment_fn(carry, xs_seg[, banks]))`` == ``step_fn(xs)``
@@ -332,16 +392,25 @@ def make_streamed_knit(
     split), ``splits`` / ``stages`` per fragment, ``stage_align`` (the
     chunk multiple at which staging engages fully), ``fuse_qubits``,
     ``pallas_fragments`` (fragment -> kernel-backed), ``fragment_kernels``
-    (fragment -> ``"variant"`` | ``"blocked"`` | None) and
-    ``fragment_plans`` (fragment -> the kernel's device plan, or None).
+    (fragment -> ``"variant"`` | ``"blocked"`` | None),
+    ``fragment_plans`` (fragment -> the kernel's device plan, or None)
+    and ``fragment_rows`` (per fragment the function the scan calls a
+    chunk: ``fn(vidx_chunk, bank, pidx_chunk)`` -> folded rows).
 
     ``blocked_window``: test hook of the kernel route: send EVERY
     fragment through the blocked kernel at this window."""
-    if noise is not None:
-        _refuse("noise=")
-    if trajectories is not None:
-        _refuse("trajectories=")
+    models = _resolve_noise(virt, noise)
+    noisy = any(m is not None for m in models)
     dtype = torch.float32 if dtype is None else dtype
+    if noisy and pallas_variant:
+        raise ValueError(
+            "noise runs on the route without a kernel (pallas_variant="
+            "False, engine=\"streamed\"): the kernels are exact and "
+            "noise-free (ROADMAP H100 port, section C, 'On purpose')")
+    if noisy and dtype != torch.float32:
+        raise ValueError("bf16 serving mode is exact-path only")
+    if noisy and trunc_eps > 0.0:
+        raise ValueError("truncation is exact-path only")
     if blocked_window is not None and not pallas_variant:
         raise ValueError("blocked_window is a hook of the kernel route "
                          "(pallas_variant=True)")
@@ -368,30 +437,57 @@ def make_streamed_knit(
                                labels=kept_labels)
 
     frag_names = [r.name for r in virt.fragments]
-    rows_fns, data_positions = [], []
+    rng = np.random.default_rng(seed)
+    rows_fns, data_positions, pidx = [], [], []
     kernels, plans, splits, fqs = {}, {}, [], {}
     sims: list[_SimRows | None] = []
-    for name in frag_names:
+    for name, nm in zip(frag_names, models):
         if pallas_variant:
             kernels[name], rows_fn, kept, plans[name] = _fragment_rows(
                 virt, name, chunk, keep_clbits, z_clbits, dev,
                 blocked_window,
             )
-            rows_fns.append(rows_fn)
+            rows_fns.append(lambda vidx_chunk, bank, pidx_chunk, _fn=rows_fn:
+                            _fn(vidx_chunk))
             data_positions.append(kept)
             splits.append(None)
             sims.append(None)
+            pidx.append(np.zeros((padded, 0, 0), np.int32))
             continue
         prog = virt.programs[name]
-        fq = fqs[name] = _pick_fuse_qubits(virt, name, dtype)
+        # the noise path keeps the unfused per-gate stream
+        fq = fqs[name] = (3 if nm is not None
+                          else _pick_fuse_qubits(virt, name, dtype))
+        fused = nm is None
         sim_fn, _, positions, _ = make_sim_fn(
-            virt, name, build_matrices=False, fused_slots=True,
+            virt, name, noise=nm, build_matrices=False, fused_slots=fused,
             dtype=dtype, fuse_qubits=fq,
         )
         tables = [to_device(list(t), dev, dtype)
-                  for t in _slot_tables(prog, specs, fused=True)]
+                  for t in _slot_tables(prog, specs, fused=fused)]
+        site_banks = readout = None
+        if nm is None:
+            pidx.append(np.zeros((padded, 0, 0), np.int32))
+        else:
+            if any(w is not None for (*_, w) in sim_fn.noise_sites):
+                raise ValueError(
+                    "PEC (signed quasi-sites) is batched-engine-only: "
+                    "run_noisy_virtual_circuit(engine='auto')")
+            site_tabs = [(pr, bank)
+                         for (_, _, pr, bank, _) in sim_fn.noise_sites]
+            pidx.append(_sample_pauli_indices(
+                rng, site_tabs, padded, trajectories or nm.trajectories))
+            site_banks = {s: to_device(sim_fn.site_banks[s], dev)
+                          for s in sim_fn.active_sites}
+            from .noise import _readout_mats, fragment_readout_qubits
+
+            cq = fragment_readout_qubits(virt, name, sim_fn)
+            if positions:
+                readout = to_device(_readout_mats(
+                    nm, [cq.get(c, j) for j, c in enumerate(positions)]),
+                    dev)
         split = None
-        if share_prefix:
+        if share_prefix and nm is None:
             # sized against the labels that actually run
             sp = split_plan(sim_fn, prog, specs, n_labels,
                             bank_budget_bytes, hoisted=hoist_banks,
@@ -406,16 +502,16 @@ def make_streamed_knit(
                 split = (sp, prefix_fn, stages, r_anc)
         splits.append(split)
         sim = _SimRows(sim_fn, tables, [s.vgate_idx for s in prog.slots],
-                       split, chunk, specs, dev, dtype)
+                       split, chunk, specs, dev, dtype, site_banks, readout)
         sims.append(sim)
         steps, w_tabs, kept = _fold_plan(virt, name, positions,
                                          keep_clbits, z_clbits)
         w_dev = [(g, to_device(t, dev)) for g, t in w_tabs]
 
-        def sim_rows(vidx_chunk, bank=None, _sim=sim, _steps=steps,
-                     _w=w_dev):
-            return _apply_fold(_sim.rows(vidx_chunk, bank), _steps, _w,
-                               vidx_chunk)
+        def sim_rows(vidx_chunk, bank=None, pidx_chunk=None, _sim=sim,
+                     _steps=steps, _w=w_dev):
+            return _apply_fold(_sim.rows(vidx_chunk, bank, pidx_chunk),
+                               _steps, _w, vidx_chunk)
 
         rows_fns.append(sim_rows)
         data_positions.append(kept)
@@ -442,11 +538,10 @@ def make_streamed_knit(
     def segment_fn(carry, xs_seg, banks=None):
         if banks is None and any_split:
             banks = bank_fn()
-        vidx_seg, valid_seg = xs_seg
+        vidx_seg, valid_seg, *pidx_seg = xs_seg
         for c in range(vidx_seg.shape[0]):
-            es = [fn(vidx_seg[c]) if sims[fi] is None
-                  else fn(vidx_seg[c], None if banks is None
-                          else banks[fi])
+            es = [fn(vidx_seg[c], None if banks is None else banks[fi],
+                     pidx_seg[fi][c])
                   for fi, fn in enumerate(rows_fns)]
             es[0] = es[0] * valid_seg[c][:, None]
             carry = carry + torch.einsum(expr, *es)
@@ -468,6 +563,8 @@ def make_streamed_knit(
     xs = (
         to_device(vidx.reshape(n_chunks, chunk, -1), dev, torch.int64),
         to_device(valid.reshape(n_chunks, chunk), dev),
+        *(to_device(a.reshape((n_chunks, chunk) + a.shape[1:]), dev,
+                    torch.int64) for a in pidx),
     )
     # the chunk multiple at which staging engages fully (lcm over the
     # split fragments); a truncated label set never stages: 1
@@ -498,6 +595,7 @@ def make_streamed_knit(
         "pallas_fragments": {name: pallas_variant for name in frag_names},
         "fragment_kernels": kernels,
         "fragment_plans": plans,
+        "fragment_rows": rows_fns,
     }
     if pallas_variant:
         get_logger(__name__).info(
@@ -517,13 +615,20 @@ def make_streamed_knit(
 _CHUNK_BYTES_BUDGET = 512 * 1024 * 1024
 
 
-def auto_chunk(virt: VirtualCircuit, requested: int) -> int:
-    """Cap the requested chunk so one chunk's states stay within the
-    budget, and never pad a small fan-out up to a huge chunk."""
+def auto_chunk(virt: VirtualCircuit, requested: int, trajectories: int = 1,
+               noisy: bool = False) -> int:
+    """Cap the requested chunk so one chunk's states (``trajectories`` a
+    label) stay within the budget — an eighth of it when ``noisy`` (the
+    JAX package's rule for its unfused trajectory body, kept so both
+    packages pad the labels, and so draw the noise, alike) — and never
+    pad a small fan-out up to a huge chunk."""
     max_n = max(
         (p.num_sim_qubits for p in virt.programs.values()), default=1
     )
-    cap = max(8, _CHUNK_BYTES_BUDGET // (2 * (1 << max_n) * 4))
+    budget = _CHUNK_BYTES_BUDGET
+    if noisy or trajectories > 1:
+        budget //= 8
+    cap = max(8, budget // (2 * (1 << max_n) * 4 * max(1, trajectories)))
     total = 1
     for vg in virt.vgates:
         total *= vg.spec.num_instantiations
@@ -538,10 +643,13 @@ _STREAM_CKPT = "stream_carry.npz"
 
 
 def _stream_fingerprint(virt, chunk, segment_chunks, seed, dtype=None,
-                        trunc_eps: float = 0.0, keep_clbits=None) -> str:
+                        trunc_eps: float = 0.0, keep_clbits=None,
+                        models=None, trajectories=None) -> str:
     """Identity of a segmented scan's carry: the circuit's results
-    fingerprint (utils/checkpoint), the chunking, the seed, truncation
-    and the marginal — the JAX package's digest for a noise-free run."""
+    fingerprint (utils/checkpoint), the chunking, the seed, truncation,
+    the marginal and every fragment's noise model (``models``, None: all
+    exact; rates, trajectories, coupling, relaxation and the per-qubit
+    calibration vectors) — the JAX package's digest."""
     import hashlib
 
     from ..utils.checkpoint import checkpoint_fingerprint
@@ -555,8 +663,29 @@ def _stream_fingerprint(virt, chunk, segment_chunks, seed, dtype=None,
     if keep_clbits is not None:
         # a marginal run's carry has the marginal's width and layout
         h.update(f"|keep={sorted(keep_clbits)}".encode())
-    for _ in virt.fragments:
-        h.update(b"none")  # no noise model on any fragment
+    for nm in models or [None] * len(virt.fragments):
+        if nm is None:
+            h.update(b"none")
+            continue
+        h.update(
+            f"{nm.name}|{nm.p1}|{nm.p2}|{nm.readout01}|{nm.readout10}|"
+            f"{trajectories or nm.trajectories}|{nm.untranspiled}|"
+            f"{sorted(map(tuple, nm.coupling)) if nm.coupling else None}"
+            .encode()
+        )
+        # models differing only in T1/T2 must not share a checkpoint
+        h.update(
+            f"|t1={nm.t1}|t2={nm.t2}|g1={nm.gate_time_1q}"
+            f"|g2={nm.gate_time_2q}".encode()
+        )
+        # nor models differing only in their per-qubit vectors
+        for vec in (nm.p1_q, nm.p2_q, nm.ro01_q, nm.ro10_q, nm.t1_q,
+                    nm.t2_q):
+            if vec is None:
+                h.update(b"|none")
+            else:
+                a = np.ascontiguousarray(np.asarray(vec, np.float64))
+                h.update(b"|" + a.tobytes())
     return h.hexdigest()
 
 
@@ -591,7 +720,8 @@ def _save_stream_checkpoint(directory, fingerprint, carry, next_segment):
 
 
 def _run_segments(virt, meta, xs, chunk, checkpoint_dir, segment_chunks,
-                  seed, dtype, trunc_eps, keep_clbits):
+                  models, trajectories, seed, dtype, trunc_eps,
+                  keep_clbits):
     """The scan in segments of ``segment_chunks`` chunks, the carry saved
     after each; resumes at the first unfinished segment of a matching
     checkpoint.  The banks are built once, not once a segment.  Returns
@@ -605,7 +735,8 @@ def _run_segments(virt, meta, xs, chunk, checkpoint_dir, segment_chunks,
         xs = tuple(torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
                    for a in xs)
     fp = _stream_fingerprint(virt, chunk, seg, seed, dtype=dtype,
-                             trunc_eps=trunc_eps, keep_clbits=keep_clbits)
+                             trunc_eps=trunc_eps, keep_clbits=keep_clbits,
+                             models=models, trajectories=trajectories)
     carry, start = _load_stream_checkpoint(checkpoint_dir, fp,
                                            meta["carry_shape"])
     dev = xs[0].device
@@ -619,6 +750,13 @@ def _run_segments(virt, meta, xs, chunk, checkpoint_dir, segment_chunks,
         _save_stream_checkpoint(checkpoint_dir, fp, carry.cpu().numpy(),
                                 si + 1)
     return meta["finish_fn"](carry)
+
+
+def _traj_eff(models, trajectories) -> int:
+    """Trajectories a label of the widest noisy fragment (1 without
+    noise): what :func:`auto_chunk` sizes the chunk by."""
+    return max([trajectories or nm.trajectories
+                for nm in models if nm is not None], default=1)
 
 
 def run_virtual_circuit_streamed(
@@ -641,9 +779,12 @@ def run_virtual_circuit_streamed(
     """End-to-end streamed execution on ``device`` (None = "cuda").
     ``chunk`` is capped by :func:`auto_chunk` (never rounded to
     ``meta["stage_align"]``: staging engages where the caller's chunk is
-    aligned).  ``share_prefix``: None = on.  ``keep_clbits``: marginal
-    knit.  ``project``: Smolin projection onto the simplex, on the
-    device before the fetch.
+    aligned; with noise the trajectories count against the budget, and
+    the budget is an eighth).  ``share_prefix``: None = on.
+    ``keep_clbits``: marginal knit.  ``project``: Smolin projection onto
+    the simplex, on the device before the fetch.  ``noise``,
+    ``trajectories``, ``seed``: trajectory noise
+    (:func:`make_streamed_knit`); ``seed`` also seeds the shots.
 
     ``checkpoint_dir``: run the scan in segments of ``segment_chunks``
     chunks (default min(n_chunks, 16)), saving the carry after each; a
@@ -657,10 +798,12 @@ def run_virtual_circuit_streamed(
     on the device, and only the ``[shots]`` outcome indices and the mass
     are fetched; with it, numpy's :func:`~.sampling.sample_distribution`
     on the fetched values.  A non-positive mass raises ValueError."""
-    chunk = auto_chunk(virt, chunk)
+    models = _resolve_noise(virt, noise)
+    chunk = auto_chunk(virt, chunk, _traj_eff(models, trajectories),
+                       noisy=any(m is not None for m in models))
     step_fn, xs, meta = make_streamed_knit(
-        virt, chunk, keep_clbits=keep_clbits, noise=noise,
-        trajectories=trajectories,
+        virt, chunk, keep_clbits=keep_clbits, noise=models,
+        trajectories=trajectories, seed=seed,
         share_prefix=True if share_prefix is None else share_prefix,
         dtype=dtype, trunc_eps=trunc_eps, pallas_variant=pallas_variant,
         device=device,
@@ -684,8 +827,8 @@ def run_virtual_circuit_streamed(
         values = step_fn(xs)
     else:
         values = _run_segments(virt, meta, xs, chunk, checkpoint_dir,
-                               segment_chunks, seed, dtype, trunc_eps,
-                               keep_clbits)
+                               segment_chunks, models, trajectories, seed,
+                               dtype, trunc_eps, keep_clbits)
     if shots is not None:
         from .sampling import sample_distribution
 
@@ -706,11 +849,12 @@ def streamed_expectation_z(
     """<prod_{c in z_clbits} Z_c> of the reconstructed distribution,
     computed with a SCALAR carry: every data bit is contracted per
     fragment and label (signed on the Z support), so no distribution of
-    any size materialises for any circuit width; one scalar fetch.
-    Exact and noise-free, on ``device`` (None = "cuda"); the rows come
-    from the kernels with ``pallas_variant=True``.  ``seed`` is the JAX
-    package's trajectory seed: it takes effect with ``noise``, which is
-    not ported yet."""
+    any size materialises for any circuit width; one scalar fetch.  On
+    ``device`` (None = "cuda"); the rows come from the kernels with
+    ``pallas_variant=True``.  ``noise`` (a NoiseModel or one per
+    fragment), ``trajectories``, ``seed``: the observable of the
+    trajectory-noise + readout-channel estimate (the scan's noise path,
+    :func:`make_streamed_knit`)."""
     # every Z support bit must be WRITTEN by a measure — an unmeasured
     # clbit would silently contract as (+1,+1) and report 1.0
     written = {
@@ -723,9 +867,12 @@ def streamed_expectation_z(
             f"z_clbits {sorted(missing)} are never measured "
             f"(written data clbits: {sorted(written)})"
         )
+    models = _resolve_noise(virt, noise)
+    chunk = auto_chunk(virt, chunk, _traj_eff(models, trajectories),
+                       noisy=any(m is not None for m in models))
     step_fn, xs, _ = make_streamed_knit(
-        virt, auto_chunk(virt, chunk), z_clbits=frozenset(z_clbits),
-        noise=noise, trajectories=trajectories,
+        virt, chunk, z_clbits=frozenset(z_clbits),
+        noise=models, trajectories=trajectories, seed=seed,
         share_prefix=share_prefix, dtype=dtype,
         pallas_variant=pallas_variant, device=device,
     )

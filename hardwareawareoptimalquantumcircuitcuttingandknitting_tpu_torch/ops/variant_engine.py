@@ -10,10 +10,13 @@ coefficients, and large fan-outs run in chunks capped by bytes.  The
 per-variant program is the JAX package's lazy plan: qubits are introduced
 at the start of the slot-delimited segment of their first op, the
 variant-independent prefix runs once on the host, fixed-gate runs are
-fused (ops/fusion.py).  Exact and noise-free, in float32 or (``dtype=
-torch.bfloat16``, the serving mode) bf16 states with float32 rows:
-``noise`` and ``collapse=True`` raise ``NotImplementedError`` naming
-their ROADMAP item.
+fused (ops/fusion.py).  Exact, in float32 or (``dtype=
+torch.bfloat16``, the serving mode) bf16 states with float32 rows; or,
+with ``noise`` (a NoiseModel, ops/noise.py), the unfused op stream
+(routed onto the model's coupling map) with trajectory noise sites as
+plan steps, each row applying its own gathered Kraus block.
+``collapse=True`` raises ``NotImplementedError`` naming its ROADMAP
+item.
 
 The shared-prefix planners of the streamed scan (:func:`split_plan`,
 :func:`suffix_stages`, :func:`ideal_stage_align`, :func:`make_prefix_fn`)
@@ -348,21 +351,25 @@ def _apply_block(state, blk, axes, m, mask=None):
     """One plan step's block on ``state [V, 2, 2^m]``: a slice
     combination up to 3 qubits, one einsum above (the JAX package's
     ``apply_matrix`` routes: fused blocks of 4-5 qubits would cost 4^k
-    slice multiply-adds).  A bf16 state is combined in float32 with its
-    bf16 constants and stored back once: one rounding a pass, as a fused
-    pass would round, not one per multiply-add."""
+    slice multiply-adds), and one einsum for a per-row block without a
+    known nonzero pattern (the noise path's unfused slot blocks and
+    sampled sites: a slice combination would multiply every entry, each
+    a pass).  A bf16 state is combined in float32 with its bf16
+    constants and stored back once: one rounding a pass, as a fused pass
+    would round, not one per multiply-add."""
     dtype = state.dtype
     if dtype != torch.float32:
         return _apply_block(state.to(torch.float32), blk if isinstance(
             blk, torch.Tensor) else _round_block(blk, dtype), axes, m,
             mask).to(dtype)
-    if len(axes) > 3:
+    if len(axes) > 3 or (isinstance(blk, torch.Tensor) and mask is None):
         return apply_block_einsum(state, blk, axes, m)
     ur, ui = _block_coefs(blk, mask)
     return apply_slices(state, ur, ui, axes, m)
 
 
-def exec_plan_steps(state, m, steps, slot_mats, slot_masks=None):
+def exec_plan_steps(state, m, steps, slot_mats, slot_masks=None,
+                    pauli_mats=None):
     """Run a slice of a fragment's lazy execution plan (the step list
     built by :func:`make_sim_fn`) on flat real-rep states ``[V, 2, 2^m]``,
     one per variant, in the states' dtype.  ``slot_mats`` maps slot id ->
@@ -370,7 +377,11 @@ def exec_plan_steps(state, m, steps, slot_mats, slot_masks=None):
     composed blocks for a fused ``"slot"`` step; a list or a dict keyed
     by slot id).  ``slot_masks`` (slot id -> union nonzero pattern of the
     slot's fused table) lets a fused slot block skip its structurally
-    zero entries.  Returns ``(state, m)``."""
+    zero entries.  ``pauli_mats`` maps noise-site id -> the sampled
+    branch block of every row ``[V, 2, k, 2, k]`` (one contraction a
+    site; k = 2 for a lone site, the gate's width where the site's bank
+    carries its gate, see :func:`make_sim_fn`); without it the noise
+    steps are skipped.  Returns ``(state, m)``."""
     v = state.shape[0]
     for stp in steps:
         kind = stp[0]
@@ -383,7 +394,14 @@ def exec_plan_steps(state, m, steps, slot_mats, slot_masks=None):
             m += 1
             continue
         mask = None
-        if kind == "u":
+        if kind == "pauli":
+            if pauli_mats is not None:
+                blk = pauli_mats[stp[1]]
+            elif len(stp) > 3:
+                blk = stp[3]  # noise-free: the gate the site carries
+            else:
+                continue
+        elif kind == "u":
             blk = stp[1]
         elif kind == "slot":
             blk = slot_mats[stp[1]][0]
@@ -672,6 +690,20 @@ def make_prefix_fn(sim_fn, sp: SplitPlan):
     return prefix_fn
 
 
+def _gate_bank(bank: np.ndarray, u: np.ndarray) -> np.ndarray:
+    """A 1-qubit site's real bank ``[B, 2, 2, 2, 2]`` times a k-qubit gate
+    ``u`` whose first qubit (the MSB of its index) the site sits on: the
+    real blocks of ``kron(K_b, I) @ u``, ``[B, 2, 2^k, 2, 2^k]`` — branch
+    b applied right after the gate in one pass."""
+    u = np.asarray(u, np.complex128)
+    eye = np.eye(u.shape[0] // 2)
+    return np.stack([
+        to_real_block(np.kron(blk[0, :, 0, :] + 1j * blk[1, :, 0, :], eye)
+                      @ u)
+        for blk in np.asarray(bank, np.float64)
+    ])
+
+
 def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
                 build_matrices: bool = True, fuse_qubits: int = 3,
                 fused_slots: bool = False, dtype=None,
@@ -694,49 +726,99 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
 
     ``sim_fn.run_plan`` (the per-variant steps after the shared host
     prefix), ``prefix_width``, ``prefix_state``, ``active_final``,
-    ``sources``, ``slot_masks`` and ``dtype`` are the JAX closure's
-    attributes.
+    ``sources``, ``slot_masks``, ``dtype``, ``noise_sites`` and
+    ``readout_device`` are the JAX closure's attributes.
 
     ``dtype``: the states' storage dtype (default float32).
     ``torch.bfloat16`` is the serving mode: the prefix state, every pass
     and the slot blocks are bf16, host gate constants are rounded to it,
     and :func:`finish_row` squares in float32, so rows are float32.
 
-    ``noise`` (trajectory noise) and ``collapse=True`` (sampled
-    measurement: the sampled engine's collapse kernel serves it,
-    ops/collapse_kernel.py) are not ported to this function and raise
-    ``NotImplementedError``."""
-    for what, on in (("noise=", noise is not None),
-                     ("collapse=True", collapse)):
-        if on:
-            raise NotImplementedError(
-                f"make_sim_fn({what}) is not ported to the torch package "
-                f"yet: {_ITEM} (the batched engine is exact and "
-                "noise-free)"
-            )
+    ``noise`` (a NoiseModel): the fragment's unfused op stream (no fused
+    slots, no fused gate runs), routed onto ``noise.coupling`` when the
+    model has one (``sim_fn.readout_device``: clbit -> device node
+    holding it), with the physical-gate noise sites
+    (ops/noise.fragment_noise_sites; ``sim_fn.noise_sites``) as
+    ``("pauli", site, axes)`` steps at their op's width.
+    ``sim_fn(slot_mats, device, pauli_mats)`` then takes ``pauli_mats``:
+    site id -> the sampled branch block of every row ``[V, 2, k, 2, k]``,
+    for the sites in ``sim_fn.active_sites`` (a site whose identity
+    branch has probability 1 draws the identity and is left out of the
+    plan), gathered from ``sim_fn.site_banks[site]``: the site's own
+    bank, or for the first site of a gate on the gate's first qubit the
+    bank times the gate (``kron(K_b, I) @ U``: the gate and its site are
+    one pass, ``("pauli", site, gate axes, gate block)``).  A fragment
+    without slots takes ``V`` from those blocks.  Float32 only.
+
+    ``collapse=True`` (sampled measurement: the sampled engine's collapse
+    kernel serves it, ops/collapse_kernel.py) is not ported to this
+    function and raises ``NotImplementedError``."""
+    if collapse:
+        raise NotImplementedError(
+            "make_sim_fn(collapse=True) is not ported to the torch package "
+            f"yet: {_ITEM} (the batched engine runs deferred measurement)"
+        )
     dtype = torch.float32 if dtype is None else dtype
+    if noise is not None and dtype != torch.float32:
+        raise ValueError("bf16 serving mode is exact-path only")
     from .fusion import fused_stream
 
     prog = virt.programs[frag_name]
     specs = [vg.spec for vg in virt.vgates]
     strides, n_inst, flat_count = label_strides(specs, prog.touching)
     clbit_sources = prog.clbit_sources
+    # the noise path keeps the unfused per-step stream (slot_post noise
+    # sites attach to individual endpoint ops)
+    fused_slots = fused_slots and noise is None
+    phys = None
+    readout_device = None
 
-    # fuse contiguous fixed-gate runs between slots into blocks of up to
-    # ``fuse_qubits`` qubits
-    source_ops = _fuse_slot_ops(prog.ops) if fused_slots else prog.ops
-    skeleton, mats = fused_stream(source_ops, max_qubits=fuse_qubits)
-    prog_ops = []
-    bi = 0
-    for op in skeleton:
-        if op[0] == "u":
-            prog_ops.append(("u", mats[bi], op[1]))
-            bi += 1
-        else:
-            prog_ops.append(op)
+    if noise is None:
+        # fuse contiguous fixed-gate runs between slots into blocks of up
+        # to ``fuse_qubits`` qubits
+        source_ops = _fuse_slot_ops(prog.ops) if fused_slots else prog.ops
+        skeleton, mats = fused_stream(source_ops, max_qubits=fuse_qubits)
+        prog_ops = []
+        bi = 0
+        for op in skeleton:
+            if op[0] == "u":
+                prog_ops.append(("u", mats[bi], op[1]))
+                bi += 1
+            else:
+                prog_ops.append(op)
+    elif noise.coupling is not None:
+        from ..circuit.routing import route_stream
+
+        routed = route_stream(prog.ops, prog.num_data_qubits,
+                              prog.clbit_sources, noise.coupling)
+        prog_ops = routed.ops
+        phys = routed.phys
+        clbit_sources = routed.clbit_sources
+        # device node holding each written clbit's value, for calibrated
+        # readout lookup (the uncut simulator's rule)
+        readout_device = {
+            c: (routed.slot_device[s] if s < len(routed.slot_device)
+                else None)
+            for c, s in clbit_sources.items()
+        }
+    else:
+        prog_ops = prog.ops
 
     positions = sorted(clbit_sources)
     sources = [clbit_sources[c] for c in positions]
+    noise_sites = []
+    if noise is not None:
+        from .noise import _site_active, fragment_noise_sites
+
+        noise_sites = fragment_noise_sites(noise, prog_ops, phys)
+    # the bank each site's plan step gathers from (a site that opens its
+    # gate's step carries the gate, below); inactive sites always draw the
+    # identity and stay out of the plan
+    site_banks = {s_i: site[3] for s_i, site in enumerate(noise_sites)}
+    sites_after: dict[int, list[int]] = {}
+    for s_i, (op_i, _q, probs, _b, _w) in enumerate(noise_sites):
+        if _site_active(probs):
+            sites_after.setdefault(op_i, []).append(s_i)
 
     # Lazy qubit introduction: a sim qubit's state bit exists only from
     # the start of the slot-delimited SEGMENT of its first op ("ins" grows
@@ -771,15 +853,26 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
             cur_seg = op_seg[op_i]
         kind, axes = op[0], op[2]
         tr = tuple(active.index(q) for q in axes)
-        if kind in ("u", "u_aux"):
+        after = sites_after.get(op_i, [])
+        if kind == "u" and after and noise_sites[after[0]][1] == axes[0]:
+            # the gate and its first site as one per-row block: the
+            # site's bank times the gate, on the gate's qubits
+            # ("pauli", site, axes, gate block for a noise-free call)
+            s_i, after = after[0], after[1:]
+            site_banks[s_i] = _gate_bank(noise_sites[s_i][3], op[1])
+            plan.append(("pauli", s_i, tr, to_real_block(op[1])))
+        elif kind in ("u", "u_aux"):
             plan.append(("u", to_real_block(op[1]), tr))
         else:
             plan.append((kind, op[1], tr))  # payload = slot id
+        for s_i in after:
+            plan.append(("pauli", s_i, (active.index(noise_sites[s_i][1]),)))
     active_final = list(active)
 
-    # Prefix sharing: every plan step before the first slot step is
-    # identical across the whole fan-out: run it ONCE on the host; each
-    # variant starts from the resulting constant state.
+    # Prefix sharing: every plan step before the first variant-dependent
+    # step (slot blocks, sampled noise sites) is identical across the
+    # whole fan-out: run it ONCE on the host; each variant starts from
+    # the resulting constant state.
     first_var = next(
         (i for i, stp in enumerate(plan) if stp[0] not in ("ins", "u")),
         len(plan),
@@ -808,20 +901,29 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
             for sid, tabs in enumerate(_slot_tables(prog, specs, fused=True))
         }
 
-    def sim_fn(slot_mats, device=None):
-        # the slot blocks' device; without a slot, ``device`` (None = "cuda")
-        if slot_mats:
-            first = slot_mats[0][0]
+    def sim_fn(slot_mats, device=None, pauli_mats=None):
+        # the blocks' device and row count; without any, ``device`` (None
+        # = "cuda") and one row
+        first = (slot_mats[0][0] if slot_mats
+                 else next(iter(pauli_mats.values())) if pauli_mats
+                 else None)
+        if first is not None:
             v, dev = first.shape[0], first.device
         else:
             v, dev = 1, resolve_device(device)
         state = to_device(prefix_state, dev, dtype).expand(v, 2, 1 << m0)
         slot_mats = [tuple(t.to(dtype) for t in tabs) for tabs in slot_mats]
         state, m = exec_plan_steps(state, m0, run_plan, slot_mats,
-                                   slot_masks=slot_masks)
+                                   slot_masks=slot_masks,
+                                   pauli_mats=pauli_mats)
         return finish_row(state, m, active_final, sources)
 
     sim_fn.dtype = dtype
+    sim_fn.noise_sites = noise_sites
+    sim_fn.site_banks = site_banks
+    sim_fn.active_sites = sorted({stp[1] for stp in run_plan
+                                  if stp[0] == "pauli"})
+    sim_fn.readout_device = readout_device
     sim_fn.slot_masks = slot_masks
     sim_fn.run_plan = run_plan
     sim_fn.prefix_width = m0
@@ -837,18 +939,29 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
     return sim_fn, all_mats, positions, flat_count
 
 
-def scan_variant_rows(sim_fn, all_mats, total: int, chunk: int, device):
+def scan_variant_rows(sim_fn, all_mats, total: int, chunk: int, device,
+                      sites=None):
     """``sim_fn`` over every variant row, ``chunk`` variants at a time:
     ``all_mats`` (per slot a tuple of numpy blocks with leading dim
     ``total``) is moved to ``device`` chunk by chunk, the rows ``[total,
     width]`` stay there.  A plain loop: each step is device work of one
-    chunk, and nothing is fetched in between."""
+    chunk, and nothing is fetched in between.  ``sites``: a noisy
+    closure's ``[total]`` branch index of every row, per noise site; each
+    chunk gathers its rows' blocks from ``sim_fn.site_banks`` on the
+    device."""
     dev = torch.device(device)
+    if sites is not None:
+        banks = {s: to_device(sim_fn.site_banks[s], dev)
+                 for s in sim_fn.active_sites}
+        idx_dev = {s: to_device(sites[s], dev, torch.int64)
+                   for s in sim_fn.active_sites}
     out = None
     for c0 in range(0, total, chunk):
         mats = [tuple(to_device(t[c0:c0 + chunk], dev) for t in tabs)
                 for tabs in all_mats]
-        rows = sim_fn(mats)
+        pauli = None if sites is None else {
+            s: banks[s][idx_dev[s][c0:c0 + chunk]] for s in banks}
+        rows = sim_fn(mats, dev, pauli)
         if out is None:
             out = torch.empty((total, rows.shape[1]), dtype=torch.float32,
                               device=dev)

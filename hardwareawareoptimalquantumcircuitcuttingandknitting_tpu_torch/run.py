@@ -153,7 +153,6 @@ def run_virtual_circuit(
     sample_pallas: bool = True,
     keep_clbits=None,
     device=None,
-    noise=None,
     teleport: str = "qpd",
 ) -> tuple[Distribution, RunTimeInfo]:
     """Simulate the QPD labels of every fragment, knit and (``project``)
@@ -206,10 +205,12 @@ def run_virtual_circuit(
     on another engine.  Refused by this package, with ValueError: a
     ``dtype`` other than float32 on "pallas" (the kernels are float32;
     use "streamed").  Not ported, NotImplementedError naming the ROADMAP
-    item: ``noise``, ``mesh``, ``tracer``, ``max_local_qubits``,
+    item: ``mesh``, ``tracer``, ``max_local_qubits``,
     ``teleport="execute"``, ``engine="sharded"``, ``sample_pallas=False``
     and a bf16 sampled engine.  Their JAX defaults (None, None, None,
-    None, "qpd") give the JAX result."""
+    "qpd") give the JAX result.  Noisy execution goes through
+    ``ops.noise.run_noisy_virtual_circuit``, as in the JAX package (no
+    ``noise`` keyword here)."""
     if teleport not in ("qpd", "execute"):
         raise ValueError(f"unknown teleport mode {teleport!r}")
     given = {"tracer": tracer, "max_local_qubits": max_local_qubits,
@@ -227,13 +228,10 @@ def run_virtual_circuit(
         )
     if engine not in ("auto", "xla", "streamed", "pallas", "sampled"):
         raise ValueError(f"unknown engine {engine!r}")
-    for name, value, what in (("noise", noise, "noise"),
-                              ("mesh", mesh, "mesh")):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported to the torch package yet: {_ITEM} "
-                f"({what})"
-            )
+    if mesh is not None:
+        raise NotImplementedError(
+            f"mesh= is not ported to the torch package yet: {_ITEM} (mesh)"
+        )
     if trunc_eps and engine not in ("auto", "streamed"):
         raise ValueError(
             "trunc_eps (certified truncation) is a streamed-engine "

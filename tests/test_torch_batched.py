@@ -234,10 +234,16 @@ def test_chunk_cap_bounds_bytes():
     dict(noise=object()), dict(dtype=torch.bfloat16), dict(collapse=True),
 ], ids=["noise", "dtype", "collapse"])
 def test_make_sim_fn_refusals_name_their_roadmap_item(kw):
-    """Noise and collapse stay refused; bf16 states (the serving mode)
-    run since the streamed engine landed: float32 rows within 5e-3 of
-    the f32 closure's."""
+    """Collapse stays refused.  bf16 states (the serving mode) run since
+    the streamed engine landed: float32 rows within 5e-3 of the f32
+    closure's.  Noise runs since the noise slice landed: with a routed,
+    calibrated model and the same branch indices a site, the rows equal
+    the JAX closure's within 1e-6, and the sites and readout nodes are
+    the JAX closure's bit for bit."""
     jv, tv, _, _ = _case("chain5")
+    if "noise" in kw:
+        _noisy_rows_match(jv, tv)
+        return
     if "dtype" not in kw:
         with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
             tve.make_sim_fn(tv, "frag0", **kw)
@@ -252,6 +258,37 @@ def test_make_sim_fn_refusals_name_their_roadmap_item(kw):
     assert rows[torch.bfloat16].dtype == torch.float32
     assert float((rows[torch.bfloat16] - rows[torch.float32]).abs().max()) \
         < 5e-3
+
+
+def _noisy_rows_match(jv, tv):
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.ops import (  # noqa: E501
+        noise as jnoise,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.convert import (  # noqa: E501
+        noise_model_from_other,
+    )
+
+    jm = jnoise.fake_kolkata_v2(relaxation=True)
+    sim_one, jmats, jpos, count = jve.make_sim_fn(jv, "frag0", noise=jm)
+    sim_fn, tmats, tpos, tcount = tve.make_sim_fn(
+        tv, "frag0", noise=noise_model_from_other(jm))
+    assert (tpos, tcount) == (jpos, count)
+    assert sim_fn.readout_device == sim_one.readout_device
+    assert len(sim_fn.noise_sites) == len(sim_one.noise_sites)
+    for a, b in zip(sim_one.noise_sites, sim_fn.noise_sites):
+        assert a[:2] == b[:2]
+        for x, y in zip(a[2:], b[2:]):
+            assert (x is None and y is None) or np.array_equal(x, y)
+    rng = np.random.default_rng(4)
+    idx = [jnoise._site_idx(rng, pr, (count,))
+           for (_, _, pr, _, _) in sim_one.noise_sites]
+    want = jax.vmap(sim_one)(
+        jmats, [site[3][i] for site, i in zip(sim_one.noise_sites, idx)])
+    got = sim_fn(
+        [tuple(torch.as_tensor(t) for t in tabs) for tabs in tmats], "cpu",
+        {s: torch.as_tensor(sim_fn.site_banks[s][idx[s]])
+         for s in sim_fn.active_sites})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
 # ---------------------------------------------------------------------------
@@ -487,11 +524,19 @@ def test_auto_takes_the_streamed_scan_above_its_threshold(monkeypatch):
     dict(mesh=object()),
 ], ids=["shots", "noise", "dtype", "mesh"])
 def test_batched_engine_refusals_name_their_roadmap_item(engine, kw):
-    """Noise and a mesh stay refused, naming their ROADMAP item.  Since
+    """A mesh stays refused, naming its ROADMAP item.  ``noise`` is no
+    keyword of ``run_virtual_circuit``, a TypeError as in the JAX package
+    (noise runs through ``ops.noise.run_noisy_virtual_circuit``).  Since
     the streamed engine landed: shots run (variant rows sampled; GHZ
     counts near 1/2 on its two outcomes); bf16 is JAX's ValueError
     on "xla" and routes "auto" to the streamed scan (within 5e-3)."""
-    _, _, _, tv = _slice("ghz10_p2q5")
+    _, _, jv, tv = _slice("ghz10_p2q5")
+    if "noise" in kw:
+        with pytest.raises(TypeError, match="noise"):
+            j_run(jv, engine=engine, **kw)
+        with pytest.raises(TypeError, match="noise"):
+            trun.run_virtual_circuit(tv, engine=engine, device="cpu", **kw)
+        return
     if "shots" in kw:
         got, _ = trun.run_virtual_circuit(tv, engine=engine, device="cpu",
                                           **kw)

@@ -854,3 +854,78 @@ def test_streamed_shots_on_card(card):
                                 torch.Generator(device=card).manual_seed(0))
     assert idx.device.type == "cuda" and idx.shape == (4096,)
     assert set(idx.tolist()) <= {1, 3}
+
+
+# ---------------------------------------------------------------------------
+# Noisy execution (plain PyTorch, no kernel): the card against the same
+# draws on the CPU
+# ---------------------------------------------------------------------------
+
+def _port_cut(name, n, cap):
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.cutter.cutter import (  # noqa: E501
+        Cutter,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.models.zoo import (  # noqa: E501
+        genCirc,
+    )
+
+    cutter = Cutter(genCirc(name, n, 1), maxNPartitions=2,
+                    maxNQubitsPerPartition=cap, maxNQpdCuts=5, maxNCuts=5,
+                    maxCutsPerPartitions=5)
+    assert cutter.solve()
+    return cutter.getResultCircs()[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ghz6_routed", "sup12_t4"])
+@pytest.mark.parametrize("engine", ["streamed", "auto"])
+def test_noisy_routes_on_card_match_cpu(card, case, engine):
+    """``run_noisy_virtual_circuit`` with ``fake_kolkata_v2`` (routed onto
+    the heavy hex, calibrated gate and readout rates): the card's result
+    equals the CPU's from the same seed (the branch indices are numpy
+    draws), within 1e-5; so does the noisy streamed observable."""
+    import dataclasses
+
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+        noise,
+        streamed,
+    )
+
+    cut = (_port_cut("ghz", 6, 4) if case == "ghz6_routed"
+           else _port_cut("sup", 12, 7))
+    nm = dataclasses.replace(noise.fake_kolkata_v2(), trajectories=4)
+    got = {}
+    for dev in ("cpu", card):
+        got[dev], _ = noise.run_noisy_virtual_circuit(
+            VirtualCircuit(cut), nm, engine=engine, seed=3, chunk_size=64,
+            device=dev)
+    np.testing.assert_allclose(got[card].values, got["cpu"].values, atol=TOL)
+    virt = VirtualCircuit(cut)
+    z = sorted(c for p in virt.programs.values() for c in p.clbit_sources
+               if c < virt.num_clbits)[:2]
+    zs = [streamed.streamed_expectation_z(virt, z, chunk=64, noise=nm,
+                                          seed=4, device=dev)
+          for dev in ("cpu", card)]
+    assert abs(zs[0] - zs[1]) <= TOL
+
+
+@pytest.mark.cuda
+def test_noisy_uncut_simulator_on_card_matches_cpu(card):
+    """``simulate_noisy_circuit``: routed trajectories and the
+    untranspiled first-order mixture, card against CPU."""
+    import dataclasses
+
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.models.zoo import (  # noqa: E501
+        genCirc,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+        noise,
+    )
+
+    circ = genCirc("ghz", 8, 1)
+    for nm in (dataclasses.replace(noise.fake_kolkata_v2(), trajectories=4),
+               dataclasses.replace(noise.fake_kolkata_v2(),
+                                   untranspiled=True)):
+        a = noise.simulate_noisy_circuit(circ, nm, seed=2, device="cpu")
+        b = noise.simulate_noisy_circuit(circ, nm, seed=2, device=card)
+        np.testing.assert_allclose(b.values, a.values, atol=TOL)

@@ -217,18 +217,34 @@ def test_streamed_expectation_z_rejects_unmeasured_support():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(noise=object()), dict(trajectories=4), dict(share_prefix=True),
-    dict(dtype=torch.bfloat16),
+    dict(noise="fake_kolkata_v2"), dict(trajectories=4),
+    dict(share_prefix=True), dict(dtype=torch.bfloat16),
 ])
 def test_streamed_expectation_z_refusals(kw):
-    """Trajectory noise stays refused, naming its ROADMAP item; the scan
-    without a kernel's banks and bf16 states run since the streamed
-    engine landed: banks as JAX within 1e-6, bf16 within 5e-3 of f32."""
+    """Trajectory noise runs since the noise slice landed: the JAX
+    package's model carried across, the same seed, within 1e-6 of JAX
+    (``trajectories`` overrides the model's; without a model it changes
+    nothing).  The scan without a kernel's banks and bf16 states run
+    since the streamed engine landed: banks as JAX within 1e-6, bf16
+    within 5e-3 of f32."""
     jc, tc, jv, tv, chunk = _pair("sup12_p2q7")
     zc = [1, 4, 9]
     if "noise" in kw or "trajectories" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
-            streamed_expectation_z(tv, zc, chunk=chunk, device="cpu", **kw)
+        from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.ops.noise import (  # noqa: E501
+            fake_kolkata_v2,
+        )
+        from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.convert import (  # noqa: E501
+            noise_model_from_other,
+        )
+
+        jm = fake_kolkata_v2()
+        jkw = dict(noise=jm, trajectories=kw.get("trajectories", 2),
+                   seed=5)
+        want = j_expectation_z(jv, zc, chunk=chunk, **jkw)
+        got = streamed_expectation_z(
+            tv, zc, chunk=chunk, device="cpu",
+            **dict(jkw, noise=noise_model_from_other(jm)))
+        assert abs(got - want) < 1e-6
         return
     want = j_expectation_z(jv, zc, chunk=chunk, share_prefix=True)
     got = streamed_expectation_z(tv, zc, chunk=chunk, device="cpu", **kw)
@@ -397,14 +413,16 @@ def test_jax_keywords_default_or_refused(name, case, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(shots=100), dict(noise=object()), dict(trunc_eps=0.01),
+    dict(shots=100), dict(noise="fake_kolkata_v2"), dict(trunc_eps=0.01),
     dict(share_prefix=True), dict(dtype=torch.bfloat16),
 ])
 def test_streamed_refusals(kw):
-    """``run_virtual_circuit_streamed``: noise stays refused, naming its
-    ROADMAP item; shots, truncation, banks and bf16 run since the scan
-    without a kernel landed: truncation and banks as JAX within 1e-6,
-    bf16 within 5e-3 of f32, shots on the GHZ support summing to 1."""
+    """``run_virtual_circuit_streamed``: noise (the JAX package's model
+    carried across, 4 trajectories, the same seed) as JAX within 1e-6
+    since the noise slice landed; shots, truncation, banks and bf16 run
+    since the scan without a kernel landed: truncation and banks as JAX
+    within 1e-6, bf16 within 5e-3 of f32, shots on the GHZ support
+    summing to 1."""
     from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.ops.streamed import (  # noqa: E501
         run_virtual_circuit_streamed as j_streamed,
     )
@@ -414,8 +432,21 @@ def test_streamed_refusals(kw):
 
     _, _, jv, tv, chunk = _pair("ghz10_p2q5")
     if "noise" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
-            run_virtual_circuit_streamed(tv, chunk, device="cpu", **kw)
+        from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.ops.noise import (  # noqa: E501
+            fake_kolkata_v2,
+        )
+        from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.convert import (  # noqa: E501
+            noise_model_from_other,
+        )
+
+        jm = fake_kolkata_v2()
+        want = j_streamed(jv, chunk, noise=jm, trajectories=4, seed=3,
+                          project=True)
+        got = run_virtual_circuit_streamed(
+            tv, chunk, noise=noise_model_from_other(jm), trajectories=4,
+            seed=3, project=True, device="cpu")
+        assert got.bit_positions == want.bit_positions
+        np.testing.assert_allclose(got.values, want.values, atol=1e-6)
         return
     got = run_virtual_circuit_streamed(tv, chunk, device="cpu", **kw)
     if "shots" in kw:

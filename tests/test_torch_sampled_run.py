@@ -125,7 +125,22 @@ def test_run_virtual_circuit_sample_eps_and_default_budget(qft9, monkeypatch):
     (dict(sample_pallas=False), "rows without a kernel"),
 ], ids=["noise", "dtype", "mesh", "sample_pallas"])
 def test_sampled_engine_refusals_name_their_roadmap_item(qft9, kw, match):
+    """Noise enters the sampled engine through
+    ``ops.noise.run_noisy_virtual_circuit(engine="sampled")``, as in the
+    JAX package (``run_virtual_circuit`` takes no ``noise``); the sampled
+    engine's noisy rows are not ported, so it raises naming its item."""
     _, tv = qft9
+    if "noise" in kw:
+        from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.noise import (  # noqa: E501
+            fake_kolkata_v2,
+            run_noisy_virtual_circuit,
+        )
+
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP H100 port.*" + match):
+            run_noisy_virtual_circuit(tv, fake_kolkata_v2(), shots=10,
+                                      engine="sampled", device="cpu")
+        return
     with pytest.raises(NotImplementedError,
                        match="ROADMAP H100 port.*" + match):
         t_run(tv, engine="sampled", shots=10, device="cpu", **kw)
