@@ -56,7 +56,15 @@ Phases (any failure exits non-zero without the result line):
              sampled_expectation_z on five z-sets; every marginal bin and
              every <Z_S> within 5 reported standard errors (floor 1e-3)
              of the 2^16 oracle, a second call builds no plan, and one
-             block knitted from the plain version agrees within 1e-5;
+             block knitted from the plain version agrees within 1e-5.
+             The same qft-16 leg without a kernel (sample_pallas=False:
+             make_sim_fn(collapse=True), plain PyTorch, no kernel
+             launched): the same labels and draws, the same 5-stderr
+             gates, the first and last blocks of its scan against
+             kernel 3's full rows from the same draws (picks equal, a
+             flip only within 1e-6 of its threshold, rows <= 1e-5), cold
+             and warm wall, a device-only trace of its first blocks; and
+             its marginal with bf16 states, within 5e-3 of the f32 one;
 7. wide    — hwe-40 (depth 2, seed 0, P2 Q21, stored cut plan; two
              22-qubit fragments): the 20-clbit marginal through
              run_virtual_circuit(engine="pallas", keep_clbits=...) and
@@ -73,7 +81,12 @@ Phases (any failure exits non-zero without the result line):
              marginal on 4 written data clbits a fragment through
              engine="pallas" (the blocked kernel) against the batched
              engine in plain PyTorch (engine="xla", no segments),
-             <= 1e-5 and fidelity > 1 - 1e-5.  ghz-34 (P2 Q17, solved
+             <= 1e-5 and fidelity > 1 - 1e-5.  Both hwe-40s through
+             the sampled engine's route without a kernel (22 qubits, past
+             the variant kernel's gate): the 36 labels with exact masses
+             through _estimate (the same 8-clbit marginal) and
+             _estimate_z equal engine="pallas" within 1e-6, no kernel
+             launched.  ghz-34 (P2 Q17, solved
              in the run: two 18-qubit fragments, the variant kernel's
              global-memory path) the same way, its first chunk against
              the plain version;
@@ -118,13 +131,23 @@ Phases (any failure exits non-zero without the result line):
              fake_kolkata_v2 with 8 trajectories (chunk 32: 243 chunks)
              through run_noisy_virtual_circuit(engine="streamed",
              shots=1000, seed=7) cold and warm: mass 1, support <= 1000,
-             peak memory, a device-only trace; without shots: non-negative
+             peak memory, a device-only trace of the scan's first 16
+             chunks; without shots: non-negative
              with the unprojected knit's mass, and the first chunk's rows
              of each fragment (the scan's meta["fragment_rows"]) equal to
              the CPU's from the same draws within 1e-5 (absolute and of
              the largest entry); gate noise zeroed, readout kept, one
              trajectory: streamed = batched within 2e-5; no noise at all
              (routed): fidelity > 1 - 1e-5 against engine="pallas".
+             The same sup-20 and model through the sampled engine:
+             run_noisy_virtual_circuit(engine="sampled", seed=7), the
+             default budget of 2,000,000 label draws (all 7776 labels),
+             cold and warm: non-negative with the unprojected estimate's
+             mass; the first block's rows of each fragment against the
+             CPU's from the same numpy draws within 1e-5; with the gate
+             noise zeroed, the full grid with exact masses equal to the
+             knit of run_fragment_noisy within 3e-5; the total variation
+             of a 6-clbit marginal against the streamed result recorded.
              ghz-24 (P2 Q12): compare_original_with_cut with the
              untranspiled fake_kolkata_v2 at 1000 shots (a 2^24 uncut noisy
              simulation): input fidelity in [0.65, 0.80], cut fidelity
@@ -1170,6 +1193,27 @@ def phase_sampled_sup20(virt, report):
     row["on_main_path"] = True
 
 
+def _qft16_oracle(circ):
+    """(marginal on ``QFT_KEEP``, <Z_S> of ``QFT_Z_SETS``) of the uncut
+    circuit at 2^16 (bit j of the index = clbit j)."""
+    import numpy as np
+
+    simulate_circuit = _port("ops.statevector").simulate_circuit
+    probs = np.asarray(simulate_circuit(circ, device=DEV).values, np.float64)
+    idx = np.arange(len(probs))
+    key = np.zeros(len(probs), np.int64)
+    for j, c in enumerate(QFT_KEEP):
+        key |= ((idx >> c) & 1) << j
+    oracle_m = np.bincount(key, weights=probs, minlength=1 << len(QFT_KEEP))
+    oracle_z = []
+    for s_z in QFT_Z_SETS:
+        par = np.zeros(len(probs), np.int64)
+        for c in s_z:
+            par ^= (idx >> c) & 1
+        oracle_z.append(float(((1 - 2 * par) * probs).sum()))
+    return oracle_m, oracle_z
+
+
 def phase_main_qft16(circ, virt, report):
     """This slice's path at full width: qft-16 through the sampled engine
     (both fragments in collapse mode), the marginal and the Z panel held
@@ -1179,7 +1223,6 @@ def phase_main_qft16(circ, virt, report):
 
     tq = _port("ops.qpd_sampling")
     run_virtual_circuit = _port("run").run_virtual_circuit
-    simulate_circuit = _port("ops.statevector").simulate_circuit
     flags = tq._collapse_flags(virt, "auto")
     over = tq.sampling_overhead(virt)
     knit_kw = dict(seed=QFT_SEED, keep_clbits=QFT_KEEP, method="lhs",
@@ -1221,19 +1264,7 @@ def phase_main_qft16(circ, virt, report):
     z_s = time.perf_counter() - t0
     z_counts = _counts()
 
-    # the oracle: the uncut circuit at 2^16 (bit j of the index = clbit j)
-    probs = np.asarray(simulate_circuit(circ, device=DEV).values, np.float64)
-    idx = np.arange(len(probs))
-    key = np.zeros(len(probs), np.int64)
-    for j, c in enumerate(QFT_KEEP):
-        key |= ((idx >> c) & 1) << j
-    oracle_m = np.bincount(key, weights=probs, minlength=1 << len(QFT_KEEP))
-    oracle_z = []
-    for s_z in QFT_Z_SETS:
-        par = np.zeros(len(probs), np.int64)
-        for c in s_z:
-            par ^= (idx >> c) & 1
-        oracle_z.append(float(((1 - 2 * par) * probs).sum()))
+    oracle_m, oracle_z = _qft16_oracle(circ)
     est_v = np.asarray(est.values, np.float64)
     m_dev = np.abs(est_v - oracle_m) / np.maximum(se, STDERR_FLOOR)
     z_dev = np.abs(np.asarray(z_est) - np.asarray(oracle_z)) / np.maximum(
@@ -1371,6 +1402,198 @@ def phase_main_qft16(circ, virt, report):
         row = _kernel_row(report, f"collapse_rows/qft16_{mode}")
         row["launches"] = n
         row["on_main_path"] = True
+
+
+QFT_PLAIN_WINDOW = 4    # blocks of qft-16's scan without a kernel traced
+BF16_MAX_DIFF = 5e-3    # tests/test_bf16_serving.py, the sampled engine's
+
+
+def _picks_against_kernel(fn, kfn, lab, u):
+    """One block's rows without a kernel (``fn``) against kernel 3's full
+    rows (``kfn``) from the same labels and draws: (labels whose picks
+    differ, of them within 1e-6 of a threshold, beyond it, max |err| of
+    the rows whose picks agree)."""
+    ck = _port("ops.collapse_kernel")
+    ve = _port("ops.variant_engine")
+    picks = []
+    rows, _ = fn(lab, u, picks)
+    krows, _ = kfn(lab, u)
+    bits, margins = ve.picked_bits(picks)
+    agree, near, far = ck.compare_picks(bits, kfn.rows_fn.last_bits,
+                                        margins)
+    err = float((rows - krows).abs()[agree].max()) if bool(agree.any()) \
+        else 0.0
+    return int((~agree).sum()), near, far, err
+
+
+def phase_main_qft16_plain(circ, virt, report):
+    """qft-16 through the sampled engine without a kernel
+    (``sample_pallas=False``: ``make_sim_fn(collapse=True)``, plain
+    PyTorch), the "prepped" leg of phase main_qft16 at full width: the
+    same 120000 samples, seed, lhs and control variate, the marginal and
+    the Z panel held to the 2^16 oracle within 5 reported standard
+    errors; no kernel launched.  The draws are the kernel route's (the
+    same sampler call, the same collapse sites in the same draw
+    columns), and the first and last blocks of this route's scan, from
+    the same labels and draws, equal kernel 3's full rows (picks equal, a
+    flip only within 1e-6 of its threshold).  Returns the f32 marginal
+    for the bf16 phase."""
+    import numpy as np
+    import torch
+
+    tq = _port("ops.qpd_sampling")
+    run_virtual_circuit = _port("run").run_virtual_circuit
+    flags = tq._collapse_flags(virt, "auto")
+    knit_kw = dict(seed=QFT_SEED, keep_clbits=QFT_KEEP, method="lhs",
+                   control_variate=True, pallas_variant=False, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    dist, cold_s = _timed(lambda: run_virtual_circuit(
+        virt, shots=QFT_SAMPLES, engine="sampled", seed=QFT_SEED,
+        sample_method="lhs", sample_cv=True, keep_clbits=QFT_KEEP,
+        project=False, sample_pallas=False, device=DEV)[0])
+    counts = _counts()
+    (est, se), warm_s = _timed(lambda: tq.sampled_knit(
+        virt, QFT_SAMPLES, with_stderr=True, **knit_kw))
+    (z_est, z_se), z_s = _timed(lambda: tq.sampled_expectation_z(
+        virt, QFT_Z_SETS, QFT_SAMPLES, seed=QFT_SEED + 1, method="lhs",
+        with_stderr=True, control_variate=True, pallas_variant=False,
+        device=DEV))
+    z_counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    oracle_m, oracle_z = _qft16_oracle(circ)
+    est_v = np.asarray(est.values, np.float64)
+    m_dev = np.abs(est_v - oracle_m) / np.maximum(se, STDERR_FLOOR)
+    z_dev = np.abs(np.asarray(z_est) - np.asarray(oracle_z)) / np.maximum(
+        z_se, STDERR_FLOOR)
+    rerun_err = float(np.abs(est_v - np.asarray(dist.values)).max())
+
+    # this route's scan and its draws against the kernel route's
+    ent = next(e for k, e in virt._scan_step_cache.items()
+               if k[3] == tuple(QFT_KEEP) and k[6] is False)
+    kfns = [tq._collapse_row_builder_pallas(virt, r.name, device=DEV)[0]
+            for r in virt.fragments]
+    same_sites = [fn.sites == [sid for sid, _ in kfn.rows_fn.plan.plan
+                               .site_meta]
+                  for fn, kfn in zip(ent["row_fns"], kfns)]
+    uniq, lab_all, mass = _sampled_labels(virt, QFT_SAMPLES, QFT_SEED)
+    n_lab = len(lab_all)
+    block = tq._label_block(virt, flags, QFT_KEEP, None, ent["states"])
+    cseed = QFT_SEED * 31 + 17
+    blocks = [(0, min(block, n_lab)), ((n_lab - 1) // block * block, n_lab)]
+    picks = []
+    for fi, (fn, kfn) in enumerate(zip(ent["row_fns"], kfns)):
+        u_all = np.random.default_rng(cseed + 7919 * fi).random(
+            (n_lab, max(1, ent["ns"][fi]))).astype(np.float32)
+        for b0, b1 in blocks:
+            lab = torch.as_tensor(lab_all[b0:b1], device=DEV,
+                                  dtype=torch.int64)
+            u = torch.as_tensor(u_all[b0:b1], device=DEV)
+            flipped, near, far, err = _picks_against_kernel(fn, kfn, lab, u)
+            picks.append({"fragment": virt.fragments[fi].name,
+                          "block": [b0, b1], "flipped": flipped,
+                          "near": near, "far": far, "max_abs_err": err})
+    # the device's share, traced over the scan's first blocks
+    win = min(n_lab, QFT_PLAIN_WINDOW * block)
+    prof = _profile(lambda: tq._scan_core(
+        virt, lab_all[:win], mass[:win], keep_clbits=QFT_KEEP, flags=flags,
+        collapse_seed=cseed, second_moment=True, control_stats=True,
+        pallas_variant=False, device=DEV), cpu=False)
+    kernel = report.get("qft16", {})
+    out = {
+        "routes": ent["routes"], "state_qubits": [st[0] for st in
+                                                  ent["states"]],
+        "expanded_labels": n_lab, "block": block,
+        "n_blocks": -(-n_lab // block), "launches": counts,
+        "z_launches": z_counts, "cold_s": cold_s, "warm_s": warm_s,
+        "expectation_z_s": z_s, "peak_gb": peak_gb,
+        "rerun_max_abs_err": rerun_err, "same_sites": same_sites,
+        "marginal": est_v.tolist(), "marginal_stderr": se.tolist(),
+        "marginal_worst_stderrs": float(m_dev.max()),
+        "z": np.asarray(z_est).tolist(), "z_stderr": z_se.tolist(),
+        "z_worst_stderrs": float(z_dev.max()),
+        "blocks_against_kernel_full_rows": picks,
+        "trace_window_blocks": -(-win // block),
+        "kernel_route": {k: kernel.get(k) for k in (
+            "block", "n_blocks", "launches", "first_call_s",
+            "second_call_s", "expectation_z_s", "device_busy_ms",
+            "device_idle_share")},
+    }
+    out.update(prof)
+    report["qft16_plain"] = out
+    print(f"main qft16 without a kernel: routes={ent['routes']} "
+          f"labels={n_lab} block={block} x{out['n_blocks']} "
+          f"launches={counts} cold_s={cold_s:.3f} warm_s={warm_s:.3f} "
+          f"expectation_z_s={z_s:.3f} peak_gb={peak_gb:.3f} marginal worst "
+          f"{m_dev.max():.2f} stderrs, z worst {z_dev.max():.2f} stderrs, "
+          f"rerun {rerun_err:.3e}; traced {out['trace_window_blocks']} "
+          f"blocks: wall {prof['profiled_wall_s']:.3f} s busy_ms="
+          f"{prof['device_busy_ms']} idle_share="
+          f"{prof['device_idle_share']}", flush=True)
+    print(f"  kernel route (main_qft16): {out['kernel_route']}", flush=True)
+    for row in picks:
+        print(f"  against kernel 3's full rows: {row}", flush=True)
+    for row in prof["device_ms_by_kernel"][:5]:
+        print(f"  device {row['ms']:.3f} ms x{row['calls']}: "
+              f"{row['kernel']}", flush=True)
+
+    def need(ok, what):
+        if not ok:
+            raise RuntimeError(f"qft16 without a kernel: {what}")
+
+    need(flags == [True, True]
+         and ent["routes"] == ["collapse, no kernel"] * 2,
+         f"flags {flags}, routes {ent['routes']}")
+    need(counts == _only() and z_counts == _only(),
+         f"launched {counts}, {z_counts}")
+    need(np.isfinite(est_v).all() and est_v.shape == (1 << len(QFT_KEEP),)
+         and dist.bit_positions == QFT_KEEP,
+         "marginal not finite or of the wrong shape")
+    need(all(same_sites), f"collapse sites in another order: {same_sites}")
+    need(rerun_err <= 1e-6, f"the second call differs by {rerun_err:.3e}")
+    need(float(m_dev.max()) <= STDERRS,
+         f"a marginal bin lies {m_dev.max():.2f} stderrs from the oracle")
+    need(float(z_dev.max()) <= STDERRS,
+         f"a <Z_S> lies {z_dev.max():.2f} stderrs from the oracle")
+    for row in picks:
+        need(row["far"] == 0 and row["max_abs_err"] <= TOL,
+             f"against kernel 3's full rows: {row}")
+    return est_v
+
+
+def phase_sampled_qft16_bf16(virt, report, f32_marginal):
+    """The marginal of phase main_qft16_plain with bf16 states
+    (``dtype=torch.bfloat16``; the kernels are f32, so every fragment runs
+    without one), against the f32 estimate without a kernel: the largest
+    difference within the JAX package's 5e-3 and the total variation
+    recorded."""
+    import numpy as np
+    import torch
+
+    tq = _port("ops.qpd_sampling")
+    _reset_counts()
+    est, wall = _timed(lambda: tq.sampled_knit(
+        virt, QFT_SAMPLES, seed=QFT_SEED, keep_clbits=QFT_KEEP,
+        method="lhs", control_variate=True, dtype=torch.bfloat16,
+        device=DEV))
+    counts = _counts()
+    routes = next(e["routes"] for k, e in virt._scan_step_cache.items()
+                  if k[7] == str(torch.bfloat16))
+    got = np.asarray(est.values, np.float64)
+    diff = np.abs(got - np.asarray(f32_marginal, np.float64))
+    out = {"wall_s": wall, "launches": counts, "routes": routes,
+           "max_abs_diff_vs_f32": float(diff.max()),
+           "total_variation_vs_f32": float(0.5 * diff.sum()),
+           "marginal": got.tolist()}
+    report["qft16_bf16"] = out
+    print(f"sampled qft16 bf16: wall_s={wall:.3f} launches={counts} "
+          f"routes={routes} max_abs_diff_vs_f32={diff.max():.3e} "
+          f"tv_vs_f32={0.5 * diff.sum():.3e}", flush=True)
+    if counts != _only() or routes != ["collapse, no kernel"] * 2:
+        raise RuntimeError(f"bf16 launched {counts}, routes {routes}")
+    if not (np.isfinite(got).all() and diff.max() <= BF16_MAX_DIFF):
+        raise RuntimeError(f"bf16 against f32: {diff.max():.3e} > "
+                           f"{BF16_MAX_DIFF}")
 
 
 def _cut_wide13(n=13):
@@ -1727,7 +1950,7 @@ def phase_main_xla(circ, virt, report, sv_results):
     z_xla = tknit.expectation_z(virt, results, z_clbits)
     z_sv = tknit.expectation_z(virt, sv_results, z_clbits)
     prof = _profile(lambda: run_virtual_circuit(virt, engine="xla",
-                                                device=DEV))
+                                                device=DEV), cpu=False)
     out.update({
         "launches": counts, "xla_vs_auto_max_abs_err": engines_err,
         "kernel_rows_vs_run_fragment_max_abs_err": rows_err,
@@ -2151,6 +2374,7 @@ NOISY_SHOTS = 1000
 NOISY_SEED = 7
 NOISY_CHUNK = 512        # capped by auto_chunk to 32 labels (8 traj, noisy)
 NOISY_ROWS_TOL = 2e-5    # the batched and streamed routes, same model
+NOISY_TRACE_CHUNKS = 16  # chunks of the noisy streamed scan traced
 
 
 def phase_main_noisy_sup20(circ, virt, report):
@@ -2158,9 +2382,9 @@ def phase_main_noisy_sup20(circ, virt, report):
     package's noisy serving run (benchmarks/noisy_streamed_tpu.py "sup20")
     calls it: ``run_noisy_virtual_circuit(engine="streamed", shots=1000,
     seed=7)`` cold and warm (mass 1, support <= 1000, peak memory, a
-    device-only trace of a warm call); the same call without shots
-    (non-negative, the projection keeping the unprojected knit's mass)
-    and the first chunk's rows of each fragment, from the scan's own
+    device-only trace of the scan's first chunks); the same call without
+    shots (non-negative, the projection keeping the unprojected knit's
+    mass) and the first chunk's rows of each fragment, from the scan's own
     per-chunk function, against the same draws on the CPU;
     with the gate noise zeroed, readout kept and one trajectory, the
     streamed and batched routes against each other; with no noise at
@@ -2196,14 +2420,6 @@ def phase_main_noisy_sup20(circ, virt, report):
           f"warm_s={out['warm_s']:.3f} peak_gb={out['peak_gb']:.3f} "
           f"mass={out['shots_mass']!r} support={out['shots_support']}",
           flush=True)
-    out.update(_profile(lambda: run(shots=NOISY_SHOTS), cpu=False))
-    print(f"  profiled_wall_s={out['profiled_wall_s']:.3f} "
-          f"trace_processing_s={out['trace_processing_s']:.1f} "
-          f"device_busy_ms={out['device_busy_ms']} "
-          f"idle_share={out['device_idle_share']}", flush=True)
-    for row in out["device_ms_by_kernel"][:6]:
-        print(f"  device {row['ms']:.3f} ms x{row['calls']}: "
-              f"{row['kernel']}", flush=True)
 
     # without shots: the projected distribution (the projection moves no
     # mass: it keeps the knit's, which finite trajectories move off 1 as
@@ -2221,6 +2437,21 @@ def phase_main_noisy_sup20(circ, virt, report):
         for dev in (DEV, "cpu")}
     out.update(n_chunks=metas[DEV][1]["n_chunks"],
                labels=metas[DEV][1]["global_labels"], rows=[])
+    # a device-only trace of the scan's first chunks (a whole call's
+    # 350000 events take a minute to read)
+    xs, meta = metas[DEV]
+    out["trace_window_chunks"] = NOISY_TRACE_CHUNKS
+    out.update(_profile(lambda: meta["segment_fn"](
+        torch.zeros(meta["carry_shape"], device=DEV),
+        tuple(x[:NOISY_TRACE_CHUNKS] for x in xs)), cpu=False))
+    print(f"  traced {NOISY_TRACE_CHUNKS} chunks: profiled_wall_s="
+          f"{out['profiled_wall_s']:.3f} trace_processing_s="
+          f"{out['trace_processing_s']:.1f} device_busy_ms="
+          f"{out['device_busy_ms']} idle_share={out['device_idle_share']}",
+          flush=True)
+    for row in out["device_ms_by_kernel"][:6]:
+        print(f"  device {row['ms']:.3f} ms x{row['calls']}: "
+              f"{row['kernel']}", flush=True)
     for fi, reg in enumerate(virt.fragments):
         rows = {}
         for dev, (xs, meta) in metas.items():
@@ -2292,6 +2523,241 @@ def phase_main_noisy_sup20(circ, virt, report):
          f"streamed vs batched {out['readout_streamed_vs_batched']:.3e}")
     need(out["noiseless_fidelity"] > FID_MIN,
          f"noiseless fidelity {out['noiseless_fidelity']!r}")
+    return full
+
+
+NOISY_READOUT_TOL = 3e-5  # test_noisy_sampled_readout_only_full_grid_identity
+NOISY_TRACE_BLOCKS = 4    # blocks of the noisy sampled scan traced
+
+
+def phase_main_noisy_sup20_sampled(circ, virt, report, streamed):
+    """sup-20 under ``fake_kolkata_v2`` with 8 trajectories through the
+    sampled engine: ``run_noisy_virtual_circuit(engine="sampled",
+    shots=None, seed=7)``, the default budget (2,000,000 label draws, so
+    every one of the 7776 labels appears), cold and warm, no kernel
+    launched: non-negative, its mass the unprojected estimate's (the
+    projection moves none; that mass is itself an estimate of 1, its
+    standard error from the control-variate moments, recorded).  The first
+    block's noisy rows of each fragment equal the CPU's from the same
+    numpy draws within 1e-5 (absolute and of the largest entry).  With
+    the gate noise zeroed (readout only), the full label grid with exact
+    masses through ``_estimate(noise=...)`` equals the unprojected knit
+    of ``run_fragment_noisy`` within 3e-5.  Recorded beside: the total
+    variation of a 6-clbit marginal against ``streamed`` (phase
+    main_noisy_sup20's projected result), label-sampling time, peak
+    memory, and a device-only trace of the scan's first blocks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    noise = _port("ops.noise")
+    tq = _port("ops.qpd_sampling")
+    ve = _port("ops.variant_engine")
+    knit = _port("ops.knit")
+    nm = dataclasses.replace(noise.fake_kolkata_v2(), trajectories=NOISY_TRAJ)
+    models = [nm] * len(virt.fragments)
+    budget = min(tq.sampling_overhead(virt, eps=0.05)["shots_for_eps"],
+                 2_000_000)
+
+    def run():
+        return noise.run_noisy_virtual_circuit(
+            virt, nm, engine="sampled", seed=NOISY_SEED, device=DEV)[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    dist, cold_s = _timed(run)
+    counts = _counts()
+    again, warm_s = _timed(run)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    uniq, cnt = tq.sample_label_counts(virt, budget, NOISY_SEED)
+    sample_s = time.perf_counter() - t0
+    mass = cnt.astype(np.float64) / budget
+    (raw, stats), raw_s = _timed(lambda: tq._estimate(
+        virt, uniq, mass, control_stats=True, noise=models,
+        noise_seed=NOISY_SEED, device=DEV))
+    raw_v = np.asarray(raw.values, np.float64)
+    got = np.asarray(dist.values, np.float64)
+    mass_se = float(np.sqrt(max(stats["y2"] - stats["y_mean"] ** 2, 0.0)
+                            / budget))
+    ent = next(e for k, e in virt._scan_step_cache.items()
+               if k[8] is not None and k[3] is None and k[4] is None)
+    block = tq._label_block(virt, [False] * len(virt.fragments),
+                            states=ent["states"])
+
+    # the first block's rows, card against CPU from the same draws
+    rows = []
+    for fi, reg in enumerate(virt.fragments):
+        got_rows = {}
+        for dev in (DEV, "cpu"):
+            fn = tq._noisy_row_builder(virt, reg.name, nm, dev)[0]
+            draws = fn.prepare(len(uniq), NOISY_SEED + fi)
+            lab = torch.as_tensor(uniq[:block], device=dev,
+                                  dtype=torch.int64)
+            t0 = time.perf_counter()
+            got_rows[dev] = fn.rows(lab, draws[:block]).cpu().numpy()
+            got_rows[dev + "_s"] = time.perf_counter() - t0
+        err = float(np.abs(got_rows[DEV] - got_rows["cpu"]).max())
+        big = float(np.abs(got_rows["cpu"]).max())
+        rows.append({"fragment": reg.name,
+                     "shape": list(got_rows["cpu"].shape),
+                     "max_abs_err": err, "rel_err": err / big,
+                     "card_s": got_rows[DEV + "_s"],
+                     "cpu_s": got_rows["cpu_s"]})
+
+    # readout only: the full grid with exact masses = the exact noisy knit
+    zero = dataclasses.replace(nm, p1=0.0, p2=0.0, trajectories=1,
+                               p1_q=np.zeros_like(nm.p1_q),
+                               p2_q=np.zeros_like(nm.p2_q))
+    specs = [vg.spec for vg in virt.vgates]
+    strides, n_inst, total = ve.label_strides(specs, range(len(specs)))
+    vidx = ve.variant_index_table(range(len(specs)), strides, n_inst, total)
+    grid_mass = np.ones(total)
+    for g, spec in enumerate(specs):
+        m = tq._variant_magnitudes(spec)
+        grid_mass *= (m / m.sum())[vidx[:, g]]
+    grid, grid_s = _timed(lambda: tq._estimate(
+        virt, vidx, grid_mass, noise=[zero] * len(virt.fragments),
+        device=DEV))
+    results = [noise.run_fragment_noisy(virt, reg.name, zero, seed=0,
+                                        device=DEV)
+               for reg in virt.fragments]
+    exact, positions = knit.knit_values(virt, results)
+    exact = exact.cpu().numpy().astype(np.float64)
+    del results
+    readout_err = float(np.abs(np.asarray(grid.values, np.float64)
+                               - exact).max())
+
+    # a 6-clbit marginal against the streamed engine's result
+    keep = sorted(c for cs in _written_data_clbits(virt) for c in cs[:3])
+    a, b = _marginal_dict(dist, keep), _marginal_dict(streamed, keep)
+    tv = 0.5 * sum(abs(a.get(k, 0.0) - b.get(k, 0.0)) for k in set(a) | set(b))
+
+    win = min(len(uniq), NOISY_TRACE_BLOCKS * block)
+    prof = _profile(lambda: tq._scan_core(
+        virt, uniq[:win], mass[:win], noise=models, noise_seed=NOISY_SEED,
+        device=DEV), cpu=False)
+    out = {
+        "model": nm.name, "trajectories": NOISY_TRAJ, "budget": budget,
+        "unique_labels": len(uniq), "block": block,
+        "n_blocks": -(-len(uniq) // block), "routes": ent["routes"],
+        "launches": counts, "cold_s": cold_s, "warm_s": warm_s,
+        "warm_equal_cold": float(np.abs(np.asarray(again.values) - got)
+                                 .max()),
+        "label_sampling_s": sample_s, "raw_estimate_s": raw_s,
+        "peak_gb": peak_gb, "mass": float(got.sum()),
+        "unprojected_mass": float(raw_v.sum()), "mass_stderr": mass_se,
+        "least_entry": float(got.min()),
+        "projected_vs_raw_projection": float(np.abs(
+            knit.nearest_probability_distribution(raw).values - got).max()),
+        "first_block_rows": rows, "readout_only_grid_s": grid_s,
+        "readout_only_max_abs_err": readout_err,
+        "marginal_clbits": keep, "tv_vs_streamed": tv,
+        "trace_window_blocks": -(-win // block),
+    }
+    out.update(prof)
+    report["noisy_sup20_sampled"] = out
+    print(f"main noisy sup20 sampled: budget={budget} labels={len(uniq)} "
+          f"block={block} x{out['n_blocks']} routes={ent['routes']} "
+          f"launches={counts} cold_s={cold_s:.3f} warm_s={warm_s:.3f} "
+          f"label_sampling_s={sample_s:.3f} peak_gb={peak_gb:.3f} "
+          f"mass={out['mass']!r} (unprojected {out['unprojected_mass']!r}, "
+          f"stderr {mass_se:.4f}) least={out['least_entry']!r} "
+          f"tv_vs_streamed={tv:.4f} readout_only_err={readout_err:.3e} "
+          f"({grid_s:.3f} s); traced {out['trace_window_blocks']} blocks: "
+          f"wall {prof['profiled_wall_s']:.3f} s busy_ms="
+          f"{prof['device_busy_ms']} idle_share="
+          f"{prof['device_idle_share']}", flush=True)
+    for row in rows:
+        print(f"  first block rows {row}", flush=True)
+    for row in prof["device_ms_by_kernel"][:5]:
+        print(f"  device {row['ms']:.3f} ms x{row['calls']}: "
+              f"{row['kernel']}", flush=True)
+
+    def need(ok, what):
+        if not ok:
+            raise RuntimeError(f"noisy sup20 sampled: {what}")
+
+    need(budget == 2_000_000 and len(uniq) == 7776,
+         f"budget {budget}, {len(uniq)} labels")
+    need(counts == _only(), f"launched {counts}")
+    need(ent["routes"] == ["noisy, no kernel"] * 2, f"{ent['routes']}")
+    need(np.isfinite(got).all() and got.min() >= 0.0
+         and abs(got.sum() - raw_v.sum()) <= 1e-6,
+         f"projected mass {got.sum()!r} (unprojected {raw_v.sum()!r}), "
+         f"least entry {got.min()!r}")
+    need(out["projected_vs_raw_projection"] <= 1e-6
+         and out["warm_equal_cold"] <= 1e-6,
+         f"projection {out['projected_vs_raw_projection']:.3e}, warm "
+         f"{out['warm_equal_cold']:.3e}")
+    for row in rows:
+        need(row["max_abs_err"] <= TOL and row["rel_err"] <= TOL,
+             f"first block rows {row}")
+    need(grid.bit_positions == positions
+         and readout_err <= NOISY_READOUT_TOL,
+         f"readout-only grid off by {readout_err:.3e}")
+
+
+def phase_sampled_hwe40(label, virt, report):
+    """hwe-40's two 22-qubit fragments in ancilla mode, past the variant
+    kernel's 20-qubit gate, through the sampled engine's route without a
+    kernel: the full grid of 36 labels with exact masses through
+    ``_estimate`` on the 8-clbit marginal of phase main_hwe40_dense and
+    through ``_estimate_z``, equal to ``engine="pallas"`` (kernel 4)
+    within 1e-6; no kernel launched by the sampled route."""
+    import numpy as np
+
+    tq = _port("ops.qpd_sampling")
+    ve = _port("ops.variant_engine")
+    run_virtual_circuit = _port("run").run_virtual_circuit
+    keep = sorted(c for cs in _written_data_clbits(virt) for c in cs[:4])
+    z_sets = [set(keep), set(keep[:4]), {keep[0], keep[-1]}]
+    specs = [vg.spec for vg in virt.vgates]
+    strides, n_inst, total = ve.label_strides(specs, range(len(specs)))
+    vidx = ve.variant_index_table(range(len(specs)), strides, n_inst, total)
+    mass = np.ones(total)
+    for g, spec in enumerate(specs):
+        m = tq._variant_magnitudes(spec)
+        mass *= (m / m.sum())[vidx[:, g]]
+    flags = [False] * len(virt.fragments)
+    _reset_counts()
+    est, est_s = _timed(lambda: tq._estimate(
+        virt, vidx, mass, keep_clbits=keep, collapse=flags, device=DEV))
+    z, z_s = _timed(lambda: tq._estimate_z(virt, vidx, mass, z_sets,
+                                           collapse=flags, device=DEV))
+    counts = _counts()
+    routes = [e["routes"] for e in virt._scan_step_cache.values()]
+    ref, ref_s = _timed(lambda: run_virtual_circuit(
+        virt, engine="pallas", chunk_size=HWE_CHUNK, keep_clbits=keep,
+        project=False, device=DEV)[0])
+    got = np.asarray(est.values, np.float64)
+    want = np.asarray(ref.values, np.float64)
+    err = float(np.abs(got - want).max())
+    z_ref = [_z_of(want, ref.bit_positions, s_z) for s_z in z_sets]
+    z_err = float(np.abs(np.asarray(z) - np.asarray(z_ref)).max())
+    block = tq._label_block(virt, flags, keep, None,
+                            next(iter(virt._scan_step_cache.values()))[
+                                "states"])
+    out = {"labels": total, "keep_clbits": keep, "block": block,
+           "routes": routes, "launches": counts, "estimate_s": est_s,
+           "estimate_z_s": z_s, "pallas_s": ref_s,
+           "max_abs_err_vs_pallas": err, "z": list(map(float, z)),
+           "z_max_abs_err_vs_pallas": z_err,
+           "marginal_sum": float(got.sum())}
+    report[f"sampled_{label}"] = out
+    print(f"sampled {label}: labels={total} block={block} routes={routes} "
+          f"launches={counts} estimate_s={est_s:.3f} "
+          f"estimate_z_s={z_s:.3f} pallas_s={ref_s:.3f} "
+          f"max_abs_err_vs_pallas={err:.3e} z_err={z_err:.3e} "
+          f"marginal_sum={got.sum()!r}", flush=True)
+    if counts != _only() or any(r != ["ancilla, no kernel"] * 2
+                                for r in routes):
+        raise RuntimeError(f"{label}: launched {counts}, routes {routes}")
+    if not (np.isfinite(got).all() and est.bit_positions == keep
+            and err <= 1e-6 and z_err <= 1e-6):
+        raise RuntimeError(f"{label}: sampled vs pallas {err:.3e}, "
+                           f"z {z_err:.3e}")
 
 
 def phase_noisy_parity_ghz24(circ, virt, report):
@@ -2607,6 +3073,11 @@ def main() -> int:
             "qft16", virt, _sampled_labels(virt, QFT_SAMPLES, QFT_SEED)[1],
             modes, report))
         phase("main_qft16", phase_main_qft16, circ, virt, report)
+        plain = phase("main_qft16_plain", phase_main_qft16_plain, circ,
+                      virt, report)
+        if plain is not None:
+            phase("sampled_qft16_bf16", phase_sampled_qft16_bf16, virt,
+                  report, plain)
     if cut("ghz18_wire", build=_cut_ghz18_wire):
         _, virt = cuts["ghz18_wire"]
         phase("collapse_ghz18_wire", lambda: phase_collapse(
@@ -2630,6 +3101,7 @@ def main() -> int:
               blocks, report, False)
         phase("main_hwe40", phase_wide, "hwe40", virt, report, False,
               "blocked_rows/hwe40")
+        phase("sampled_hwe40", phase_sampled_hwe40, "hwe40", virt, report)
     if cut("ghz40", "ghz", 40, 20, None, stored_plan="ghz40_p2_q20"):
         phase("main_ghz40", phase_wide, "ghz40", cuts["ghz40"][1], report,
               True)
@@ -2643,6 +3115,8 @@ def main() -> int:
               _label_blocks(virt, chunk, first_only=True), report, False)
         phase("main_hwe40_dense", phase_dense_wide, "hwe40_dense", virt,
               report, "blocked_rows/hwe40_dense")
+        phase("sampled_hwe40_dense", phase_sampled_hwe40, "hwe40_dense",
+              virt, report)
     if cut("ghz34", "ghz", 34, 17, None):
         # the variant kernel's global-memory path: two 18-qubit fragments
         _, virt = cuts["ghz34"]
@@ -2652,8 +3126,12 @@ def main() -> int:
               "variant_rows/ghz34_folded_staged", "variant")
     if "sup20" in cuts:
         phase("streamed_sup20", phase_streamed_sup20, *cuts["sup20"], report)
-        phase("main_noisy_sup20", phase_main_noisy_sup20, *cuts["sup20"],
-              report)
+        streamed = phase("main_noisy_sup20", phase_main_noisy_sup20,
+                         *cuts["sup20"], report)
+        if streamed is not None:
+            phase("main_noisy_sup20_sampled", phase_main_noisy_sup20_sampled,
+                  *cuts["sup20"], report, streamed)
+        del streamed
     if "ghz24" in cuts:
         phase("noisy_parity_ghz24", phase_noisy_parity_ghz24,
               *cuts["ghz24"], report)

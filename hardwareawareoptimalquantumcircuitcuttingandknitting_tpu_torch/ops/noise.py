@@ -35,10 +35,10 @@ to within 1 of its expectation.
 Engines: :func:`run_fragment_noisy` (variants x trajectories through the
 batched engine, ops/variant_engine.py) behind
 ``run_noisy_virtual_circuit(engine="auto" | "xla")``, and the streamed
-scan (ops/streamed.py, ``noise=``) behind ``engine="streamed"``.  The
-sampled engine's noisy rows are not ported: ``engine="sampled"`` raises
-``NotImplementedError`` naming its ROADMAP item, and noise has no
-kernel route (``engine="pallas"`` raises ``ValueError``).
+scan (ops/streamed.py, ``noise=``) behind ``engine="streamed"``, and the
+sampled engine's noisy rows (ops/qpd_sampling.py, the sampled labels'
+trajectories averaged a block at a time) behind ``engine="sampled"``.
+Noise has no kernel route (``engine="pallas"`` raises ``ValueError``).
 """
 from __future__ import annotations
 
@@ -62,8 +62,6 @@ from .statevector import (
 )
 
 _PAULI_BLOCKS = np.stack([to_real_block(m) for m in (I2, X, Y, Z)])
-_SAMPLED_ITEM = ("ROADMAP H100 port, queue A, item 2 (the sampled engine: "
-                 "rows without a kernel, and its trajectory noise)")
 
 
 @dataclass
@@ -432,6 +430,19 @@ def _readout_mats(nm: NoiseModel, qubits) -> np.ndarray:
     return np.stack([nm.readout_matrix(q) for q in qubits])
 
 
+def _apply_rows_readout(rows: torch.Tensor, bit_positions, nm: NoiseModel,
+                        bit_qubits: dict[int, int]) -> torch.Tensor:
+    """Exact readout channel on rows ``[V, 2^k]``: bit ``j`` of the flat
+    index carries ``bit_positions[j]`` and goes through the calibrated
+    matrix of device qubit ``bit_qubits.get(bit_positions[j], j)``
+    (:func:`readout_rows` on the rows' device)."""
+    if not bit_positions:
+        return rows
+    qubits = [bit_qubits.get(c, j) for j, c in enumerate(bit_positions)]
+    return readout_rows(rows, to_device(_readout_mats(nm, qubits),
+                                        rows.device))
+
+
 def apply_readout_error(
     dist: Distribution, nm: NoiseModel, bit_qubits: list[int] | None = None,
     device=None,
@@ -701,9 +712,6 @@ def run_fragment_noisy(
     site_tabs = [(pr, bank) for (_, _, pr, bank, _) in sim_fn.noise_sites]
     site_w = [w for (_, _, _, _, w) in sim_fn.noise_sites]
     cq = fragment_readout_qubits(virt, frag_name, sim_fn)
-    ro = to_device(_readout_mats(
-        nm, [cq.get(c, j) for j, c in enumerate(positions)]), dev) \
-        if positions else None
 
     if not prog.slots:
         if site_tabs:
@@ -738,8 +746,7 @@ def run_fragment_noisy(
         values = values.reshape(flat_count, k_traj, -1)
         values = (values * to_device(w, dev, torch.float32)[:, :, None]
                   ).mean(dim=1)
-    if ro is not None:
-        values = readout_rows(values, ro)
+    values = _apply_rows_readout(values, positions, nm, cq)
     return FragmentResult(frag_name, values, positions, list(prog.touching))
 
 
@@ -793,21 +800,21 @@ def run_noisy_virtual_circuit(
     projection on the device.  ``engine="streamed"``: the constant-memory
     label scan with trajectory noise and readout in its body
     (ops/streamed.py), shot-sampled and checkpointable
-    (``checkpoint_dir``).  ``engine="sampled"`` raises
-    ``NotImplementedError`` naming its ROADMAP item; ``engine="pallas"``
-    (no kernel runs noise) and unknown engines raise ``ValueError``.
-    Returns ``(Distribution, RunTimeInfo)``."""
+    (``checkpoint_dir``).  ``engine="sampled"``: Monte-Carlo QPD sampling
+    of the NOISY knit (ops/qpd_sampling.sampled_knit, ``noise_seed =
+    seed``): ``shots`` is the label-sample budget (each QPD sample is one
+    circuit execution on hardware, so the budgets coincide), None the
+    plan's Hoeffding budget for eps = 0.05 capped at 2,000,000; then the
+    nearest probability distribution.  ``engine="pallas"`` (no kernel
+    runs noise) and unknown engines raise ``ValueError``.  Returns
+    ``(Distribution, RunTimeInfo)``."""
     from ..run import RunTimeInfo
 
-    if engine == "sampled":
-        raise NotImplementedError(
-            "engine='sampled' with noise is not ported to the torch "
-            f"package yet: {_SAMPLED_ITEM}")
-    if engine not in ("auto", "xla", "streamed"):
+    if engine not in ("auto", "xla", "streamed", "sampled"):
         raise ValueError(
-            f"noisy execution runs on engine='auto', 'xla' or 'streamed', "
-            f"not engine={engine!r} (no kernel runs trajectory noise: "
-            "ROADMAP H100 port, section C, 'On purpose')")
+            f"noisy execution runs on engine='auto', 'xla', 'streamed' or "
+            f"'sampled', not engine={engine!r} (no kernel runs trajectory "
+            "noise: ROADMAP H100 port, section C, 'On purpose')")
     dev = resolve_device(device)
     models = _resolve_models(virt, noise)
 
@@ -817,6 +824,19 @@ def run_noisy_virtual_circuit(
             torch.cuda.synchronize(dev)
         return time.perf_counter()
 
+    if engine == "sampled":
+        from .knit import nearest_probability_distribution
+        from .qpd_sampling import sampled_knit, sampling_overhead
+
+        budget = shots
+        if budget is None:
+            budget = min(sampling_overhead(virt, eps=0.05)["shots_for_eps"],
+                         2_000_000)
+        now = clock()
+        dist = sampled_knit(virt, budget, seed=seed, noise=models,
+                            noise_seed=seed, device=dev)
+        dist = nearest_probability_distribution(dist)
+        return dist, RunTimeInfo(clock() - now, 0.0)
     if engine == "streamed":
         from .streamed import run_virtual_circuit_streamed
 

@@ -1,8 +1,7 @@
 """Monte-Carlo QPD sampling: estimate the knit without enumerating labels.
 
-Port of the JAX package's ``ops/qpd_sampling.py`` for the kernel-backed,
-noise-free, float32, single-device path (``engine="sampled"`` with
-``sample_pallas=True`` there).  The estimator is the same:
+Port of the JAX package's ``ops/qpd_sampling.py`` (``engine="sampled"``
+there), single-device.  The estimator is the same:
 
   * each cut's coefficient table ``coef[v, b]`` factors into a sampling
     magnitude ``m[v] = max_b |coef[v, b]|`` and a bounded fold ratio
@@ -14,40 +13,56 @@ noise-free, float32, single-device path (``engine="sampled"`` with
   * the estimator variance scales with ``kappa = (prod_g gamma_g)^2``.
 
 All label sampling is numpy on the host with the JAX package's seeds and
-call order, so both packages draw the same labels, and the collapse draws
-are ``default_rng(collapse_seed + 7919 * fi).random((L, ncols))`` for all
-``L`` labels before any blocking, so both feed the same draws whatever the
-block size.  The rows come from the hand-written kernels: a collapse-mode
-fragment from ``ops/collapse_kernel`` (every width from 1 to 20 qubits),
-an ancilla-mode fragment from the variant kernel's full rows
+call order, so both packages draw the same labels; the collapse draws
+are ``default_rng(collapse_seed + 7919 * fi).random((L, ncols))`` and the
+trajectory-noise branch indices ``default_rng(noise_seed + fi)`` per
+fragment, for all ``L`` labels before any blocking, so both feed the
+same draws whatever the block size.
+
+Each fragment's rows take one of two routes, chosen when the scan is
+built.  With ``pallas_variant=True`` (this package's default) a kernel
+serves them where it can: a collapse-mode fragment from
+``ops/collapse_kernel`` (every width from 1 to 20 active qubits), an
+ancilla-mode fragment from the variant kernel's full rows
 (``ops/variant_kernel.make_chunk_kernel``, up to 20 simulated qubits).
-The label scan is a Python loop over blocks of device work; the cross-
-fragment combination is one weighted ``torch.einsum`` over the label axis
-per block, in float32.
+Every other fragment, and every fragment with ``pallas_variant=False``
+(the JAX default), a bf16 ``dtype`` or a noise model, runs without a
+kernel on ``variant_engine.make_sim_fn``: collapse mode
+(:func:`_collapse_row_builder`, the measurement collapsed in the
+simulation), deferred measurement (:func:`_ancilla_row_builder`), or
+trajectory noise with the calibrated readout
+(:func:`_noisy_row_builder`, each label's trajectories averaged inside
+its block).  The width route is a route, not a fallback: the scan logs
+which fragments a kernel backs.  The label scan is a Python loop over
+blocks of device work sized by bytes (:func:`_label_block`); the
+cross-fragment combination is one weighted ``torch.einsum`` over the
+label axis per block, in float32 (a bf16 state's rows are float32).
 
 Artefacts of the TPU route that are not carried over:
 
   * the float budget of a scan block and its re-evaluation for the
     in-kernel marginal (``_label_budget``) exist there because the
     backend's compile time grows with the largest buffer.  Here
-    :func:`_label_block` picks the block from bytes on the card (rows
-    and their temporaries against ``ops/streamed._CHUNK_BYTES_BUDGET``);
+    :func:`_label_block` picks the block from bytes on the card (rows,
+    states and their temporaries against
+    ``ops/streamed._CHUNK_BYTES_BUDGET``);
   * the scan-length bucketing and the padding rows serve ``jax.jit``'s
     static shapes: eager torch takes a short last block as it is.  The
     other half of that mechanism is kept: the built scan (plans and
     tables on the device) is cached on the ``VirtualCircuit``
     (``_scan_step_cache``), keyed by what the row functions depend on, so a
     repeat estimate builds no plan again;
-  * ``sample_pallas`` / ``pallas_variant`` default to True and False
-    raises: the rows built without a kernel (``_collapse_row_builder``,
-    ``_ancilla_row_builder``, ``_simulate_label_rows*``) need
-    ``make_sim_fn``, which is not ported.
+  * the JAX package runs its noisy rows unblocked, ``[L * trajectories,
+    2^k]`` at once; here they go through the blocked scan like every
+    other route, so no such buffer exists;
+  * ``sample_pallas`` / ``pallas_variant`` default to True: the kernels
+    are this package's main path.
 
-Refused with NotImplementedError (ROADMAP H100 port, queue A, "other
-engines", the sampled engine's line): ``noise=``, ``dtype=`` other than
-float32, ``mesh=``, ``pallas_variant=False``, and an ancilla-mode fragment
-past 20 simulated qubits or a collapse-mode fragment past 20 active
-qubits.
+Refused: ``mesh=`` (the dp-sharded scan) with NotImplementedError naming
+its ROADMAP item (queue A item 11, the sharded engine); noise with a
+``dtype``, with a collapse-mode fragment or with ``mesh`` with the JAX
+package's ValueError; a PEC model with ValueError naming the batched
+engine.
 """
 from __future__ import annotations
 
@@ -61,38 +76,47 @@ from .bits import permute_bits_flat
 from .collapse_kernel import MAX_OUTCOMES, make_collapse_chunk_kernel
 from .knit import fold_weights
 from .statevector import Distribution
-from .streamed import _CHUNK_BYTES_BUDGET
-from .variant_engine import label_strides, label_weight_bounds
+from .streamed import _CHUNK_BYTES_BUDGET, _SimRows, _sample_pauli_indices
+from .variant_engine import (
+    _slot_tables,
+    label_strides,
+    label_weight_bounds,
+    make_sim_fn,
+)
 from .variant_kernel import make_chunk_kernel
 
-_ITEM = "ROADMAP H100 port, queue A, 'other engines' (sampled engine: {})"
 _MAX_BLOCK = 4096  # labels per scan block, whatever the budget allows
+# float32 copies of a state live at once in a pass without a kernel (the
+# state, the next one, a slice combination's outputs, an einsum's
+# permuted operand)
+_STATE_COPIES = 4
 
 
-def _refuse_unported(noise=None, dtype=None, mesh=None,
-                     pallas_variant=True) -> None:
-    """Raise for the knobs of the JAX sampled engine this port lacks."""
-    if noise is not None:
-        raise NotImplementedError(
-            "noise= is not ported to the torch package yet: "
-            + _ITEM.format("noise")
-        )
-    if dtype is not None and dtype != torch.float32:
-        raise NotImplementedError(
-            "dtype= other than float32 is not ported to the torch package "
-            "yet: " + _ITEM.format("bf16")
-        )
+def _refuse_mesh(mesh) -> None:
+    """The dp-sharded scan is the sharded engine's item."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= is not ported to the torch package yet: "
-            + _ITEM.format("mesh")
+            "mesh= (the dp-sharded sampled scan) is not ported to the torch "
+            "package yet: ROADMAP H100 port, queue A, item 11 (the sharded "
+            "engine: mesh)"
         )
-    if not pallas_variant:
-        raise NotImplementedError(
-            "pallas_variant=False (rows built without a kernel) is not "
-            "ported to the torch package yet: "
-            + _ITEM.format("rows without a kernel")
+
+
+def _check_noise_args(noise, dtype, cflags, mesh) -> None:
+    """The JAX package's argument checks of a noisy sampled estimate."""
+    if noise is not None and dtype is not None:
+        raise ValueError("noise and bf16 dtype are exclusive "
+                         "(the trajectory-noise path is f32)")
+    if noise is not None and any(cflags):
+        raise ValueError("collapse mode is exact-path only; fragments "
+                         "with noise models cannot collapse")
+    if noise is not None and mesh is not None:
+        raise ValueError(
+            "mesh (dp-sharded sampled scan) and noise are exclusive: "
+            "the trajectory-noise path runs single-device, so the mesh "
+            "would be silently ignored — drop mesh= or noise="
         )
+    _refuse_mesh(mesh)
 
 
 def _variant_magnitudes(spec) -> np.ndarray:
@@ -491,6 +515,29 @@ def _collapse_flags(virt, collapse) -> list[bool]:
     return out
 
 
+def _noise_models(virt: VirtualCircuit, noise):
+    """Normalise ``noise`` into a per-fragment NoiseModel list (None =
+    exact), with the reference's untranspiled-fragment semantics
+    (ops/noise.run_noisy_virtual_circuit: fragments of an untranspiled
+    model run noise-free — their instantiations' gates match no
+    calibration entry).  None when no fragment is noisy."""
+    if noise is None:
+        return None
+    if isinstance(noise, (list, tuple)):
+        models = list(noise)
+    else:
+        models = [noise] * len(virt.fragments)
+    if len(models) < len(virt.fragments):
+        raise ValueError(f"{len(models)} noise models for "
+                         f"{len(virt.fragments)} fragments")
+    models = [
+        None if (m is not None and getattr(m, "untranspiled", False))
+        else m
+        for m in models[: len(virt.fragments)]
+    ]
+    return None if all(m is None for m in models) else models
+
+
 def _cv_adjust(est_values, m2, stats, y_expect):
     """Per-outcome control-variate regression (CV4Quantum role,
     arXiv:2502.08735, PAPERS.md — adapted from observable PEC to
@@ -587,6 +634,46 @@ def _marginalize_rows(t, positions, keep_clbits):
     return t, positions
 
 
+def _collapse_tables(virt, frag_name, sids, dev):
+    """Collapse mode's per-variant scalars for one fragment, on ``dev``:
+    ``(site_tabs, fold)``.  ``site_tabs[i] = (vgate, [n_inst, 3] (mflag,
+    w0, w1))`` for the collapse site at slot ``sids[i]``: variants
+    measuring there fold at the site with ``w[v, b]``.  ``fold(lab)`` is
+    every other variant's coefficient as ONE per-label scalar ``[l]``
+    (``w[v, 0]``: owner-non-measuring, or 1 for non-owner rows), or None
+    without a touching vgate — the convention of
+    :func:`_fold_rows_per_label`."""
+    prog = virt.programs[frag_name]
+    weights = _sign_weights(virt, frag_name)
+    ti_of = {g: i for i, g in enumerate(prog.touching)}
+    mh = _measured_here(virt, frag_name)
+    site_tabs = []
+    for sid in sids:
+        slot = prog.slots[sid]
+        spec = virt.vgates[slot.vgate_idx].spec
+        mrow = np.array(
+            [1.0 if p[slot.side].measure else 0.0 for p in spec.endpoints],
+            np.float32,
+        )
+        w = np.asarray(weights[ti_of[slot.vgate_idx]], np.float32)
+        site_tabs.append((slot.vgate_idx, to_device(
+            np.stack([mrow, w[:, 0], w[:, 1]], axis=1), dev)))
+    nonmeas = [
+        (g, to_device(np.where(mh[g], 1.0, np.asarray(weights[ti])[:, 0])
+                      .astype(np.float32), dev))
+        for ti, g in enumerate(prog.touching)
+    ]
+
+    def fold(lab):
+        nm = None
+        for g, tab in nonmeas:
+            f = tab[lab[:, g]]
+            nm = f if nm is None else nm * f
+        return nm
+
+    return site_tabs, fold
+
+
 def _collapse_row_builder_pallas(virt, frag_name, dtype=None,
                                  keep_clbits=None, z_sets=None,
                                  device=None):
@@ -620,26 +707,8 @@ def _collapse_row_builder_pallas(virt, frag_name, dtype=None,
     if built is None:
         return None
     rows_fn, positions, site_meta = built
-    prog = virt.programs[frag_name]
-    weights = _sign_weights(virt, frag_name)
-    ti_of = {g: i for i, g in enumerate(prog.touching)}
-    mh = _measured_here(virt, frag_name)
-    site_tabs = []
-    for sid, g in site_meta:
-        slot = prog.slots[sid]
-        spec = virt.vgates[slot.vgate_idx].spec
-        mrow = np.array(
-            [1.0 if p[slot.side].measure else 0.0 for p in spec.endpoints],
-            np.float32,
-        )
-        w = np.asarray(weights[ti_of[slot.vgate_idx]], np.float32)
-        site_tabs.append((g, to_device(np.stack([mrow, w[:, 0], w[:, 1]],
-                                                axis=1), dev)))
-    nonmeas = [
-        (g, to_device(np.where(mh[g], 1.0, np.asarray(weights[ti])[:, 0])
-                      .astype(np.float32), dev))
-        for ti, g in enumerate(prog.touching)
-    ]
+    site_tabs, fold = _collapse_tables(virt, frag_name,
+                                       [sid for sid, _ in site_meta], dev)
 
     def scalars(lab, u):
         """``[l, n_sites, 4]`` (u, mflag, w0, w1) per collapse site."""
@@ -653,14 +722,8 @@ def _collapse_row_builder_pallas(virt, frag_name, dtype=None,
 
     def fn(lab, u):
         rows = rows_fn(lab, scalars(lab, u))
-        # the owner-non-measuring coefficients as ONE per-label scalar
-        nm = None
-        for g, tab in nonmeas:
-            f = tab[lab[:, g]]
-            nm = f if nm is None else nm * f
-        if nm is not None:
-            rows = rows * nm[:, None]
-        return rows, list(positions)
+        nm = fold(lab)
+        return (rows if nm is None else rows * nm[:, None]), list(positions)
 
     fn.z_pre = z_sets is not None
     fn.rows_fn = rows_fn
@@ -696,9 +759,214 @@ def _ancilla_row_builder_pallas(virt, frag_name, dtype=None, device=None):
     return fn, list(positions), 0, width
 
 
+def _collapse_row_builder(virt, frag_name, dtype=None, device=None):
+    """Twin of :func:`_collapse_row_builder_pallas` without a kernel: the
+    same ``(fn, positions, n_collapse_sites, width)`` contract, the same
+    weight convention and draws, the simulation from
+    ``variant_engine.make_sim_fn(collapse=True)`` (every label of a block
+    one row of a batched state; a bf16 ``dtype`` keeps bf16 states and
+    float32 rows).  ``fn(lab, u, picks=None)``: ``picks`` (a list)
+    collects the branch picks (``variant_engine.picked_bits``).
+    ``fn.state`` is ``(state qubits, row bits, 1)`` for the scan's block
+    size, ``fn.sites`` the collapse sites' slot ids in the order of the
+    draws' columns (the collapse kernel's ``site_meta`` order)."""
+    dev = resolve_device(device)
+    prog = virt.programs[frag_name]
+    sim_fn, _, positions, _ = make_sim_fn(
+        virt, frag_name, build_matrices=False, collapse=True, dtype=dtype,
+    )
+    tables = [to_device(list(t), dev, sim_fn.dtype) for t in _slot_tables(
+        prog, [vg.spec for vg in virt.vgates], fused=False)]
+    sids = sim_fn.collapse_slots
+    site_tabs, fold = _collapse_tables(virt, frag_name, sids, dev)
+
+    def fn(lab, u, picks=None):
+        cargs = {sid: (u[:, ui], *tab[lab[:, g]].unbind(dim=1))
+                 for ui, (sid, (g, tab)) in enumerate(zip(sids, site_tabs))}
+        if prog.slots:
+            mats = [tuple(t[lab[:, slot.vgate_idx]] for t in tabs)
+                    for slot, tabs in zip(prog.slots, tables)]
+            rows = sim_fn(mats, cargs, dev, picks)
+        else:
+            rows = sim_fn([], cargs, dev).expand(lab.shape[0], -1)
+        nm = fold(lab)
+        return (rows if nm is None else rows * nm[:, None]), list(positions)
+
+    fn.state = (len(sim_fn.active_final), len(positions), 1)
+    fn.sites = list(sids)  # slot id a draw column
+    width = max(len(sim_fn.active_final), len(positions))
+    return fn, positions, len(site_tabs), width
+
+
+def _simulate_label_rows_collapse(virt, frag_name, lab, seed: int,
+                                  dtype=None, device=None):
+    """``([L, 2^d] rows, data positions)``: every label's rows with the
+    vgate measurements collapsed in the simulation and the fold weights
+    applied, from ``default_rng(seed)`` draws, without a kernel — unbiased
+    one-draw estimates of the exact folded rows (the JAX package's
+    function)."""
+    dev = resolve_device(device)
+    fn, positions, n_sites, _ = _collapse_row_builder(
+        virt, frag_name, dtype=dtype, device=dev)
+    lab = to_device(np.asarray(lab, np.int64), dev)
+    u = np.random.default_rng(seed).random(
+        (lab.shape[0], max(1, n_sites))).astype(np.float32)
+    rows, _ = fn(lab, to_device(u, dev))
+    return rows, positions
+
+
+def _label_rows_fn(virt, frag_name, dtype, dev):
+    """``(rows_fn, positions, sim_fn)``: ``rows_fn(lab [l, G])`` is every
+    label's probability row with deferral ancillas, ``[l, 2^k]`` float32
+    (slot tables gathered by the label's per-vgate variant index), from
+    ``make_sim_fn(fused_slots=True, dtype=dtype)``."""
+    prog = virt.programs[frag_name]
+    sim_fn, _, positions, _ = make_sim_fn(
+        virt, frag_name, build_matrices=False, fused_slots=True,
+        dtype=dtype,
+    )
+    tables = [to_device(list(t), dev, sim_fn.dtype) for t in _slot_tables(
+        prog, [vg.spec for vg in virt.vgates], fused=True)]
+
+    def rows_fn(lab):
+        if not prog.slots:
+            return sim_fn([], dev).expand(lab.shape[0], -1)
+        return sim_fn([tuple(t[lab[:, slot.vgate_idx]] for t in tabs)
+                       for slot, tabs in zip(prog.slots, tables)])
+
+    return rows_fn, list(positions), sim_fn
+
+
+def _ancilla_row_builder(virt, frag_name, dtype=None, device=None):
+    """Twin of :func:`_ancilla_row_builder_pallas` without a kernel:
+    ``fn(lab, u)`` (u ignored) simulates with deferral ancillas
+    (:func:`_label_rows_fn`), then folds the vgate clbits per label.
+    Same ``(fn, positions, n_sites, width)`` contract."""
+    dev = resolve_device(device)
+    rows_fn, positions, sim_fn = _label_rows_fn(virt, frag_name, dtype, dev)
+    weights = to_device(_sign_weights(virt, frag_name), dev, torch.float32)
+
+    def fn(lab, u=None):
+        return _fold_rows_per_label(virt, frag_name, rows_fn(lab), lab,
+                                    positions, weights=weights)
+
+    fn.state = (len(sim_fn.active_final), len(positions), 1)
+    width = max(len(sim_fn.active_final), len(positions))
+    return fn, positions, 0, width
+
+
+def _simulate_label_rows(virt, frag_name, lab, dtype=None, device=None):
+    """``([L, 2^k] rows, positions)``: a fragment's probability rows at
+    each label, unfolded, without a kernel.  ``dtype``: bf16 states (rows
+    still float32)."""
+    dev = resolve_device(device)
+    rows_fn, positions, _ = _label_rows_fn(virt, frag_name, dtype, dev)
+    return rows_fn(to_device(np.asarray(lab, np.int64), dev)), positions
+
+
+def _noisy_row_builder(virt, frag_name, nm, device=None):
+    """Trajectory-noise rows for the scan, the sampled-label restriction
+    of ``ops/noise.run_fragment_noisy`` (no kernel runs noise):
+    ``(fn, positions, 0, width)`` with ``fn(lab, draws)`` the block's
+    rows folded over the vgate clbits, each label's trajectories
+    averaged inside the block, then the calibrated readout channel.
+
+    ``fn.prepare(L, seed)`` makes the draws of all ``L`` labels before
+    any blocking, the JAX package's (``default_rng(seed)``, every site's
+    ``[L, trajectories]`` branch indices, balanced per label across its
+    trajectories): an ``[L, T, S]`` index tensor the scan slices a block
+    at a time, or for a fragment without slots its one averaged row
+    (``T`` trajectories shared by every label) expanded to ``L``.
+    ``fn.rows(lab, draws)`` gives the unfolded rows; ``fn.state`` is
+    ``(state qubits, row bits, T)``.  A PEC model raises ValueError."""
+    from .noise import (
+        _apply_rows_readout,
+        _site_active,
+        _site_idx,
+        fragment_readout_qubits,
+    )
+
+    dev = resolve_device(device)
+    prog = virt.programs[frag_name]
+    specs = [vg.spec for vg in virt.vgates]
+    sim_fn, _, positions, _ = make_sim_fn(virt, frag_name, noise=nm,
+                                          build_matrices=False)
+    if any(w is not None for (*_, w) in sim_fn.noise_sites):
+        raise ValueError(
+            "PEC (signed quasi-sites) is batched-engine-only: "
+            "run_noisy_virtual_circuit(engine='auto')")
+    site_tabs = [(pr, bank) for (_, _, pr, bank, _) in sim_fn.noise_sites]
+    k_traj = (nm.trajectories
+              if any(_site_active(pr) for pr, _ in site_tabs) else 1)
+    cq = fragment_readout_qubits(virt, frag_name, sim_fn)
+    site_banks = {s: to_device(sim_fn.site_banks[s], dev)
+                  for s in sim_fn.active_sites}
+    tables = [to_device(list(t), dev) for t in _slot_tables(prog, specs)]
+    gcols = [slot.vgate_idx for slot in prog.slots]
+    sim = _SimRows(sim_fn, tables, gcols, None, 0, specs, dev,
+                   torch.float32, site_banks)
+    weights = to_device(_sign_weights(virt, frag_name), dev, torch.float32)
+
+    def prepare(count, seed):
+        rng = np.random.default_rng(seed)
+        if prog.slots:
+            if not site_tabs:
+                return None
+            return to_device(_sample_pauli_indices(rng, site_tabs, count,
+                                                   k_traj), dev, torch.int64)
+        if k_traj > 1:
+            idx = [_site_idx(rng, pr, (k_traj,), balance_axis=0)
+                   for pr, _ in site_tabs]
+            row = sim_fn([], dev, {
+                s: site_banks[s][to_device(idx[s], dev, torch.int64)]
+                for s in sim_fn.active_sites}).mean(dim=0, keepdim=True)
+        else:
+            row = sim_fn([], dev)
+        return _apply_rows_readout(row, positions, nm, cq).expand(count, -1)
+
+    def rows(lab, draws):
+        if not prog.slots:
+            return draws
+        if draws is None:  # no noise site: the exact rows
+            out = sim_fn([tuple(t[lab[:, g]] for t in tabs)
+                          for g, tabs in zip(gcols, tables)], dev)
+        else:
+            out = sim.noisy_rows(lab, draws)
+        return _apply_rows_readout(out, positions, nm, cq)
+
+    def fn(lab, draws):
+        return _fold_rows_per_label(virt, frag_name, rows(lab, draws), lab,
+                                    positions, weights=weights)
+
+    fn.prepare, fn.rows = prepare, rows
+    fn.state = (len(sim_fn.active_final), len(positions), k_traj)
+    width = max(len(sim_fn.active_final), len(positions))
+    return fn, list(positions), 0, width
+
+
+def _simulate_label_rows_noisy(virt, frag_name, lab, nm, seed: int,
+                               device=None):
+    """``([L, 2^k] rows, positions)``: every label's trajectory-averaged
+    noisy rows with the calibrated readout channel applied, unfolded (the
+    JAX package's function, on :func:`_noisy_row_builder`): the draws
+    made for all ``L`` labels from ``default_rng(seed)``, the simulation
+    in blocks of :func:`_label_block`'s bytes."""
+    dev = resolve_device(device)
+    fn, positions, _, _ = _noisy_row_builder(virt, frag_name, nm, dev)
+    lab = to_device(np.asarray(lab, np.int64), dev)
+    count = lab.shape[0]
+    draws = fn.prepare(count, seed)
+    block = _block_of(_state_bytes(fn.state))
+    parts = [fn.rows(lab[s:s + block],
+                     None if draws is None else draws[s:s + block])
+             for s in range(0, count, block)]
+    return (torch.cat(parts) if parts else torch.zeros(
+        (0, 1 << len(positions)), device=dev)), positions
+
+
 def _row_floats(virt, frag_name, collapse: bool, keep_clbits, z_sets) -> int:
-    """Floats per label of the rows one fragment's row function hands
-    back."""
+    """Floats per label of the rows one fragment's kernel row function
+    hands back."""
     prog = virt.programs[frag_name]
     if not collapse:
         return 1 << prog.num_sim_qubits
@@ -712,61 +980,113 @@ def _row_floats(virt, frag_name, collapse: bool, keep_clbits, z_sets) -> int:
     return 1 << prog.num_data_qubits
 
 
-def _label_block(virt, flags, keep_clbits=None, z_sets=None) -> int:
-    """Labels per scan block, from bytes on the card: every fragment's
-    rows, their squares and two temporaries of the fold (f32) stay inside
-    ``ops/streamed._CHUNK_BYTES_BUDGET``; at most ``_MAX_BLOCK``.  The
-    collapse kernel's state scratch is per CUDA block, not per label, so
-    it does not enter."""
-    per_label = 16 * sum(
-        _row_floats(virt, r.name, flags[fi], keep_clbits, z_sets)
-        for fi, r in enumerate(virt.fragments)
-    )
+def _state_bytes(state) -> int:
+    """Bytes per label of a row function without a kernel, ``state =
+    (state qubits, row bits, trajectories)``: every trajectory's float32
+    states (``_STATE_COPIES`` of them live in a pass) and its full row,
+    then the label's row, its square and two temporaries of the fold."""
+    w, k, traj = state
+    return traj * (_STATE_COPIES * (8 << w) + (4 << k)) + (16 << k)
+
+
+def _block_of(per_label: int) -> int:
     return int(max(1, min(_MAX_BLOCK, _CHUNK_BYTES_BUDGET // per_label)))
 
 
-def _build_scan(virt, flags, keep_clbits, z_sets, dev):
-    """The per-fragment row functions of one scan, on ``dev``."""
-    row_fns, pos_raw, ns_raw = [], [], []
+def _label_block(virt, flags, keep_clbits=None, z_sets=None,
+                 states=None) -> int:
+    """Labels per scan block, from bytes on the card: every fragment's
+    rows stay inside ``ops/streamed._CHUNK_BYTES_BUDGET`` together; at
+    most ``_MAX_BLOCK``.  A kernel's rows count with their square and two
+    temporaries of the fold (f32; the collapse kernel's state scratch is
+    per CUDA block, not per label); ``states[fi]``, where a fragment's
+    rows come without a kernel (``fn.state`` of its builder), counts its
+    whole states and full rows (:func:`_state_bytes`).  ``states=None``:
+    a kernel serves every fragment."""
+    states = states or [None] * len(virt.fragments)
+    per_label = sum(
+        16 * _row_floats(virt, r.name, flags[fi], keep_clbits, z_sets)
+        if states[fi] is None else _state_bytes(states[fi])
+        for fi, r in enumerate(virt.fragments)
+    )
+    return _block_of(per_label)
+
+
+def _model_key(nm):
+    """A hashable identity of a noise model: every field, arrays by
+    bytes."""
+    import dataclasses
+
+    def frozen(v):
+        if isinstance(v, np.ndarray):
+            return (v.dtype.str, v.shape, v.tobytes())
+        if isinstance(v, (list, tuple)):
+            return tuple(frozen(x) for x in v)
+        return v
+
+    if nm is None:
+        return None
+    return tuple((f.name, frozen(getattr(nm, f.name)))
+                 for f in dataclasses.fields(nm))
+
+
+def _build_scan(virt, flags, keep_clbits, z_sets, dev, pallas_variant=True,
+                dtype=None, noise=None):
+    """The per-fragment row functions of one scan, on ``dev``: a noisy
+    fragment's from :func:`_noisy_row_builder`; with ``pallas_variant``
+    a kernel's where one serves the fragment (the collapse kernel, for a
+    marginal or Z columns past its 128 outputs its full rows; the
+    variant kernel's full rows), and the route without a kernel for every
+    other fragment (past a kernel's width, a bf16 ``dtype``,
+    ``pallas_variant=False``)."""
+    row_fns, pos_raw, ns_raw, states, collapse, routes = [], [], [], [], \
+        [], []
     for fi, reg in enumerate(virt.fragments):
-        prog = virt.programs[reg.name]
-        if flags[fi]:
-            built = _collapse_row_builder_pallas(
-                virt, reg.name, keep_clbits=keep_clbits, z_sets=z_sets,
-                device=dev,
-            )
+        nm = None if noise is None else noise[fi]
+        built = None
+        if nm is not None:
+            built, route = _noisy_row_builder(virt, reg.name, nm, dev), \
+                "noisy, no kernel"
+        elif flags[fi]:
+            route = "collapse kernel"
+            if pallas_variant:
+                built = _collapse_row_builder_pallas(
+                    virt, reg.name, dtype=dtype, keep_clbits=keep_clbits,
+                    z_sets=z_sets, device=dev,
+                ) or _collapse_row_builder_pallas(
+                    # past the in-kernel marginal / z columns: full rows,
+                    # reduced in torch by the scan
+                    virt, reg.name, dtype=dtype, device=dev)
             if built is None:
-                # past the in-kernel marginal / z columns: full rows,
-                # reduced in torch by the scan
-                built = _collapse_row_builder_pallas(virt, reg.name,
-                                                     device=dev)
-            if built is None:
-                raise NotImplementedError(
-                    f"collapse-mode fragment {reg.name!r} keeps more than "
-                    "20 active qubits, past the collapse kernel's gate: "
-                    + _ITEM.format("rows without a kernel")
-                )
+                built, route = _collapse_row_builder(
+                    virt, reg.name, dtype=dtype, device=dev), \
+                    "collapse, no kernel"
         else:
-            built = _ancilla_row_builder_pallas(virt, reg.name, device=dev)
+            route = "variant kernel"
+            if pallas_variant:
+                built = _ancilla_row_builder_pallas(virt, reg.name,
+                                                    dtype=dtype, device=dev)
             if built is None:
-                raise NotImplementedError(
-                    f"ancilla-mode fragment {reg.name!r} simulates "
-                    f"{prog.num_sim_qubits} qubits, past the variant "
-                    "kernel's 20-qubit gate (collapse=True keeps it at "
-                    f"its {prog.num_data_qubits} data qubits): "
-                    + _ITEM.format("rows without a kernel")
-                )
+                built, route = _ancilla_row_builder(
+                    virt, reg.name, dtype=dtype, device=dev), \
+                    "ancilla, no kernel"
         fn, pos, ns, _w = built
         row_fns.append(fn)
         pos_raw.append(list(pos))
         ns_raw.append(ns)
+        states.append(getattr(fn, "state", None))
+        collapse.append(bool(flags[fi]) and nm is None)
+        routes.append(route)
+    bf16 = dtype is not None and dtype != torch.float32
     get_logger(__name__).info(
-        "sampled engine: collapse kernel backs "
-        f"{[r.name for fi, r in enumerate(virt.fragments) if flags[fi]]}, "
-        "variant kernel (full rows) backs "
-        f"{[r.name for fi, r in enumerate(virt.fragments) if not flags[fi]]}"
+        "sampled engine: "
+        + ", ".join(f"{r.name}: {route}"
+                    for r, route in zip(virt.fragments, routes))
+        + (" (kernels run float32 states only: bf16 runs without a kernel)"
+           if bf16 and pallas_variant else "")
     )
-    return {"row_fns": row_fns, "ns": ns_raw, "pos_raw": pos_raw}
+    return {"row_fns": row_fns, "ns": ns_raw, "pos_raw": pos_raw,
+            "states": states, "collapse": collapse, "routes": routes}
 
 
 def _scan_core(
@@ -782,24 +1102,29 @@ def _scan_core(
     dtype=None,
     flags=None,
     collapse_seed: int = 0,
-    block: int = 32,
+    block: int | None = None,
     pallas_variant: bool = True,
     mesh=None,
+    noise=None,
+    noise_seed: int = 0,
     device=None,
 ):
     """The blocked estimate behind :func:`_estimate` / :func:`_estimate_z`:
     a loop over label blocks accumulates the weighted knit (and the
     optional second-moment / control-variate statistics) on ``device``
     (None = "cuda"), so the peak buffer is ``block x 2^width`` instead of
-    ``L x 2^width``.  The collapse draws are made for all ``L`` labels
-    before blocking, so the estimate does not depend on ``block`` beyond
-    f32 summation order.
+    ``L x 2^width``.  The collapse draws and the trajectory-noise draws
+    (``noise``: one model or None a fragment, ``noise_seed``) are made
+    for all ``L`` labels before blocking, so the estimate does not depend
+    on ``block`` beyond f32 summation order.  ``block=None``: from the
+    routes' bytes (:func:`_label_block`).
 
     The built scan (each fragment's plan and tables on the device) is
     cached on ``virt`` (``_scan_step_cache``), keyed by what the row
-    functions depend on: the label width, the collapse flags, the kept clbits, the
-    z-sets and the device.  A repeat estimate builds no plan again."""
-    _refuse_unported(None, dtype, mesh, pallas_variant)
+    functions depend on: the label width, the collapse flags, the kept
+    clbits, the z-sets, the device, ``pallas_variant``, the dtype and
+    the noise models.  A repeat estimate builds no plan again."""
+    _refuse_mesh(mesh)
     dev = resolve_device(device)
     gamma_total = (
         sampling_overhead(virt)["gamma_total"]
@@ -810,39 +1135,47 @@ def _scan_core(
     L, G = lab_np.shape
     flags = list(flags) if flags is not None \
         else [False] * len(virt.fragments)
-    block = max(1, int(block))
 
     key = (
         "scan", G, tuple(flags),
         None if keep_clbits is None else tuple(sorted(keep_clbits)),
         None if z_sets is None
         else tuple(tuple(sorted(s)) for s in z_sets),
-        str(dev),
+        str(dev), bool(pallas_variant),
+        None if dtype is None else str(dtype),
+        None if noise is None else tuple(_model_key(m) for m in noise),
     )
     cache = virt.__dict__.setdefault("_scan_step_cache", {})
     ent = cache.get(key)
     if ent is None:
-        ent = _build_scan(virt, flags, keep_clbits, z_sets, dev)
+        ent = _build_scan(virt, flags, keep_clbits, z_sets, dev,
+                          pallas_variant=pallas_variant, dtype=dtype,
+                          noise=noise)
         cache[key] = ent
+    block = (_label_block(virt, flags, keep_clbits, z_sets, ent["states"])
+             if block is None else max(1, int(block)))
     row_fns = ent["row_fns"]
     z_pre = [bool(getattr(fn, "z_pre", False)) for fn in row_fns]
     keep_set = None if keep_clbits is None else set(keep_clbits)
     pos_static = []
     for fi, pos in enumerate(ent["pos_raw"]):
-        pos_f = [p for p in pos if flags[fi] or p < virt.num_clbits]
+        pos_f = [p for p in pos
+                 if ent["collapse"][fi] or p < virt.num_clbits]
         if keep_set is not None:
             pos_f = [p for p in pos_f if p in keep_set]
         pos_static.append(pos_f)
 
     # the draws are data: all L labels at once, fragment by fragment
-    u_dev = []
+    data = []
     for fi, ns in enumerate(ent["ns"]):
-        if flags[fi]:
+        if ent["collapse"][fi]:
             rng = np.random.default_rng(collapse_seed + 7919 * fi)
-            u = rng.random((L, max(1, ns))).astype(np.float32)
+            data.append(to_device(
+                rng.random((L, max(1, ns))).astype(np.float32), dev))
+        elif noise is not None and noise[fi] is not None:
+            data.append(row_fns[fi].prepare(L, noise_seed + fi))
         else:
-            u = np.zeros((L, 1), np.float32)
-        u_dev.append(to_device(u, dev))
+            data.append(None)
     lab_dev = to_device(lab_np, dev, torch.int64)
     w_dev = to_device((mass * gamma_total).astype(np.float32), dev)
     w2_dev = to_device(
@@ -882,7 +1215,8 @@ def _scan_core(
         lab_c, w_c, w2_c = lab_dev[s:e], w_dev[s:e], w2_dev[s:e]
         rows_list = []
         for fi, fn in enumerate(row_fns):
-            rows, pos = fn(lab_c, u_dev[fi][s:e])
+            d = data[fi]
+            rows, pos = fn(lab_c, None if d is None else d[s:e])
             if keep_set is not None:
                 rows, pos = _marginalize_rows(rows, pos, keep_set)
             assert pos == pos_static[fi], (pos, pos_static[fi])
@@ -991,18 +1325,20 @@ def _estimate(
     preservation), making Y a zero-cost control variate — see
     :func:`sampled_knit`'s ``control_variate``.
 
+    ``noise``: one NoiseModel or None a fragment (a noisy fragment's
+    rows average its trajectories, drawn from ``noise_seed + fi``, and go
+    through its calibrated readout; :func:`_noisy_row_builder`).
+
     Every estimate goes through the blocked scan (:func:`_scan_core`),
     its block from :func:`_label_block`."""
-    _refuse_unported(noise, dtype, mesh, pallas_variant)
     flags = list(collapse) if collapse is not None else \
         [False] * len(virt.fragments)
     return _scan_core(
         virt, labels, mass, keep_clbits=keep_clbits,
         second_moment=second_moment, control_stats=control_stats,
         gamma_override=gamma_override, dtype=dtype, flags=flags,
-        collapse_seed=collapse_seed,
-        block=_label_block(virt, flags, keep_clbits=keep_clbits),
-        pallas_variant=pallas_variant, device=device,
+        collapse_seed=collapse_seed, pallas_variant=pallas_variant,
+        mesh=mesh, noise=noise, noise_seed=noise_seed, device=device,
     )
 
 
@@ -1128,14 +1464,27 @@ def sampled_knit(
 
     ``collapse``: True / False / "auto" / a per-fragment list
     (:func:`_collapse_flags`): a collapse-mode fragment measures its cuts
-    in the simulation and runs through the collapse kernel, an
-    ancilla-mode fragment through the variant kernel's full rows.
-    ``noise``, a non-f32 ``dtype``, ``mesh`` and ``pallas_variant=False``
-    raise NotImplementedError (module docstring)."""
-    _refuse_unported(noise, dtype, mesh, pallas_variant)
+    in the simulation, an ancilla-mode fragment defers them onto
+    ancillas.  ``pallas_variant`` (default True): a kernel serves every
+    fragment it can (the collapse kernel, the variant kernel's full
+    rows), the others run without one; False: every fragment without a
+    kernel (the JAX package's default).  ``dtype=torch.bfloat16``: bf16
+    states without a kernel, float32 rows and knit.
+
+    ``noise``: one NoiseModel, a per-fragment list, or None — the
+    sampled labels' instances run through the trajectory-noise engine
+    with calibrated readout (:func:`_noisy_row_builder`, draws from
+    ``noise_seed``), estimating the NOISY knit.  E[Y] = 1 still holds
+    (every noise channel is trace-preserving), so ``control_variate``
+    and the stderr/stratified/LHS machinery compose unchanged.  Noise
+    with a ``dtype``, with a collapse-mode fragment or with ``mesh``
+    raises the JAX package's ValueError; ``mesh`` raises
+    NotImplementedError (the sharded engine's item)."""
+    noise = _noise_models(virt, noise)
     cflags = _collapse_flags(virt, collapse)
-    ckw = dict(collapse=cflags, pallas_variant=pallas_variant,
-               device=device)
+    _check_noise_args(noise, dtype, cflags, mesh)
+    ckw = dict(collapse=cflags, pallas_variant=pallas_variant, dtype=dtype,
+               noise=noise, device=device)
     split = stratified_split(virt, head_labels) if head_labels else None
     if split is None:
         uniq, counts = sample_label_counts(virt, num_samples, seed,
@@ -1149,11 +1498,13 @@ def sampled_knit(
             mass = counts.astype(np.float64) / num_samples
         if not (with_stderr or control_variate):
             return _estimate(virt, uniq, mass, keep_clbits,
+                             noise_seed=noise_seed,
                              collapse_seed=seed * 31 + 17, **ckw)
         est, m2, *rest = _estimate(
             virt, uniq, mass, keep_clbits, second_moment=True,
             control_stats=control_variate,
-            collapse_seed=seed * 31 + 17, **ckw,
+            noise_seed=noise_seed, collapse_seed=seed * 31 + 17,
+            **ckw,
         )
         vals = np.asarray(est.values)
         if control_variate:
@@ -1177,6 +1528,7 @@ def sampled_knit(
             lambda rows, w, off: _estimate(
                 virt, rows, w, keep_clbits,
                 gamma_override=1.0, control_stats=control_variate,
+                noise_seed=noise_seed,
                 collapse_seed=seed * 31 + 29 + off, **ckw,
             ),
             control_variate,
@@ -1194,7 +1546,8 @@ def sampled_knit(
         head_out = _estimate(
             virt, head_rows, head_w, keep_clbits,
             gamma_override=1.0, control_stats=control_variate,
-            collapse_seed=seed * 31 + 29, **ckw,
+            noise_seed=noise_seed, collapse_seed=seed * 31 + 29,
+            **ckw,
         )
         head, head_stats = head_out if control_variate \
             else (head_out, None)
@@ -1217,6 +1570,7 @@ def sampled_knit(
     if not (with_stderr or control_variate):
         tail = _estimate(virt, uniq, mass, keep_clbits,
                          gamma_override=gamma_tail,
+                         noise_seed=noise_seed + 503,
                          collapse_seed=seed * 31 + 43, **ckw)
         return Distribution(
             np.asarray(head.values) + np.asarray(tail.values),
@@ -1225,7 +1579,8 @@ def sampled_knit(
     tail, m2, *rest = _estimate(
         virt, uniq, mass, keep_clbits, second_moment=True,
         gamma_override=gamma_tail, control_stats=control_variate,
-        collapse_seed=seed * 31 + 43, **ckw,
+        noise_seed=noise_seed + 503, collapse_seed=seed * 31 + 43,
+        **ckw,
     )
     # the tail's sampling variance, plus the head's collapse-draw
     # variance when collapse mode fed it (head_var is None on the exact
@@ -1297,17 +1652,15 @@ def _estimate_z(
     ``second_moment`` / ``control_stats`` mirror :func:`_estimate` (the
     per-sample square factorises over fragments; Y is the signed total
     mass with exact expectation — for the empty z-set X == Y, so the CV
-    is exact there)."""
-    _refuse_unported(noise, dtype, mesh, pallas_variant)
+    is exact there).  ``noise`` as in :func:`_estimate`."""
     flags = list(collapse) if collapse is not None else \
         [False] * len(virt.fragments)
     return _scan_core(
         virt, labels, mass, z_sets=z_sets,
         second_moment=second_moment, control_stats=control_stats,
         gamma_override=gamma_override, dtype=dtype, flags=flags,
-        collapse_seed=collapse_seed,
-        block=_label_block(virt, flags, z_sets=z_sets),
-        pallas_variant=pallas_variant, device=device,
+        collapse_seed=collapse_seed, pallas_variant=pallas_variant,
+        mesh=mesh, noise=noise, noise_seed=noise_seed, device=device,
     )
 
 
@@ -1342,12 +1695,14 @@ def sampled_expectation_z(
     regression against the signed total mass (exact expectation 1: for
     observables the estimate tracks the total far more tightly than any
     single distribution outcome, so the reduction is larger than on
-    knitted distributions)."""
+    knitted distributions).  ``noise`` estimates the NOISY observables,
+    ``dtype`` and ``pallas_variant`` route as in :func:`sampled_knit`."""
     z_sets = [set(s) for s in z_sets]
-    _refuse_unported(noise, dtype, mesh, pallas_variant)
+    noise = _noise_models(virt, noise)
     cflags = _collapse_flags(virt, collapse)
-    ckw = dict(collapse=cflags, pallas_variant=pallas_variant,
-               device=device)
+    _check_noise_args(noise, dtype, cflags, mesh)
+    ckw = dict(collapse=cflags, pallas_variant=pallas_variant, dtype=dtype,
+               noise=noise, device=device)
     split = stratified_split(virt, head_labels) if head_labels else None
     if split is None:
         uniq, counts = sample_label_counts(virt, num_samples, seed,
@@ -1361,11 +1716,13 @@ def sampled_expectation_z(
             mass = counts.astype(np.float64) / num_samples
         if not (with_stderr or control_variate):
             return _estimate_z(virt, uniq, mass, z_sets,
+                               noise_seed=noise_seed,
                                collapse_seed=seed * 31 + 17, **ckw)
         est, m2, *rest = _estimate_z(
             virt, uniq, mass, z_sets, second_moment=True,
             control_stats=control_variate,
-            collapse_seed=seed * 31 + 17, **ckw,
+            noise_seed=noise_seed, collapse_seed=seed * 31 + 17,
+            **ckw,
         )
         if control_variate:
             est, var = _cv_adjust(est, m2, rest[0], 1.0)
@@ -1385,6 +1742,7 @@ def sampled_expectation_z(
             lambda rows, w, off: _estimate_z(
                 virt, rows, w, z_sets, gamma_override=1.0,
                 control_stats=control_variate,
+                noise_seed=noise_seed,
                 collapse_seed=seed * 31 + 29 + off, **ckw,
             ),
             control_variate,
@@ -1399,7 +1757,8 @@ def sampled_expectation_z(
         head_out = _estimate_z(
             virt, head_rows, head_w, z_sets,
             gamma_override=1.0, control_stats=control_variate,
-            collapse_seed=seed * 31 + 29, **ckw,
+            noise_seed=noise_seed, collapse_seed=seed * 31 + 29,
+            **ckw,
         )
         head, head_stats = head_out if control_variate \
             else (head_out, None)
@@ -1420,12 +1779,14 @@ def sampled_expectation_z(
     if not (with_stderr or control_variate):
         tail = _estimate_z(virt, uniq, mass, z_sets,
                            gamma_override=gamma_tail,
+                           noise_seed=noise_seed + 503,
                            collapse_seed=seed * 31 + 43, **ckw)
         return head + tail
     tail, m2, *rest = _estimate_z(
         virt, uniq, mass, z_sets, second_moment=True,
         gamma_override=gamma_tail, control_stats=control_variate,
-        collapse_seed=seed * 31 + 43, **ckw,
+        noise_seed=noise_seed + 503, collapse_seed=seed * 31 + 43,
+        **ckw,
     )
     # tail sampling variance + the head's collapse-draw variance (None
     # on the exact enumeration path)

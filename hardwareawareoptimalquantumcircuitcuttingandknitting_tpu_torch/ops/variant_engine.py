@@ -14,9 +14,11 @@ fused (ops/fusion.py).  Exact, in float32 or (``dtype=
 torch.bfloat16``, the serving mode) bf16 states with float32 rows; or,
 with ``noise`` (a NoiseModel, ops/noise.py), the unfused op stream
 (routed onto the model's coupling map) with trajectory noise sites as
-plan steps, each row applying its own gathered Kraus block.
-``collapse=True`` raises ``NotImplementedError`` naming its ROADMAP
-item.
+plan steps, each row applying its own gathered Kraus block; or, with
+``collapse=True`` (the sampled engine's rows without a kernel), every
+vgate measurement collapsed in the simulation (:func:`collapse_qubit`)
+at a per-row uniform draw, the rows weighted by the sampled fold
+coefficients.
 
 The shared-prefix planners of the streamed scan (:func:`split_plan`,
 :func:`suffix_stages`, :func:`ideal_stage_align`, :func:`make_prefix_fn`)
@@ -48,7 +50,6 @@ from .statevector import (
     to_real_block,
 )
 
-_ITEM = "ROADMAP H100 port, queue A, 'other engines'"
 # one chunk's [chunk, 2, 2^n] float32 states stay within this many bytes
 _CHUNK_STATE_BYTES = 256 * 1024 * 1024
 
@@ -227,6 +228,22 @@ def truncate_labels(specs, gstride: dict, n_inst: dict, total: int,
     return kept, dropped
 
 
+def _collapse_ops(virt, prog):
+    """Collapse mode's source ops and written clbits for one fragment:
+    every ``slot_meas`` (the CX onto the slot's deferral ancilla) becomes
+    ``("collapse", slot_id, (qubit,))``, so no ancilla appears in an op,
+    and only the DATA clbits stay (the vgate clbits are contracted at the
+    collapse sites).  Returns ``(ops, clbit_sources)``."""
+    ops = [
+        ("collapse", op[1], (op[2][0],)) if op[0] == "slot_meas" else op
+        for op in prog.ops
+    ]
+    clbit_sources = {
+        c: q for c, q in prog.clbit_sources.items() if c < virt.num_clbits
+    }
+    return ops, clbit_sources
+
+
 def collapse_stream(virt, frag_name: str):
     """Host side of collapse mode for one fragment: ``(prefix_ops,
     suffix_steps, active, positions, sources)``.
@@ -246,11 +263,7 @@ def collapse_stream(virt, frag_name: str):
     reads as a deterministic 0."""
     from .fusion import fused_stream
 
-    prog = virt.programs[frag_name]
-    source_ops = [
-        ("collapse", op[1], (op[2][0],)) if op[0] == "slot_meas" else op
-        for op in prog.ops
-    ]
+    source_ops, clbit_sources = _collapse_ops(virt, virt.programs[frag_name])
     skeleton, mats = fused_stream(source_ops, max_qubits=2)
     ops = []
     bi = 0
@@ -261,9 +274,6 @@ def collapse_stream(virt, frag_name: str):
         else:
             ops.append(op)
     active = sorted({q for op in ops for q in op[2]})
-    clbit_sources = {
-        c: q for c, q in prog.clbit_sources.items() if c < virt.num_clbits
-    }
     positions = sorted(clbit_sources)
     sources = [clbit_sources[c] for c in positions]
     first = next((i for i, op in enumerate(ops) if op[0] != "u"), len(ops))
@@ -368,8 +378,59 @@ def _apply_block(state, blk, axes, m, mask=None):
     return apply_slices(state, ur, ui, axes, m)
 
 
+def collapse_qubit(state, q: int, m: int, u, mflag, w0, w1, picks=None):
+    """Mid-circuit measure-and-collapse of qubit ``q`` on flat real-rep
+    states ``[V, 2, 2^m]``, one measurement a row: ``u``, ``mflag``,
+    ``w0``, ``w1`` are ``[V]`` float32 (uniform draw, measure flag, fold
+    weights of the row's variant).  The branch is picked at its Born
+    probability (``u * tot >= p0``, the probabilities summed in float32
+    as the JAX package sums them), the kept branch projected and
+    rescaled by ``sqrt(tot / p_b)``, and the row's weight is ``w0 + b (w1
+    - w0)``, so ``E[w_b |psi_b|^2] = sum_b w_b |P_b psi|^2`` exactly.  A
+    row with ``mflag == 0`` passes through with weight 1.  A bf16 state
+    is projected in float32 (its scale rounded to bf16, the constant
+    following the state's dtype) and stored back once.  Returns
+    ``(states, weight [V])``; ``picks``, a list, gets ``(b, u * tot -
+    p0, tot, mflag)`` of this site appended (:func:`picked_bits`)."""
+    v = state.shape[0]
+    st = state.to(torch.float32).reshape(v, 2, 1 << q, 2, 1 << (m - 1 - q))
+    sq = st * st
+    p0 = sq[:, :, :, 0, :].sum(dim=(1, 2, 3))
+    p1 = sq[:, :, :, 1, :].sum(dim=(1, 2, 3))
+    tot = p0 + p1
+    d = u * tot - p0
+    b = (d >= 0).to(torch.float32)  # u * tot >= p0, exactly
+    pb = p0 + b * (p1 - p0)
+    scale = torch.sqrt(tot / torch.clamp(pb, min=1e-30)).to(
+        state.dtype).to(torch.float32)
+    on = mflag > 0
+    keep = torch.stack([1.0 - b, b], dim=1) * scale[:, None]
+    fac = torch.where(on[:, None], keep, torch.ones_like(keep))
+    out = (st * fac[:, None, None, :, None]).reshape(v, 2, 1 << m)
+    weight = torch.where(on, w0 + b * (w1 - w0), torch.ones_like(w0))
+    if picks is not None:
+        picks.append((b, d, tot, mflag))
+    return out.to(state.dtype), weight
+
+
+def picked_bits(picks):
+    """``(bits [V, n_sites] int32, margins [V, n_sites] float32)`` from
+    the ``picks`` of :func:`collapse_qubit`, in site order: the picked
+    branch, -1 where the row does not measure there, and the distance
+    ``|u * tot - p0| / tot`` of the pick from its threshold
+    (``ops/collapse_kernel.plain_collapse_rows``' layout, for
+    ``compare_picks``)."""
+    bits = torch.stack([
+        torch.where(mf > 0, b.to(torch.int32), torch.full_like(
+            b, -1, dtype=torch.int32)) for b, _, _, mf in picks], dim=1)
+    margins = torch.stack([
+        d.abs() / torch.clamp(tot, min=1e-30) for _, d, tot, _ in picks],
+        dim=1)
+    return bits, margins
+
+
 def exec_plan_steps(state, m, steps, slot_mats, slot_masks=None,
-                    pauli_mats=None):
+                    pauli_mats=None, collapse_args=None, picks=None):
     """Run a slice of a fragment's lazy execution plan (the step list
     built by :func:`make_sim_fn`) on flat real-rep states ``[V, 2, 2^m]``,
     one per variant, in the states' dtype.  ``slot_mats`` maps slot id ->
@@ -381,8 +442,12 @@ def exec_plan_steps(state, m, steps, slot_mats, slot_masks=None,
     branch block of every row ``[V, 2, k, 2, k]`` (one contraction a
     site; k = 2 for a lone site, the gate's width where the site's bank
     carries its gate, see :func:`make_sim_fn`); without it the noise
-    steps are skipped.  Returns ``(state, m)``."""
+    steps are skipped.  Returns ``(state, m)`` — or ``(state, m,
+    weight [V])`` when ``collapse_args`` is given (slot id -> (u, mflag,
+    w0, w1) per-row scalars for the plan's ``"collapse"`` steps, see
+    :func:`collapse_qubit`; ``picks`` collects their picks)."""
     v = state.shape[0]
+    weight = None
     for stp in steps:
         kind = stp[0]
         if kind == "ins":
@@ -392,6 +457,12 @@ def exec_plan_steps(state, m, steps, slot_mats, slot_masks=None,
                 v, 2, 1 << (m + 1)
             )
             m += 1
+            continue
+        if kind == "collapse":
+            state, w_step = collapse_qubit(state, stp[2][0], m,
+                                           *collapse_args[stp[1]],
+                                           picks=picks)
+            weight = w_step if weight is None else weight * w_step
             continue
         mask = None
         if kind == "pauli":
@@ -411,12 +482,13 @@ def exec_plan_steps(state, m, steps, slot_mats, slot_masks=None,
             blk = (pre if kind == "slot_pre"
                    else m4 if kind == "slot_meas" else post)
         else:
-            raise NotImplementedError(
-                f"plan step {kind!r} is not ported to the torch package "
-                f"yet: {_ITEM}"
-            )
+            raise ValueError(f"unknown plan step {kind!r}")
         state = _apply_block(state, blk, stp[2], m, mask)
-    return state, m
+    if collapse_args is None:
+        return state, m
+    if weight is None:
+        weight = torch.ones(v, dtype=torch.float32, device=state.device)
+    return state, m, weight
 
 
 def finish_row(state, m, active_final, sources):
@@ -750,17 +822,24 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
     one pass, ``("pauli", site, gate axes, gate block)``).  A fragment
     without slots takes ``V`` from those blocks.  Float32 only.
 
-    ``collapse=True`` (sampled measurement: the sampled engine's collapse
-    kernel serves it, ops/collapse_kernel.py) is not ported to this
-    function and raises ``NotImplementedError``."""
-    if collapse:
-        raise NotImplementedError(
-            "make_sim_fn(collapse=True) is not ported to the torch package "
-            f"yet: {_ITEM} (the batched engine runs deferred measurement)"
-        )
+    ``collapse=True`` (sampled measurement, exact path only: the sampled
+    engine's rows without a kernel): every ``slot_meas`` becomes a
+    ``("collapse", slot id, axes)`` step (:func:`collapse_qubit`), so no
+    deferral ancilla enters the state; slots are not fused, and
+    ``positions`` are the DATA clbits only.  ``sim_fn(slot_mats,
+    collapse_args, device=None, picks=None)`` then takes
+    ``collapse_args``: slot id -> ``(u, mflag, w0, w1)``, ``[V]`` float32
+    each, and returns the rows times the rows' sampled fold weights;
+    ``sim_fn.collapse_slots`` lists the collapse sites' slot ids in plan
+    order (the order of the draws' columns), and ``picks`` (a list)
+    collects each site's pick (:func:`picked_bits`)."""
     dtype = torch.float32 if dtype is None else dtype
     if noise is not None and dtype != torch.float32:
         raise ValueError("bf16 serving mode is exact-path only")
+    if collapse:
+        if noise is not None:
+            raise ValueError("collapse mode is exact-path only")
+        fused_slots = False  # slot_meas must stay a distinct step
     from .fusion import fused_stream
 
     prog = virt.programs[frag_name]
@@ -777,6 +856,10 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
         # fuse contiguous fixed-gate runs between slots into blocks of up
         # to ``fuse_qubits`` qubits
         source_ops = _fuse_slot_ops(prog.ops) if fused_slots else prog.ops
+        if collapse:
+            # measure in place: the ancilla then never appears in an op,
+            # so the lazy introduction below never allocates its bit
+            source_ops, clbit_sources = _collapse_ops(virt, prog)
         skeleton, mats = fused_stream(source_ops, max_qubits=fuse_qubits)
         prog_ops = []
         bi = 0
@@ -901,7 +984,7 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
             for sid, tabs in enumerate(_slot_tables(prog, specs, fused=True))
         }
 
-    def sim_fn(slot_mats, device=None, pauli_mats=None):
+    def start(slot_mats, device, pauli_mats=None):
         # the blocks' device and row count; without any, ``device`` (None
         # = "cuda") and one row
         first = (slot_mats[0][0] if slot_mats
@@ -912,11 +995,26 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
         else:
             v, dev = 1, resolve_device(device)
         state = to_device(prefix_state, dev, dtype).expand(v, 2, 1 << m0)
-        slot_mats = [tuple(t.to(dtype) for t in tabs) for tabs in slot_mats]
-        state, m = exec_plan_steps(state, m0, run_plan, slot_mats,
-                                   slot_masks=slot_masks,
-                                   pauli_mats=pauli_mats)
-        return finish_row(state, m, active_final, sources)
+        return state, [tuple(t.to(dtype) for t in tabs)
+                       for tabs in slot_mats]
+
+    if collapse:
+        def sim_fn(slot_mats, collapse_args, device=None, picks=None):
+            state, mats = start(slot_mats, device)
+            state, m, w = exec_plan_steps(state, m0, run_plan, mats,
+                                          collapse_args=collapse_args,
+                                          picks=picks)
+            return finish_row(state, m, active_final, sources) * w[:, None]
+
+        sim_fn.collapse_slots = [stp[1] for stp in run_plan
+                                 if stp[0] == "collapse"]
+    else:
+        def sim_fn(slot_mats, device=None, pauli_mats=None):
+            state, mats = start(slot_mats, device, pauli_mats)
+            state, m = exec_plan_steps(state, m0, run_plan, mats,
+                                       slot_masks=slot_masks,
+                                       pauli_mats=pauli_mats)
+            return finish_row(state, m, active_final, sources)
 
     sim_fn.dtype = dtype
     sim_fn.noise_sites = noise_sites

@@ -31,10 +31,14 @@ kernel instead).  At widths where the full distribution cannot exist
 
 ``engine="sampled"``: Monte-Carlo QPD sampling (ops/qpd_sampling.py) for
 cut plans whose label grid is too large to enumerate; ``shots`` is the
-label-sample budget.  Collapse-mode fragments run the collapse kernel
-(ops/collapse_kernel.py), ancilla-mode fragments the variant kernel's
-full rows.  Observables go through
-``ops.qpd_sampling.sampled_expectation_z``.
+label-sample budget.  With ``sample_pallas=True`` (the default)
+collapse-mode fragments run the collapse kernel (ops/collapse_kernel.py)
+and ancilla-mode fragments the variant kernel's full rows, up to 20
+qubits; every other fragment, and every fragment with
+``sample_pallas=False`` or a bf16 ``dtype``, runs without a kernel
+(``variant_engine.make_sim_fn``).  Observables go through
+``ops.qpd_sampling.sampled_expectation_z``, noise through
+``ops.noise.run_noisy_virtual_circuit(engine="sampled")``.
 
 The whole-fragment kernel (ops/sv_kernel.py) is not an engine here, as in
 the JAX package: a caller composes ``run_fragment_kernel`` with
@@ -79,7 +83,8 @@ class RunTimeInfo:
 
 
 def _run_sampled(virt, shots, seed, project, head_labels, sample_method,
-                 sample_eps, sample_cv, keep_clbits, device):
+                 sample_eps, sample_cv, keep_clbits, device, dtype,
+                 sample_pallas):
     """``engine="sampled"``: ``shots`` is the QPD sample budget (default:
     the plan's kappa / 0.05^2 Hoeffding budget, capped at 2M), or with
     ``sample_eps`` the cap of the adaptive budget."""
@@ -97,7 +102,8 @@ def _run_sampled(virt, shots, seed, project, head_labels, sample_method,
         dist, _, used = sampled_knit_adaptive(
             virt, sample_eps, seed=seed, head_labels=head_labels,
             method=sample_method, keep_clbits=keep_clbits, max_samples=cap,
-            control_variate=sample_cv, device=device,
+            control_variate=sample_cv, dtype=dtype,
+            pallas_variant=sample_pallas, device=device,
         )
         log.info(f"sampled engine: eps={sample_eps:g} met with {used} "
                  f"samples (cap {cap})")
@@ -120,7 +126,8 @@ def _run_sampled(virt, shots, seed, project, head_labels, sample_method,
         dist = sampled_knit(
             virt, budget, seed=seed, head_labels=head_labels,
             method=sample_method, keep_clbits=keep_clbits,
-            control_variate=sample_cv, device=device,
+            control_variate=sample_cv, dtype=dtype,
+            pallas_variant=sample_pallas, device=device,
         )
     if project:
         dist = nearest_probability_distribution(dist)
@@ -192,8 +199,11 @@ def run_virtual_circuit(
     ``sample_cv`` (control-variate regression against the signed total
     mass); ``sample_eps`` (grow the budget until the worst per-outcome
     empirical standard error is <= sample_eps; ``shots`` is then the
-    cap, default 2M); ``sample_pallas`` (rows from the kernels: True is
-    the only ported route, False raises).
+    cap, default 2M); ``sample_pallas`` (True, this package's default: a
+    kernel's rows for every fragment one serves, the others without a
+    kernel; False: every fragment without a kernel, the JAX default);
+    ``dtype=torch.bfloat16`` (bf16 states without a kernel, float32 rows
+    and knit).
 
     ``keep_clbits``: marginal knit (any engine).  ``device``: None =
     "cuda" (raises without a card); "cpu" runs the plain versions.
@@ -206,11 +216,10 @@ def run_virtual_circuit(
     ``dtype`` other than float32 on "pallas" (the kernels are float32;
     use "streamed").  Not ported, NotImplementedError naming the ROADMAP
     item: ``mesh``, ``tracer``, ``max_local_qubits``,
-    ``teleport="execute"``, ``engine="sharded"``, ``sample_pallas=False``
-    and a bf16 sampled engine.  Their JAX defaults (None, None, None,
-    "qpd") give the JAX result.  Noisy execution goes through
-    ``ops.noise.run_noisy_virtual_circuit``, as in the JAX package (no
-    ``noise`` keyword here)."""
+    ``teleport="execute"`` and ``engine="sharded"``.  Their JAX defaults
+    (None, None, None, "qpd") give the JAX result.  Noisy execution goes
+    through ``ops.noise.run_noisy_virtual_circuit``, as in the JAX package
+    (no ``noise`` keyword here)."""
     if teleport not in ("qpd", "execute"):
         raise ValueError(f"unknown teleport mode {teleport!r}")
     given = {"tracer": tracer, "max_local_qubits": max_local_qubits,
@@ -230,7 +239,8 @@ def run_virtual_circuit(
         raise ValueError(f"unknown engine {engine!r}")
     if mesh is not None:
         raise NotImplementedError(
-            f"mesh= is not ported to the torch package yet: {_ITEM} (mesh)"
+            "mesh= is not ported to the torch package yet: ROADMAP H100 "
+            "port, queue A, item 11 (the sharded engine: mesh)"
         )
     if trunc_eps and engine not in ("auto", "streamed"):
         raise ValueError(
@@ -258,20 +268,9 @@ def run_virtual_circuit(
             f"feature, not engine={engine!r}"
         )
     if engine == "sampled":
-        if not sample_pallas:
-            raise NotImplementedError(
-                "sample_pallas=False (rows built without a kernel) is not "
-                f"ported to the torch package yet: {_ITEM} (sampled "
-                "engine: rows without a kernel)"
-            )
-        if not _is_f32(dtype):
-            raise NotImplementedError(
-                "dtype= (bf16) on the sampled engine is not ported to the "
-                f"torch package yet: {_ITEM} (sampled engine: bf16)"
-            )
         return _run_sampled(virt, shots, seed, project, head_labels,
                             sample_method, sample_eps, sample_cv,
-                            keep_clbits, device)
+                            keep_clbits, device, dtype, sample_pallas)
     log = get_logger(__name__)
     if engine == "auto":
         labels = 1

@@ -234,19 +234,20 @@ def test_chunk_cap_bounds_bytes():
     dict(noise=object()), dict(dtype=torch.bfloat16), dict(collapse=True),
 ], ids=["noise", "dtype", "collapse"])
 def test_make_sim_fn_refusals_name_their_roadmap_item(kw):
-    """Collapse stays refused.  bf16 states (the serving mode) run since
-    the streamed engine landed: float32 rows within 5e-3 of the f32
-    closure's.  Noise runs since the noise slice landed: with a routed,
-    calibrated model and the same branch indices a site, the rows equal
-    the JAX closure's within 1e-6, and the sites and readout nodes are
-    the JAX closure's bit for bit."""
+    """bf16 states (the serving mode) run since the streamed engine
+    landed: float32 rows within 5e-3 of the f32 closure's.  Noise runs
+    since the noise slice landed: with a routed, calibrated model and the
+    same branch indices a site, the rows equal the JAX closure's within
+    1e-6, and the sites and readout nodes are the JAX closure's bit for
+    bit.  Collapse runs since the sampled engine's rows without a kernel
+    landed: with the same draws, flags and weights, the rows equal the
+    JAX closure's within 1e-6."""
     jv, tv, _, _ = _case("chain5")
     if "noise" in kw:
         _noisy_rows_match(jv, tv)
         return
-    if "dtype" not in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
-            tve.make_sim_fn(tv, "frag0", **kw)
+    if "collapse" in kw:
+        _collapse_rows_match(jv, tv)
         return
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -258,6 +259,24 @@ def test_make_sim_fn_refusals_name_their_roadmap_item(kw):
     assert rows[torch.bfloat16].dtype == torch.float32
     assert float((rows[torch.bfloat16] - rows[torch.float32]).abs().max()) \
         < 5e-3
+
+
+def _collapse_rows_match(jv, tv):
+    sj, jmats, jpos, count = jve.make_sim_fn(jv, "frag0", collapse=True)
+    sim_fn, tmats, tpos, tcount = tve.make_sim_fn(tv, "frag0", collapse=True)
+    assert (tpos, tcount) == (jpos, count)
+    assert sim_fn.collapse_slots == sj.collapse_slots
+    rng = np.random.default_rng(2)
+    # (u, mflag, w0, w1) a row: every flag > 0, so every site collapses
+    args = {sid: tuple(rng.random(count).astype(np.float32)
+                       for _ in range(4)) for sid in sim_fn.collapse_slots}
+    want = jax.vmap(sj)(jmats, {k: tuple(jax.numpy.asarray(x) for x in v)
+                                for k, v in args.items()})
+    got = sim_fn([tuple(torch.as_tensor(t) for t in tabs)
+                  for tabs in tmats], {k: tuple(torch.as_tensor(x)
+                                                for x in v)
+                                       for k, v in args.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
 def _noisy_rows_match(jv, tv):

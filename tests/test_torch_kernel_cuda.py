@@ -929,3 +929,111 @@ def test_noisy_uncut_simulator_on_card_matches_cpu(card):
         a = noise.simulate_noisy_circuit(circ, nm, seed=2, device="cpu")
         b = noise.simulate_noisy_circuit(circ, nm, seed=2, device=card)
         np.testing.assert_allclose(b.values, a.values, atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# The sampled engine's rows without a kernel (plain PyTorch) against the
+# kernels' rows on the card, from the same labels and draws
+# ---------------------------------------------------------------------------
+
+def _sampled_block(virt, count, seed):
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+        qpd_sampling as tq,
+    )
+
+    uniq, counts = tq.sample_label_counts(virt, 4 * count, seed)
+    lab, _ = tq._expand_measuring_counts(virt, uniq,
+                                         counts.astype(np.float64))
+    return lab[:count]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 15])
+def test_collapse_rows_without_kernel_match_kernel_on_card(card, n):
+    """``make_sim_fn(collapse=True)`` rows (the scan's route without a
+    kernel) against the collapse kernel's full rows, on a block of the
+    size the scan takes for that route, with the same draws: picked
+    branches equal (a flip only within 1e-6 of its threshold, counted
+    apart), the other rows within 1e-5; the route launches no kernel."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+        collapse_kernel as ck,
+        qpd_sampling as tq,
+        variant_engine as ve,
+    )
+
+    virt, frag = _collapse_case(n)
+    fn, _, ns, _ = tq._collapse_row_builder(virt, frag, device=card)
+    kfn = tq._collapse_row_builder_pallas(virt, frag, device=card)[0]
+    block = tq._label_block(virt, [True] * len(virt.fragments),
+                            states=[fn.state] * len(virt.fragments))
+    lab = torch.as_tensor(_sampled_block(virt, block, 5), device=card)
+    u = torch.as_tensor(np.random.default_rng(n).random(
+        (lab.shape[0], ns)).astype(np.float32), device=card)
+    before = ck.collapse_rows.launches
+    picks = []
+    rows, _ = fn(lab, u, picks)
+    assert ck.collapse_rows.launches == before
+    krows, _ = kfn(lab, u)
+    bits, margins = ve.picked_bits(picks)
+    agree, near, far = ck.compare_picks(bits, kfn.rows_fn.last_bits,
+                                        margins)
+    assert far == 0, (near, far)
+    err = (rows - krows).abs()[agree].max().item()
+    assert err <= TOL, err
+
+
+@pytest.mark.cuda
+def test_ancilla_rows_without_kernel_match_kernel_on_card(card):
+    """Deferred-measurement rows folded per label without a kernel
+    against the variant kernel's full rows folded the same way, on a
+    scan block of sup-12's labels (two 9-qubit fragments)."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+        qpd_sampling as tq,
+        variant_kernel as vk,
+    )
+
+    virt = VirtualCircuit(_port_cut("sup", 12, 7))
+    for reg in virt.fragments:
+        fn, _, _, _ = tq._ancilla_row_builder(virt, reg.name, device=card)
+        kfn = tq._ancilla_row_builder_pallas(virt, reg.name, device=card)[0]
+        block = tq._label_block(virt, [False] * len(virt.fragments),
+                                states=[fn.state] * len(virt.fragments))
+        lab = torch.as_tensor(_sampled_block(virt, block, 3), device=card)
+        before = vk.variant_rows.launches
+        rows, pos = fn(lab)
+        assert vk.variant_rows.launches == before
+        krows, kpos = kfn(lab, None)
+        assert pos == kpos
+        assert (rows - krows).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+def test_noisy_sampled_rows_on_card_match_cpu(card):
+    """The sampled engine's noisy rows (``fake_kolkata_v2``, 4
+    trajectories, routed): the card's block against the CPU's from the
+    same numpy draws, within 1e-5 (absolute and of the largest entry);
+    ``run_noisy_virtual_circuit(engine="sampled")`` the same."""
+    import dataclasses
+
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+        noise,
+        qpd_sampling as tq,
+    )
+
+    cut = _port_cut("sup", 12, 7)
+    nm = dataclasses.replace(noise.fake_kolkata_v2(), trajectories=4)
+    virt = VirtualCircuit(cut)
+    lab_np = _sampled_block(virt, 64, 2)
+    for fi, reg in enumerate(virt.fragments):
+        rows = {}
+        for dev in ("cpu", card):
+            fn = tq._noisy_row_builder(virt, reg.name, nm, dev)[0]
+            lab = torch.as_tensor(lab_np, device=dev)
+            rows[dev] = fn.rows(lab, fn.prepare(len(lab_np), 7 + fi)).cpu()
+        err = (rows[card] - rows["cpu"]).abs().max().item()
+        assert err <= TOL and err <= TOL * rows["cpu"].abs().max().item()
+    got = [noise.run_noisy_virtual_circuit(VirtualCircuit(cut), nm,
+                                           shots=500, seed=3,
+                                           engine="sampled", device=dev)[0]
+           for dev in ("cpu", card)]
+    np.testing.assert_allclose(got[1].values, got[0].values, atol=TOL)

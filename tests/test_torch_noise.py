@@ -461,18 +461,23 @@ def test_noisy_compare_original_with_cut_matches(multi):
 
 
 def test_noise_refusals():
-    """Noise raises where it has no route: the sampled engine (its ROADMAP
-    item), the kernels (``engine="pallas"``), bf16, truncation and PEC on
-    the streamed scan; ``run_virtual_circuit`` takes no ``noise``."""
+    """Noise raises where it has no route: the kernels
+    (``engine="pallas"``), bf16, truncation and PEC on the streamed scan;
+    ``run_virtual_circuit`` takes no ``noise``.  The sampled engine runs
+    it since its noisy rows were ported: the JAX package's default budget
+    and result."""
     from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.run import (  # noqa: E501
         run_virtual_circuit,
     )
 
-    _, _, _, tv = _virts("ghz6")
-    tm = noise_model_from_other(_model("kolkata"))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP H100 port, queue A, item 2"):
-        tn.run_noisy_virtual_circuit(tv, tm, engine="sampled", device=CPU)
+    _, _, jv, tv = _virts("ghz6")
+    jm = _model("kolkata")
+    tm = noise_model_from_other(jm)
+    got, _ = tn.run_noisy_virtual_circuit(tv, tm, engine="sampled",
+                                          device=CPU)
+    want, _ = jn.run_noisy_virtual_circuit(jv, jm, engine="sampled")
+    np.testing.assert_allclose(got.values, np.asarray(want.values),
+                               atol=5e-5, rtol=1e-3)
     with pytest.raises(ValueError, match="not engine='pallas'"):
         tn.run_noisy_virtual_circuit(tv, tm, engine="pallas", device=CPU)
     for kw, match in ((dict(pallas_variant=True), "kernels are exact"),

@@ -337,13 +337,23 @@ def test_entry_points_default_to_cuda(monkeypatch):
 @pytest.mark.parametrize("engine,kw", [
     pytest.param(e, {}, id=e) for e in ("streamed", "sharded")
 ] + [
-    # the sampled engine is ported for kernel-backed rows only
+    # rows without a kernel (the JAX default) since they were ported
     pytest.param("sampled", dict(sample_pallas=False), id="sampled"),
 ])
 def test_unported_engines_name_their_roadmap_item(engine, kw):
     """The engines still to port raise naming their ROADMAP item;
-    "streamed" is ported and gives the JAX engine's result."""
+    "streamed" is ported and gives the JAX engine's result, and so does
+    "sampled" with ``sample_pallas=False`` (the same labels: agreement to
+    the JAX kernel-route tolerance)."""
     _, _, jv, tv, chunk = _pair("ghz10_p2q5")
+    if engine == "sampled":
+        want, _ = j_run(jv, engine=engine, shots=400, seed=2, **kw)
+        got, _ = run_virtual_circuit(tv, engine=engine, shots=400, seed=2,
+                                     device="cpu", **kw)
+        assert got.bit_positions == want.bit_positions
+        np.testing.assert_allclose(got.values, np.asarray(want.values),
+                                   atol=5e-5, rtol=1e-3)
+        return
     if engine == "streamed":
         want, _ = j_run(jv, engine="streamed", chunk_size=chunk)
         got, _ = run_virtual_circuit(tv, engine=engine, chunk_size=chunk,

@@ -118,32 +118,77 @@ def test_run_virtual_circuit_sample_eps_and_default_budget(qft9, monkeypatch):
     assert seen["control_variate"] is True and seen["method"] == "iid"
 
 
+@pytest.fixture
+def jax_scan(monkeypatch):
+    """The JAX estimators on their blocked, jitted scan at any label
+    count (the same estimator as the unblocked path): one compile instead
+    of every op of the unblocked path."""
+    monkeypatch.setattr(jq, "_label_budget", lambda: 1 << 12)
+
+
+def _kolkata(traj=2):
+    """fake_kolkata_v2 with ``traj`` trajectories: (jax, port)."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.ops import (  # noqa: E501
+        noise as jn,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.convert import (  # noqa: E501
+        noise_model_from_other,
+    )
+
+    jm = jn.fake_kolkata_v2()
+    jm.trajectories = traj
+    return jm, noise_model_from_other(jm)
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(noise=object()), "noise"),
     (dict(dtype=torch.bfloat16), "bf16"),
     (dict(mesh=object()), "mesh"),
     (dict(sample_pallas=False), "rows without a kernel"),
 ], ids=["noise", "dtype", "mesh", "sample_pallas"])
-def test_sampled_engine_refusals_name_their_roadmap_item(qft9, kw, match):
-    """Noise enters the sampled engine through
-    ``ops.noise.run_noisy_virtual_circuit(engine="sampled")``, as in the
-    JAX package (``run_virtual_circuit`` takes no ``noise``); the sampled
-    engine's noisy rows are not ported, so it raises naming its item."""
-    _, tv = qft9
+def test_sampled_engine_refusals_name_their_roadmap_item(qft9, jax_scan, kw,
+                                                         match):
+    """A mesh stays refused, naming the sharded engine's item.  Since the
+    rest of the sampled engine was ported, the other knobs run and give
+    the JAX package's result from the same arguments: noise through
+    ``ops.noise.run_noisy_virtual_circuit(engine="sampled")`` (as in the
+    JAX package, ``run_virtual_circuit`` takes no ``noise``), bf16 states
+    within the JAX bf16 test's 5e-3 of JAX's bf16, and
+    ``sample_pallas=False`` within the kernel-route tolerance."""
+    jv, tv = qft9
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP H100 port.*item 11.*" + match):
+            t_run(tv, engine="sampled", shots=10, device="cpu", **kw)
+        return
     if "noise" in kw:
+        from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.ops.noise import (  # noqa: E501
+            run_noisy_virtual_circuit as j_noisy,
+        )
         from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.noise import (  # noqa: E501
-            fake_kolkata_v2,
             run_noisy_virtual_circuit,
         )
 
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP H100 port.*" + match):
-            run_noisy_virtual_circuit(tv, fake_kolkata_v2(), shots=10,
-                                      engine="sampled", device="cpu")
+        jm, tm = _kolkata()
+        want, _ = j_noisy(jv, jm, shots=40, engine="sampled", seed=1)
+        got, _ = run_noisy_virtual_circuit(tv, tm, shots=40, seed=1,
+                                           engine="sampled", device="cpu")
+        np.testing.assert_allclose(got.values, np.asarray(want.values),
+                                   **KNIT_TOL)
         return
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP H100 port.*" + match):
-        t_run(tv, engine="sampled", shots=10, device="cpu", **kw)
+    run_kw = dict(shots=300, engine="sampled", seed=3, keep_clbits=[0, 1],
+                  project=False)
+    if "dtype" in kw:
+        import jax.numpy as jnp
+
+        want, _ = j_run(jv, dtype=jnp.bfloat16, **run_kw)
+        got, _ = t_run(tv, device="cpu", **kw, **run_kw)
+        assert np.abs(got.values - np.asarray(want.values)).max() < 5e-3
+        return
+    want, _ = j_run(jv, **run_kw)
+    got, _ = t_run(tv, device="cpu", **kw, **run_kw)
+    np.testing.assert_allclose(got.values, np.asarray(want.values),
+                               **KNIT_TOL)
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -152,14 +197,35 @@ def test_sampled_engine_refusals_name_their_roadmap_item(qft9, kw, match):
     (dict(mesh=object()), "mesh"),
     (dict(pallas_variant=False), "rows without a kernel"),
 ], ids=["noise", "dtype", "mesh", "pallas_variant"])
-def test_sampled_estimators_refuse_unported_knobs(qft9, kw, match):
-    _, tv = qft9
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP H100 port.*" + match):
-        tq.sampled_knit(tv, 10, device="cpu", **kw)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP H100 port.*" + match):
-        tq.sampled_expectation_z(tv, [{0}], 10, device="cpu", **kw)
+def test_sampled_estimators_refuse_unported_knobs(qft9, jax_scan, kw, match):
+    """``mesh`` stays refused (the sharded engine's item); noise, bf16
+    states and ``pallas_variant=False`` run in both estimators and give
+    the JAX package's estimates from the same seeds."""
+    jv, tv = qft9
+    zs = [{0}, {1, 2}]
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP H100 port.*item 11.*" + match):
+            tq.sampled_knit(tv, 10, device="cpu", **kw)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP H100 port.*item 11.*" + match):
+            tq.sampled_expectation_z(tv, zs, 10, device="cpu", **kw)
+        return
+    jkw, tkw, tol = dict(kw), dict(kw), KNIT_TOL
+    if "noise" in kw:
+        jkw["noise"], tkw["noise"] = _kolkata()
+        jkw["noise_seed"] = tkw["noise_seed"] = 4
+    if "dtype" in kw:
+        import jax.numpy as jnp
+
+        jkw["dtype"], tol = jnp.bfloat16, dict(atol=5e-3, rtol=0)
+    e0 = jq.sampled_knit(jv, 40, seed=2, keep_clbits=[0, 1], **jkw)
+    e1 = tq.sampled_knit(tv, 40, seed=2, keep_clbits=[0, 1], device="cpu",
+                         **tkw)
+    np.testing.assert_allclose(e1.values, np.asarray(e0.values), **tol)
+    z0 = jq.sampled_expectation_z(jv, zs, 40, seed=2, **jkw)
+    z1 = tq.sampled_expectation_z(tv, zs, 40, seed=2, device="cpu", **tkw)
+    np.testing.assert_allclose(z1, z0, **tol)
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -188,9 +254,11 @@ def test_sampled_engine_needs_a_card_by_default(qft9, monkeypatch):
 
 
 def test_wide_fragments_are_refused_by_name(qft9):
-    """Past a kernel's gate the scan raises naming the ROADMAP item
-    instead of falling back: an ancilla-mode fragment past 20 simulated
-    qubits (qft-16's 15-qubit fragment has 30)."""
+    """Past a kernel's gate the scan takes the route without a kernel
+    (JAX's XLA builder), and says so: qft-16's 15-qubit fragment in
+    ancilla mode simulates 30 qubits, past the variant kernel's 20, while
+    the 1-qubit fragment (16 simulated qubits) keeps the kernel.  Only
+    ``mesh=`` is still refused by name."""
     from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.cutter.cutter import (  # noqa: E501
         Cutter as TCutter,
     )
@@ -206,6 +274,12 @@ def test_wide_fragments_are_refused_by_name(qft9):
     cutter.use_plan(load_plan("qft16_prepped_p2_q15_gamma"))
     tv = TVirtualCircuit(cutter.getResultCircs()[3])
     assert tq._collapse_flags(tv, "auto") == [True, True]
+    sims = [tv.programs[r.name].num_sim_qubits for r in tv.fragments]
+    ent = tq._build_scan(tv, [False, False], None, None,
+                         torch.device("cpu"))
+    assert ent["routes"] == ["ancilla, no kernel" if n > 20
+                             else "variant kernel" for n in sims]
+    assert sorted(sims) == [16, 30]
     with pytest.raises(NotImplementedError,
-                       match="20-qubit gate.*ROADMAP H100 port"):
-        tq.sampled_knit(tv, 10, collapse=False, device="cpu")
+                       match="ROADMAP H100 port.*item 11.*mesh"):
+        tq.sampled_knit(tv, 10, collapse=False, mesh=object(), device="cpu")
