@@ -59,8 +59,9 @@ Phases (any failure exits non-zero without the result line):
              block knitted from the plain version agrees within 1e-5.
              The same qft-16 leg without a kernel (sample_pallas=False:
              make_sim_fn(collapse=True), plain PyTorch, no kernel
-             launched): the same labels and draws, the same 5-stderr
-             gates, the first and last blocks of its scan against
+             launched): the same labels and draws (a quarter of the
+             samples for its Z panel), the same 5-stderr gates, the
+             first and last blocks of its scan against
              kernel 3's full rows from the same draws (picks equal, a
              flip only within 1e-6 of its threshold, rows <= 1e-5), cold
              and warm wall, a device-only trace of its first blocks; and
@@ -155,12 +156,29 @@ Phases (any failure exits non-zero without the result line):
              noisy streamed observable with T1/T2 nearer 1 than the raw
              value, mitigate_readout inverting apply_readout_error within
              1e-5;
-11. where the time goes — host build of the scan, the run without the
+11. sharded — the sharded engine (plain PyTorch over a process-group
+             mesh; no kernel in either package).  sup-20 through
+             run_virtual_circuit(engine="sharded") on a mesh of one,
+             without a process group and inside an NCCL group of one
+             (file:// store; its collectives counted), both within 1e-6
+             of engine="pallas" and fidelity > 1 - 1e-5, bf16 within a
+             total variation of BF16_TV of f32, no kernel launched; a 26-data-qubit fragment (27
+             simulated, the hand-built cut of the JAX sharded tests) that
+             engine="pallas" refuses, through run_fragment_sharded on
+             the (1, 1) mesh that fragment_mesh(max_local_qubits=24)
+             gives one card, within 1e-5 of the batched engine's
+             run_fragment; qft-16's sampled estimate with mesh= (kernel
+             3 the route) equal to mesh=None within 1e-6; sup-20's scan
+             through parallel.sharded.streamed_values_dp (banks on, off,
+             the kernel route) within 2e-6 of the whole scan.  Each
+             prints the card, warm time, idle share, peak memory and
+             error.  Exchanges between cards cannot run on one card;
+12. where the time goes — host build of the scan, the run without the
              simplex projection, and a torch.profiler trace (device time
              by kernel, device idle share of the wall) for sup-20, ghz-24,
              hwe-40, qft-16 (there also the host's label sampling) and
              the two hwe-16 routes (lane table, upload, kernel, knit);
-12. report — one JSON line of kernels (launches, error, times, bound), the
+13. report — one JSON line of kernels (launches, error, times, bound), the
              card's name and power limit, and the contract's last line.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Details go to
@@ -171,6 +189,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -1405,6 +1424,10 @@ def phase_main_qft16(circ, virt, report):
 
 
 QFT_PLAIN_WINDOW = 4    # blocks of qft-16's scan without a kernel traced
+# the Z panel without a kernel at a quarter of the samples (its own
+# standard errors grow to match): 12-14 s instead of 45-55 s, which pays
+# for the sharded engine's phases within the script's time
+QFT_PLAIN_Z_SAMPLES = QFT_SAMPLES // 4
 BF16_MAX_DIFF = 5e-3    # tests/test_bf16_serving.py, the sampled engine's
 
 
@@ -1430,9 +1453,10 @@ def phase_main_qft16_plain(circ, virt, report):
     """qft-16 through the sampled engine without a kernel
     (``sample_pallas=False``: ``make_sim_fn(collapse=True)``, plain
     PyTorch), the "prepped" leg of phase main_qft16 at full width: the
-    same 120000 samples, seed, lhs and control variate, the marginal and
-    the Z panel held to the 2^16 oracle within 5 reported standard
-    errors; no kernel launched.  The draws are the kernel route's (the
+    same 120000 samples, seed, lhs and control variate for the marginal,
+    a quarter of them for the Z panel (``QFT_PLAIN_Z_SAMPLES``), each held
+    to the 2^16 oracle within 5 of its own standard errors; no kernel
+    launched.  The draws are the kernel route's (the
     same sampler call, the same collapse sites in the same draw
     columns), and the first and last blocks of this route's scan, from
     the same labels and draws, equal kernel 3's full rows (picks equal, a
@@ -1456,9 +1480,9 @@ def phase_main_qft16_plain(circ, virt, report):
     (est, se), warm_s = _timed(lambda: tq.sampled_knit(
         virt, QFT_SAMPLES, with_stderr=True, **knit_kw))
     (z_est, z_se), z_s = _timed(lambda: tq.sampled_expectation_z(
-        virt, QFT_Z_SETS, QFT_SAMPLES, seed=QFT_SEED + 1, method="lhs",
-        with_stderr=True, control_variate=True, pallas_variant=False,
-        device=DEV))
+        virt, QFT_Z_SETS, QFT_PLAIN_Z_SAMPLES, seed=QFT_SEED + 1,
+        method="lhs", with_stderr=True, control_variate=True,
+        pallas_variant=False, device=DEV))
     z_counts = _counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     oracle_m, oracle_z = _qft16_oracle(circ)
@@ -1506,7 +1530,8 @@ def phase_main_qft16_plain(circ, virt, report):
         "expanded_labels": n_lab, "block": block,
         "n_blocks": -(-n_lab // block), "launches": counts,
         "z_launches": z_counts, "cold_s": cold_s, "warm_s": warm_s,
-        "expectation_z_s": z_s, "peak_gb": peak_gb,
+        "expectation_z_s": z_s, "z_samples": QFT_PLAIN_Z_SAMPLES,
+        "peak_gb": peak_gb,
         "rerun_max_abs_err": rerun_err, "same_sites": same_sites,
         "marginal": est_v.tolist(), "marginal_stderr": se.tolist(),
         "marginal_worst_stderrs": float(m_dev.max()),
@@ -2987,6 +3012,302 @@ def phase_breakdown(label, virt, report):
               f"{row['kernel']}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The sharded engine (plain PyTorch over a process-group mesh, no kernel)
+# ---------------------------------------------------------------------------
+
+WIDE_NBIG = 26           # data qubits of the wide fragment (27 simulated)
+WIDE_LOCAL = 24          # max_local_qubits asked for it
+DP_TOL = 2e-6            # tests/test_streamed_sharded.py
+
+
+def _phase_line(label, report_row):
+    """The line every sharded phase prints: the card, warm time, idle
+    share, peak memory and error against its reference."""
+    print(f"{label}: card={report_row['card']} warm_s="
+          f"{report_row['warm_s']!r} idle_share="
+          f"{report_row['device_idle_share']} peak_gb="
+          f"{report_row['peak_gb']:.3f} max_abs_err="
+          f"{report_row['max_abs_err']!r} ({report_row['reference']})",
+          flush=True)
+
+
+def _peak_run(fn):
+    """``fn()`` timed, with the card's peak allocated memory around it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, secs = _timed(fn)
+    return out, secs, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _collectives():
+    """Within: every Mesh collective is counted by kind (the port's
+    sharded engine calls them on its axis groups)."""
+    mesh_mod = _port("parallel.mesh")
+    counts = {"all_reduce": 0, "all_gather": 0, "exchange": 0}
+    stack = contextlib.ExitStack()
+    for name in counts:
+        real = getattr(mesh_mod.Mesh, name)
+
+        def spy(self, *a, _real=real, _name=name, **kw):
+            if self._live(a[1] if len(a) > 1 else kw.get("axis")):
+                counts[_name] += 1
+            return _real(self, *a, **kw)
+
+        setattr(mesh_mod.Mesh, name, spy)
+        stack.callback(setattr, mesh_mod.Mesh, name, real)
+    return stack, counts
+
+
+def phase_main_sharded_sup20(circ, virt, report, card):
+    """sup-20 exact through ``engine="sharded"``: on a mesh of one with
+    no process group, then inside an NCCL process group of one (a
+    ``file://`` store, no network: the collectives run through NCCL on
+    groups of one), both equal to ``engine="pallas"`` within 1e-6 with
+    fidelity > 1 - 1e-5; then bf16 against f32 by total variation
+    (``BF16_TV``: sup-20's entries are ~1e-6, so a difference of entries
+    says nothing at this width).  No kernel is
+    launched on this path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    run = _port("run").run_virtual_circuit
+    fidelity = _port("evaluate").hellinger_fidelity
+    oracle = _port("ops.statevector").simulate_circuit(circ, device=DEV)
+    ref = run(virt, engine="pallas", chunk_size=CHUNK, project=False,
+              device=DEV)[0].values
+
+    def sharded(**kw):
+        return run(virt, engine="sharded", device=DEV, **kw)[0]
+
+    out = {"card": card, "reference": "engine='pallas', project=False"}
+    _reset_counts()
+    cold, out["cold_s"] = _timed(lambda: sharded(project=False))
+    out["launches"] = _counts()
+    proj, out["warm_s"], out["peak_gb"] = _peak_run(lambda: sharded())
+    out["fidelity"] = fidelity(oracle, proj)
+    out["max_abs_err"] = float(np.abs(cold.values - ref).max())
+    out.update(_profile(lambda: sharded(project=False), cpu=False))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # a world of one on one host: NCCL bootstraps over loopback
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            stack, coll = _collectives()
+            with stack:
+                grp, out["nccl_s"] = _timed(lambda: sharded(project=False))
+            out["nccl_collectives"] = dict(coll)
+            out["nccl_backend"] = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    out["nccl_max_abs_err"] = float(np.abs(grp.values - ref).max())
+    b16, out["bf16_s"] = _timed(lambda: sharded(project=False,
+                                                dtype=torch.bfloat16))
+    diff = np.abs(np.asarray(b16.values, np.float64) - cold.values)
+    out["bf16_tv"] = float(0.5 * diff.sum())
+    out["bf16_max_abs_err"] = float(diff.max())
+    out["bf16_rel_to_max"] = float(diff.max() / np.abs(cold.values).max())
+    report["sharded_sup20"] = out
+    _phase_line("main_sharded_sup20", out)
+    print(f"  cold_s={out['cold_s']:.4f} fidelity={out['fidelity']!r} "
+          f"nccl_s={out['nccl_s']:.4f} nccl_err={out['nccl_max_abs_err']!r} "
+          f"collectives={out['nccl_collectives']} bf16_s="
+          f"{out['bf16_s']:.4f} bf16_tv={out['bf16_tv']!r} bf16_max_abs="
+          f"{out['bf16_max_abs_err']!r} bf16_rel_to_max="
+          f"{out['bf16_rel_to_max']!r} "
+          f"launches={out['launches']}", flush=True)
+    for row in out["device_ms_by_kernel"][:4]:
+        print(f"  device {row['ms']:.3f} ms x{row['calls']}: "
+              f"{row['kernel']}", flush=True)
+    if out["launches"] != _only():
+        raise RuntimeError(f"sharded sup20 launched {out['launches']}")
+    for key, lim in (("max_abs_err", 1e-6), ("nccl_max_abs_err", 1e-6),
+                     ("bf16_tv", BF16_TV)):
+        if not out[key] <= lim:
+            raise RuntimeError(f"sharded sup20: {key} {out[key]!r} > {lim}")
+    if not out["fidelity"] > FID_MIN:
+        raise RuntimeError(f"sharded sup20: fidelity {out['fidelity']!r}")
+    if not all(out["nccl_collectives"][k] > 0
+               for k in ("all_reduce", "all_gather")):
+        raise RuntimeError(f"no NCCL collective ran: {out['nccl_collectives']}")
+
+
+def _wide_cut(nbig=WIDE_NBIG):
+    """JAX tests/test_sharded_fragment.py's asymmetric hand-built cut at
+    ``nbig`` data qubits: a CX chain with rz, one cz cut onto a 2-qubit
+    fragment (frag0 simulates nbig + 1 qubits: the cut's deferral
+    ancilla)."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.circuit.circuit import (  # noqa: E501
+        Circuit,
+        Instruction,
+        Register,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.virt.virtual_circuit import (  # noqa: E501
+        VirtualCircuit,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.virt.virtual_gates import (  # noqa: E501
+        VirtualGateOp,
+    )
+
+    cut = Circuit([Register("frag0", nbig), Register("frag1", 2)], nbig + 2)
+    cut.h(0)
+    for i in range(nbig - 1):
+        cut.cx(i, i + 1)
+    for q in range(nbig):
+        cut.rz(0.1 * (q + 1), q)
+    cut.append(Instruction("vgate", [nbig - 1, nbig],
+                           op=VirtualGateOp("cz")))
+    cut.cx(nbig, nbig + 1)
+    for q in range(nbig + 2):
+        cut.measure(q, q)
+    return None, VirtualCircuit(cut)
+
+
+def phase_sharded_wide26(virt, report, card):
+    """A fragment past the blocked kernel's 24-qubit gate, which
+    ``engine="pallas"`` refuses: ``run_fragment_sharded`` on one card
+    (``fragment_mesh(max_local_qubits=24)`` gives (1, 1) on a world of
+    one), its rows within 1e-5 of the batched engine's
+    ``variant_engine.run_fragment``."""
+    import numpy as np
+    import torch
+
+    sf = _port("ops.sharded_fragment")
+    prog = virt.programs["frag0"]
+    n = prog.num_sim_qubits
+    try:
+        _port("ops.streamed").make_streamed_knit(virt, 1, device=DEV,
+                                                 pallas_variant=True)
+        refused = None
+    except NotImplementedError as exc:
+        refused = str(exc)
+    mesh = sf.fragment_mesh(n, max_local_qubits=WIDE_LOCAL, device=DEV)
+    out = {"card": card, "fragment_sim_qubits": n,
+           "variants": virt.vgates[0].spec.num_instantiations,
+           "mesh": dict(mesh.shape), "pallas_refusal": refused,
+           "reference": "variant_engine.run_fragment (batched engine)"}
+    _reset_counts()
+    rows, out["cold_s"], _ = _peak_run(
+        lambda: sf.run_fragment_sharded(virt, "frag0", mesh).values)
+    out["launches"] = _counts()
+    del rows
+    prof = _profile(lambda: sf.run_fragment_sharded(virt, "frag0", mesh),
+                    cpu=False)
+    rows, out["warm_s"], out["peak_gb"] = _peak_run(
+        lambda: sf.run_fragment_sharded(virt, "frag0", mesh).values)
+    out.update(prof)
+    want, out["reference_s"] = _timed(
+        lambda: _port("ops.variant_engine").run_fragment(
+            virt, "frag0", device=DEV).values)
+    out["rows_shape"] = list(rows.shape)
+    out["rows_gb"] = rows.numel() * 4 / 1e9
+    out["max_abs_err"] = float((rows - want).abs().max())
+    out["finite"] = bool(torch.isfinite(rows).all())
+    del rows, want
+    torch.cuda.empty_cache()
+    report["sharded_wide26"] = out
+    _phase_line("sharded_wide26", out)
+    print(f"  sim_qubits={n} mesh={out['mesh']} rows={out['rows_shape']} "
+          f"({out['rows_gb']:.2f} GB) cold_s={out['cold_s']:.4f} "
+          f"reference_s={out['reference_s']:.4f} launches={out['launches']}"
+          f"\n  engine='pallas' refuses it: {refused}", flush=True)
+    if n <= 24 or refused is None or "sharded" not in refused:
+        raise RuntimeError(f"wide26: {n} qubits, pallas refusal {refused!r}")
+    if out["mesh"] != {"dp": 1, "amp": 1} or out["launches"] != _only():
+        raise RuntimeError(f"wide26: mesh {out['mesh']}, launches "
+                           f"{out['launches']}")
+    if not (out["finite"] and out["max_abs_err"] <= TOL):
+        raise RuntimeError(f"wide26: rows differ by {out['max_abs_err']!r}")
+
+
+def phase_sampled_qft16_mesh1(virt, report, card):
+    """qft-16's sampled estimate (the 120000 samples and seed of
+    main_qft16) with ``mesh=`` a mesh of one: distribution and stderr
+    equal to ``mesh=None`` within 1e-6, kernel 3 still the route."""
+    import numpy as np
+
+    tq = _port("ops.qpd_sampling")
+    mesh = _port("parallel.mesh").make_mesh(device=DEV)
+    kw = dict(with_stderr=True, seed=QFT_SEED, keep_clbits=QFT_KEEP,
+              method="lhs", control_variate=True, device=DEV)
+    (want, want_se), _ = _timed(lambda: tq.sampled_knit(virt, QFT_SAMPLES,
+                                                        **kw))
+    _reset_counts()
+    (est, se), out_cold = _timed(lambda: tq.sampled_knit(
+        virt, QFT_SAMPLES, mesh=mesh, **kw))
+    counts = _counts()
+    prof = _profile(lambda: tq.sampled_knit(virt, QFT_SAMPLES, mesh=mesh,
+                                            **kw), cpu=False)
+    (est, se), warm, peak = _peak_run(lambda: tq.sampled_knit(
+        virt, QFT_SAMPLES, mesh=mesh, **kw))
+    out = {"card": card, "mesh": dict(mesh.shape), "cold_s": out_cold,
+           "warm_s": warm, "peak_gb": peak, "launches": counts,
+           "reference": "sampled_knit(mesh=None)",
+           "max_abs_err": float(np.abs(np.asarray(est.values)
+                                       - np.asarray(want.values)).max()),
+           "stderr_max_abs_err": float(np.abs(se - want_se).max())}
+    out.update(prof)
+    report["sampled_qft16_mesh1"] = out
+    _phase_line("sampled_qft16_mesh1", out)
+    print(f"  mesh={out['mesh']} launches={counts} stderr_err="
+          f"{out['stderr_max_abs_err']!r}", flush=True)
+    if not (counts["collapse"] > 0 and counts == _only(
+            collapse=counts["collapse"])):
+        raise RuntimeError(f"qft16 mesh1 launched {counts}")
+    if not (out["max_abs_err"] <= 1e-6 and out["stderr_max_abs_err"] <= 1e-6):
+        raise RuntimeError(f"qft16 mesh1 differs: {out['max_abs_err']!r}, "
+                           f"stderr {out['stderr_max_abs_err']!r}")
+
+
+def phase_streamed_sup20_dp1(virt, report, card):
+    """``parallel.sharded.streamed_values_dp`` on a mesh of one (the scan's
+    chunk axis over dp): banks on and off, and the kernel route, each
+    equal to the unsharded scan within 2e-6."""
+    streamed = _port("ops.streamed")
+    dp_values = _port("parallel.sharded").streamed_values_dp
+    mesh = _port("parallel.mesh").make_mesh(device=DEV)
+    out = {"card": card, "reference": "step_fn(xs), the whole scan",
+           "cases": {}}
+    for key, kw in (("banks", dict(share_prefix=True)),
+                    ("flat", dict(share_prefix=False)),
+                    ("kernel", dict(pallas_variant=True))):
+        step, xs, meta = streamed.make_streamed_knit(virt, CHUNK, device=DEV,
+                                                     **kw)
+        want, whole_s = _timed(lambda: step(xs))
+        _reset_counts()
+        got, cold_s = _timed(lambda: dp_values(meta, xs, mesh))
+        counts = _counts()
+        got, warm_s, peak = _peak_run(lambda: dp_values(meta, xs, mesh))
+        out["cases"][key] = {"whole_s": whole_s, "cold_s": cold_s,
+                             "warm_s": warm_s, "peak_gb": peak,
+                             "launches": counts, "chunks": meta["n_chunks"],
+                             "max_abs_err": float((got - want).abs().max())}
+    prof = _profile(lambda: dp_values(meta, xs, mesh), cpu=False)
+    out.update(prof)
+    out["warm_s"] = {k: c["warm_s"] for k, c in out["cases"].items()}
+    out["peak_gb"] = max(c["peak_gb"] for c in out["cases"].values())
+    out["max_abs_err"] = max(c["max_abs_err"] for c in out["cases"].values())
+    report["streamed_sup20_dp1"] = out
+    _phase_line("streamed_sup20_dp1", out)
+    for key, c in out["cases"].items():
+        print(f"  {key}: whole_s={c['whole_s']:.4f} cold_s={c['cold_s']:.4f}"
+              f" warm_s={c['warm_s']:.4f} err={c['max_abs_err']!r} "
+              f"launches={c['launches']}", flush=True)
+    launches = {k: c["launches"] for k, c in out["cases"].items()}
+    if launches["kernel"]["variant"] <= 0 or launches["banks"] != _only():
+        raise RuntimeError(f"streamed dp1 launches: {launches}")
+    if not out["max_abs_err"] <= DP_TOL:
+        raise RuntimeError(f"streamed dp1 differs by {out['max_abs_err']!r}")
+
+
+
 def main() -> int:
     try:
         import torch
@@ -3065,6 +3386,12 @@ def main() -> int:
               report)
         phase("breakdown_sup20", phase_breakdown, "sup20", virt, report)
         phase("sampled_sup20", phase_sampled_sup20, virt, report)
+        phase("main_sharded_sup20", phase_main_sharded_sup20, circ, virt,
+              report, card)
+    if cut("wide26", build=_wide_cut):
+        phase("sharded_wide26", phase_sharded_wide26, cuts["wide26"][1],
+              report, card)
+        del cuts["wide26"]
     if cut("qft16", build=_cut_qft16):
         circ, virt = cuts["qft16"]
         modes = {"rows": {}, "marginal": {"keep_clbits": QFT_KEEP},
@@ -3073,6 +3400,8 @@ def main() -> int:
             "qft16", virt, _sampled_labels(virt, QFT_SAMPLES, QFT_SEED)[1],
             modes, report))
         phase("main_qft16", phase_main_qft16, circ, virt, report)
+        phase("sampled_qft16_mesh1", phase_sampled_qft16_mesh1, virt,
+              report, card)
         plain = phase("main_qft16_plain", phase_main_qft16_plain, circ,
                       virt, report)
         if plain is not None:
@@ -3126,6 +3455,8 @@ def main() -> int:
               "variant_rows/ghz34_folded_staged", "variant")
     if "sup20" in cuts:
         phase("streamed_sup20", phase_streamed_sup20, *cuts["sup20"], report)
+        phase("streamed_sup20_dp1", phase_streamed_sup20_dp1,
+              cuts["sup20"][1], report, card)
         streamed = phase("main_noisy_sup20", phase_main_noisy_sup20,
                          *cuts["sup20"], report)
         if streamed is not None:

@@ -6,8 +6,9 @@ NVIDIA H100.  It imports ``torch`` and never ``jax``, and nothing of the
 JAX package: the host layers it needs are its own copies.
 
 Layers (the ``engine="pallas"`` exact path, the ``engine="streamed"``
-scan without a kernel, the batched ``engine="xla"`` and the
-``engine="sampled"`` Monte-Carlo path):
+scan without a kernel, the batched ``engine="xla"``, the
+``engine="sampled"`` Monte-Carlo path and the ``engine="sharded"``
+variant x amplitude co-sharding):
   circuit/   — typed circuit IR + gate library; routing onto a device
                coupling map (routing.py)
   models/    — supremacy, Sycamore, hardware-efficient-ansatz, QFT / AQFT
@@ -28,6 +29,11 @@ scan without a kernel, the batched ``engine="xla"`` and the
                (sampling.py); the uncut oracle; noise models and noisy
                execution through the batched and streamed engines
                (noise.py) and error mitigation (mitigation.py)
+  parallel/  — process-group meshes over torch.distributed (mesh.py) and
+               the sharded knit step and dp-split streamed scan
+               (sharded.py); the amplitude-sharded statevector and the
+               co-sharded fragment engine are ops/sharded_sv.py and
+               ops/sharded_fragment.py
   utils/     — logging, fragment-result checkpoints (checkpoint.py)
   run.py, evaluate.py — the entry point and the fidelity harness
   convert.py — circuits, plans, noise models and label blocks across

@@ -1,7 +1,7 @@
 """Monte-Carlo QPD sampling: estimate the knit without enumerating labels.
 
 Port of the JAX package's ``ops/qpd_sampling.py`` (``engine="sampled"``
-there), single-device.  The estimator is the same:
+there).  The estimator is the same:
 
   * each cut's coefficient table ``coef[v, b]`` factors into a sampling
     magnitude ``m[v] = max_b |coef[v, b]|`` and a bounded fold ratio
@@ -58,11 +58,17 @@ Artefacts of the TPU route that are not carried over:
   * ``sample_pallas`` / ``pallas_variant`` default to True: the kernels
     are this package's main path.
 
-Refused: ``mesh=`` (the dp-sharded scan) with NotImplementedError naming
-its ROADMAP item (queue A item 11, the sharded engine); noise with a
-``dtype``, with a collapse-mode fragment or with ``mesh`` with the JAX
-package's ValueError; a PEC model with ValueError naming the batched
-engine.
+``mesh=`` (a ``parallel.mesh.Mesh`` with a "dp" axis) is the dp-sharded
+scan: the label blocks are counted and padded to a multiple of dp as in
+the JAX package, each rank scans its own contiguous ``nb / dp`` blocks
+(every rank holds the same labels and draws: they are made before the
+blocking), and the accumulated statistics are summed over "dp"
+(``Mesh.all_reduce``, the JAX ``psum``).  Each rank's rows take the
+routes above, kernels included.
+
+Refused: noise with a ``dtype``, with a collapse-mode fragment or with
+``mesh`` with the JAX package's ValueError; a PEC model with ValueError
+naming the batched engine.
 """
 from __future__ import annotations
 
@@ -92,16 +98,6 @@ _MAX_BLOCK = 4096  # labels per scan block, whatever the budget allows
 _STATE_COPIES = 4
 
 
-def _refuse_mesh(mesh) -> None:
-    """The dp-sharded scan is the sharded engine's item."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the dp-sharded sampled scan) is not ported to the torch "
-            "package yet: ROADMAP H100 port, queue A, item 11 (the sharded "
-            "engine: mesh)"
-        )
-
-
 def _check_noise_args(noise, dtype, cflags, mesh) -> None:
     """The JAX package's argument checks of a noisy sampled estimate."""
     if noise is not None and dtype is not None:
@@ -116,7 +112,6 @@ def _check_noise_args(noise, dtype, cflags, mesh) -> None:
             "the trajectory-noise path runs single-device, so the mesh "
             "would be silently ignored — drop mesh= or noise="
         )
-    _refuse_mesh(mesh)
 
 
 def _variant_magnitudes(spec) -> np.ndarray:
@@ -1123,9 +1118,12 @@ def _scan_core(
     cached on ``virt`` (``_scan_step_cache``), keyed by what the row
     functions depend on: the label width, the collapse flags, the kept
     clbits, the z-sets, the device, ``pallas_variant``, the dtype and
-    the noise models.  A repeat estimate builds no plan again."""
-    _refuse_mesh(mesh)
-    dev = resolve_device(device)
+    the noise models.  A repeat estimate builds no plan again.
+
+    ``mesh``: the label blocks split over its "dp" axis (module
+    docstring), on ``mesh.device`` unless ``device`` is given."""
+    dev = (mesh.device if mesh is not None and device is None
+           else resolve_device(device))
     gamma_total = (
         sampling_overhead(virt)["gamma_total"]
         if gamma_override is None else float(gamma_override)
@@ -1210,7 +1208,15 @@ def _scan_core(
     ym, y2 = zeros(), zeros()
     xy = zeros(out_w) if control_stats else zeros()
     sign_mats = {}
-    for s in range(0, L, block):
+    # dp sharding of the label-block axis: the JAX package rounds the
+    # block count up to a multiple of dp, and each rank scans its own
+    # contiguous nb / dp blocks (padding blocks carry no label)
+    nb = max(1, -(-L // block))
+    dp = 1 if mesh is None else int(mesh.shape["dp"])
+    nb = -(-nb // dp) * dp
+    per = nb // dp
+    b0 = 0 if mesh is None else mesh.index("dp") * per
+    for s in range(min(L, b0 * block), min(L, (b0 + per) * block), block):
         e = min(L, s + block)
         lab_c, w_c, w2_c = lab_dev[s:e], w_dev[s:e], w2_dev[s:e]
         rows_list = []
@@ -1255,6 +1261,9 @@ def _scan_core(
                 xy += _comb(w2_c * totals, rows_list)
             else:
                 xy += (w2_c * totals) @ prodmat
+    if mesh is not None:
+        for acc in (est, m2, ym, y2, xy):
+            mesh.all_reduce(acc, "dp")
     if z_sets is None and src_bits:
         est = permute_bits_flat(est, src_bits, dst_bits)
         if stats:
@@ -1478,8 +1487,8 @@ def sampled_knit(
     (every noise channel is trace-preserving), so ``control_variate``
     and the stderr/stratified/LHS machinery compose unchanged.  Noise
     with a ``dtype``, with a collapse-mode fragment or with ``mesh``
-    raises the JAX package's ValueError; ``mesh`` raises
-    NotImplementedError (the sharded engine's item)."""
+    raises the JAX package's ValueError.  ``mesh``: the label blocks
+    split over its "dp" axis (:func:`_scan_core`)."""
     noise = _noise_models(virt, noise)
     cflags = _collapse_flags(virt, collapse)
     _check_noise_args(noise, dtype, cflags, mesh)

@@ -45,10 +45,12 @@ dtype.  Two routes make the rows:
 :func:`run_virtual_circuit_streamed` adds carry checkpoints
 (``checkpoint_dir``: the scan in segments, ``stream_carry.npz`` written
 atomically after each) and ``shots`` (without a checkpoint: projection
-and inverse-CDF draws on the device, only the indices fetched).
+and inverse-CDF draws on the device, only the indices fetched).  Every
+entry of ``xs`` has the chunk axis first, so the scan splits over a mesh
+axis by chunks: ``parallel.sharded.streamed_values_dp``.
 
-Refused here with NotImplementedError (ROADMAP H100 port, queue A):
-fragments past 24 qubits on the kernel route (the sharded engine).
+Refused here with NotImplementedError: fragments past 24 qubits on the
+kernel route; the message names ``engine="sharded"``, which runs them.
 """
 from __future__ import annotations
 
@@ -126,14 +128,14 @@ def default_bank_budget(dtype=None) -> int:
     return 512 << 20
 
 
-def _pick_fuse_qubits(virt, name, dtype) -> int:
-    """Fusion width for one fragment, the JAX package's byte model: build
-    the plan at width 3 and 5 and keep 5 only where the counted
-    per-variant bytes drop by at least 8%."""
+def _pick_fuse_qubits(virt, name, dtype, fused_slots=True) -> int:
+    """Fusion width for one noise-free fragment, the JAX package's byte
+    model: build the plan at width 3 and 5 and keep 5 only where the
+    counted per-variant bytes drop by at least 8%."""
     sizes = {}
     for fq in (3, 5):
         s, _, _, _ = make_sim_fn(
-            virt, name, build_matrices=False, fused_slots=True,
+            virt, name, build_matrices=False, fused_slots=fused_slots,
             dtype=dtype, fuse_qubits=fq,
         )
         sizes[fq], _ = _steps_hbm_bytes(s.run_plan, s.prefix_width)
@@ -205,14 +207,16 @@ def _apply_fold(rows, steps, w_dev, vidx_chunk):
 
 
 def _fragment_rows(virt, name, chunk, keep_clbits, z_clbits, dev,
-                   blocked_window):
+                   blocked_window, staged=True):
     """Route one fragment to its kernel: ``(kernel name, rows_fn, kept,
     device plan)`` with ``rows_fn(vidx_chunk)`` -> folded rows ``[chunk,
-    2^len(kept)]``."""
+    2^len(kept)]``.  ``staged``: kernel 1's per-slot checkpoints (the
+    JAX ``pallas_staged``; the variant kernel's unfolded twin serves the
+    same widths as its folded mode, so the scan never builds it)."""
     if blocked_window is None:
         built = make_folded_chunk_kernel(
             virt, name, chunk, keep_clbits=keep_clbits, z_clbits=z_clbits,
-            device=dev,
+            staged=staged, device=dev,
         )
         if built is not None:
             rows_fn, kept = built
@@ -227,8 +231,8 @@ def _fragment_rows(virt, name, chunk, keep_clbits, z_clbits, dev,
         raise NotImplementedError(
             f"fragment {name!r} simulates {n} qubits, outside the kernels' "
             f"gates (variant up to 20, blocked 21..{MAX_BLOCKED_QUBITS}): "
-            "ROADMAP H100 port, queue A, 'other engines' (sharded "
-            "fragments)"
+            "run it with engine=\"sharded\" (ops/sharded_fragment.py: "
+            "set max_local_qubits to split its amplitudes over devices)"
         )
     rows_fn, positions = built
     steps, w_tabs, kept = _fold_plan(virt, name, positions, keep_clbits,
@@ -350,8 +354,9 @@ def make_streamed_knit(
     noise=None, trajectories: int | None = None, seed: int = 0,
     z_clbits=None, share_prefix: bool = False,
     bank_budget_bytes: int | None = None,
-    hoist_banks: bool = False, dtype=None, trunc_eps: float = 0.0,
-    pallas_variant: bool = False, device=None,
+    fused_slots: bool = True, hoist_banks: bool = False, dtype=None,
+    trunc_eps: float = 0.0, fuse_qubits: int | str = "auto",
+    pallas_variant: bool = False, pallas_staged: bool = True, device=None,
     blocked_window: int | None = None,
 ):
     """Build ``(step_fn, xs, meta)``: ``step_fn(xs)`` (or ``step_fn(xs,
@@ -369,9 +374,14 @@ def make_streamed_knit(
     data bit contracted, signed on the support (a scalar carry).
 
     ``pallas_variant``: rows from the hand-written kernels (module
-    docstring; ``share_prefix`` and ``hoist_banks`` then have no effect,
-    as in the JAX package) or, False, from the plan in plain PyTorch,
-    fused into 3- or 5-qubit blocks per fragment by the JAX byte model
+    docstring; ``share_prefix``, ``hoist_banks``, ``fused_slots`` and
+    ``fuse_qubits`` then have no effect, as in the JAX package) or,
+    False, from the plan in plain PyTorch.  ``pallas_staged``: the
+    variant kernel's per-slot checkpoints (False: every label replays
+    its whole suffix; the same rows).  ``fused_slots``: one composed
+    block a slot (noise-free fragments only; False: the pre, measure
+    and post blocks apart).  ``fuse_qubits``: the fixed-gate fusion
+    width, or "auto": 3 or 5 per fragment by the JAX byte model
     (:func:`_pick_fuse_qubits`).  ``share_prefix``: ancestor banks and staged suffixes
     (per fragment where the JAX byte model says a split wins and the bank
     fits ``bank_budget_bytes``, default :func:`default_bank_budget`);
@@ -445,7 +455,7 @@ def make_streamed_knit(
         if pallas_variant:
             kernels[name], rows_fn, kept, plans[name] = _fragment_rows(
                 virt, name, chunk, keep_clbits, z_clbits, dev,
-                blocked_window,
+                blocked_window, pallas_staged,
             )
             rows_fns.append(lambda vidx_chunk, bank, pidx_chunk, _fn=rows_fn:
                             _fn(vidx_chunk))
@@ -456,9 +466,12 @@ def make_streamed_knit(
             continue
         prog = virt.programs[name]
         # the noise path keeps the unfused per-gate stream
-        fq = fqs[name] = (3 if nm is not None
-                          else _pick_fuse_qubits(virt, name, dtype))
-        fused = nm is None
+        fused = fused_slots and nm is None
+        fq = fuse_qubits
+        if fq == "auto":
+            fq = (3 if nm is not None
+                  else _pick_fuse_qubits(virt, name, dtype, fused))
+        fqs[name] = fq
         sim_fn, _, positions, _ = make_sim_fn(
             virt, name, noise=nm, build_matrices=False, fused_slots=fused,
             dtype=dtype, fuse_qubits=fq,

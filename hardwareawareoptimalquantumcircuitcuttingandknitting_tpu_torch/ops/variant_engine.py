@@ -1067,6 +1067,27 @@ def scan_variant_rows(sim_fn, all_mats, total: int, chunk: int, device,
     return out
 
 
+def gather_variant_rows(sim_fn, tables, slot_cols, vidx: torch.Tensor,
+                        chunk: int) -> torch.Tensor:
+    """``sim_fn`` over the variant rows of ``vidx`` (``[total,
+    n_touching]`` variant indices on the device), ``chunk`` rows at a
+    time: each chunk gathers its slot blocks on the device from the
+    per-instantiation ``tables`` (per slot a tuple of tensors with the
+    instantiation axis first), slot ``s`` by column ``slot_cols[s]``.
+    The sharded engines' counterpart of :func:`scan_variant_rows`, whose
+    blocks come per row from the host.  Rows ``[total, width]`` f32."""
+    out = None
+    for c0 in range(0, vidx.shape[0], chunk):
+        v = vidx[c0:c0 + chunk].long()
+        rows = sim_fn([tuple(t[v[:, c]] for t in tabs)
+                       for c, tabs in zip(slot_cols, tables)])
+        if out is None:
+            out = torch.empty((vidx.shape[0], rows.shape[1]),
+                              dtype=torch.float32, device=rows.device)
+        out[c0:c0 + v.shape[0]] = rows
+    return out
+
+
 def run_fragment(
     virt: VirtualCircuit,
     frag_name: str,

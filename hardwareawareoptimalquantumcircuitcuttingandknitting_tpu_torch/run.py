@@ -21,8 +21,8 @@ labels, and the batched engine otherwise, as the JAX package does.
 fragment's rows from a hand-written kernel, float32.  Fragments of up to
 20 simulated qubits run the fold-fused variant kernel
 (ops/variant_kernel.py), 21..24 qubits the segmented blocked kernel
-(ops/blocked_kernel.py); past 24 the call raises naming the sharded
-engine's ROADMAP item.  ``trunc_eps`` raises the JAX package's
+(ops/blocked_kernel.py); past 24 the call raises naming
+``engine="sharded"``.  ``trunc_eps`` raises the JAX package's
 ValueError, and a bf16 ``dtype`` a ValueError naming
 ``engine="streamed"`` (the JAX package would run the route without a
 kernel instead).  At widths where the full distribution cannot exist
@@ -39,6 +39,16 @@ qubits; every other fragment, and every fragment with
 (``variant_engine.make_sim_fn``).  Observables go through
 ``ops.qpd_sampling.sampled_expectation_z``, noise through
 ``ops.noise.run_noisy_virtual_circuit(engine="sampled")``.
+
+``engine="sharded"``: variant x amplitude co-sharding over a process-group
+mesh (ops/sharded_fragment.py, parallel/mesh.py): every fragment's rows
+on a ``(dp, amp)`` mesh, amplitudes split just far enough that no rank
+holds more than ``2^max_local_qubits`` of them, then the batched knit;
+plain PyTorch, no kernel (neither package has one on this path).  On
+one device without a process group the mesh is ``(1, 1)``, which runs a
+fragment past the kernels' 24 qubits.  ``dtype=torch.bfloat16`` keeps
+the local blocks and the exchanges bf16.  ``mesh`` also shards the
+sampled engine's label blocks over its "dp" axis.
 
 The whole-fragment kernel (ops/sv_kernel.py) is not an engine here, as in
 the JAX package: a caller composes ``run_fragment_kernel`` with
@@ -59,16 +69,10 @@ from .virt.virtual_circuit import VirtualCircuit
 # threshold).
 AUTO_STREAM_LABELS = 16384
 
-# engines of the JAX package and the ROADMAP item that ports each
-_NOT_PORTED = {
-    "sharded": "queue A, 'other engines' (sharded fragments)",
-}
-_ITEM = "ROADMAP H100 port, queue A, 'other engines'"
 # keywords of the JAX package that are not ported: (JAX default, the
 # ROADMAP item that ports them).  Their defaults give the JAX result.
 _NOT_PORTED_KW = {
     "tracer": (None, "ROADMAP H100 port, queue A, item 10 (tracing)"),
-    "max_local_qubits": (None, f"{_ITEM} (sharded fragments)"),
     "teleport": ("qpd", "ROADMAP H100 port, queue A, item 4 (Teleport "
                         "execution)"),
 }
@@ -84,7 +88,7 @@ class RunTimeInfo:
 
 def _run_sampled(virt, shots, seed, project, head_labels, sample_method,
                  sample_eps, sample_cv, keep_clbits, device, dtype,
-                 sample_pallas):
+                 sample_pallas, mesh):
     """``engine="sampled"``: ``shots`` is the QPD sample budget (default:
     the plan's kappa / 0.05^2 Hoeffding budget, capped at 2M), or with
     ``sample_eps`` the cap of the adaptive budget."""
@@ -103,7 +107,7 @@ def _run_sampled(virt, shots, seed, project, head_labels, sample_method,
             virt, sample_eps, seed=seed, head_labels=head_labels,
             method=sample_method, keep_clbits=keep_clbits, max_samples=cap,
             control_variate=sample_cv, dtype=dtype,
-            pallas_variant=sample_pallas, device=device,
+            pallas_variant=sample_pallas, mesh=mesh, device=device,
         )
         log.info(f"sampled engine: eps={sample_eps:g} met with {used} "
                  f"samples (cap {cap})")
@@ -127,7 +131,7 @@ def _run_sampled(virt, shots, seed, project, head_labels, sample_method,
             virt, budget, seed=seed, head_labels=head_labels,
             method=sample_method, keep_clbits=keep_clbits,
             control_variate=sample_cv, dtype=dtype,
-            pallas_variant=sample_pallas, device=device,
+            pallas_variant=sample_pallas, mesh=mesh, device=device,
         )
     if project:
         dist = nearest_probability_distribution(dist)
@@ -203,7 +207,19 @@ def run_virtual_circuit(
     kernel's rows for every fragment one serves, the others without a
     kernel; False: every fragment without a kernel, the JAX default);
     ``dtype=torch.bfloat16`` (bf16 states without a kernel, float32 rows
-    and knit).
+    and knit); ``mesh`` (a ``parallel.mesh.Mesh`` with a "dp" axis: each
+    rank scans its own label blocks, the estimate summed over "dp").
+
+    ``engine="sharded"``: every fragment's variants co-sharded over a
+    ``(dp, amp)`` mesh (ops/sharded_fragment.py): ``mesh`` with those
+    axes, or None for each fragment's own split from
+    ``fragment_mesh(max_local_qubits=...)`` over the process group's
+    ranks (one device: ``(1, 1)``); then the batched knit on every rank.
+    ``dtype=torch.bfloat16``: bf16 blocks and exchanges, float32 rows
+    and knit.  ``shots`` and ``checkpoint_dir`` apply after the
+    fragments, as on "xla" (the checkpoint written by rank 0).
+    ``mesh`` and ``max_local_qubits`` are read by these two engines only,
+    as in the JAX package.
 
     ``keep_clbits``: marginal knit (any engine).  ``device``: None =
     "cuda" (raises without a card); "cpu" runs the plain versions.
@@ -215,33 +231,22 @@ def run_virtual_circuit(
     on another engine.  Refused by this package, with ValueError: a
     ``dtype`` other than float32 on "pallas" (the kernels are float32;
     use "streamed").  Not ported, NotImplementedError naming the ROADMAP
-    item: ``mesh``, ``tracer``, ``max_local_qubits``,
-    ``teleport="execute"`` and ``engine="sharded"``.  Their JAX defaults
-    (None, None, None, "qpd") give the JAX result.  Noisy execution goes
+    item: ``tracer`` and ``teleport="execute"``.  Their JAX defaults
+    (None, "qpd") give the JAX result.  Noisy execution goes
     through ``ops.noise.run_noisy_virtual_circuit``, as in the JAX package
     (no ``noise`` keyword here)."""
     if teleport not in ("qpd", "execute"):
         raise ValueError(f"unknown teleport mode {teleport!r}")
-    given = {"tracer": tracer, "max_local_qubits": max_local_qubits,
-             "teleport": teleport}
+    given = {"tracer": tracer, "teleport": teleport}
     for name, (default, item) in _NOT_PORTED_KW.items():
         if given[name] != default:
             raise NotImplementedError(
                 f"{name}={given[name]!r} is not ported to the torch package "
                 f"yet: {item}"
             )
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported to the torch package yet: "
-            f"ROADMAP H100 port, {_NOT_PORTED[engine]}"
-        )
-    if engine not in ("auto", "xla", "streamed", "pallas", "sampled"):
+    if engine not in ("auto", "xla", "streamed", "pallas", "sampled",
+                      "sharded"):
         raise ValueError(f"unknown engine {engine!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported to the torch package yet: ROADMAP H100 "
-            "port, queue A, item 11 (the sharded engine: mesh)"
-        )
     if trunc_eps and engine not in ("auto", "streamed"):
         raise ValueError(
             "trunc_eps (certified truncation) is a streamed-engine "
@@ -270,7 +275,7 @@ def run_virtual_circuit(
     if engine == "sampled":
         return _run_sampled(virt, shots, seed, project, head_labels,
                             sample_method, sample_eps, sample_cv,
-                            keep_clbits, device, dtype, sample_pallas)
+                            keep_clbits, device, dtype, sample_pallas, mesh)
     log = get_logger(__name__)
     if engine == "auto":
         labels = 1
@@ -311,20 +316,26 @@ def run_virtual_circuit(
         )
         return dist, RunTimeInfo(time.perf_counter() - now, 0.0)
     return _run_batched(virt, chunk_size, project, keep_clbits, device,
-                        shots, seed, checkpoint_dir)
+                        shots, seed, checkpoint_dir, engine, mesh,
+                        max_local_qubits, dtype)
 
 
 def _run_batched(virt, chunk_size, project, keep_clbits, device,
-                 shots=None, seed=0, checkpoint_dir=None):
-    """``engine="xla"``: all variants of every fragment (or a checkpoint
-    of them), optionally shot-sampled, then the knit."""
+                 shots=None, seed=0, checkpoint_dir=None, engine="xla",
+                 mesh=None, max_local_qubits=None, dtype=None):
+    """``engine="xla"`` / ``"sharded"``: all variants of every fragment
+    (or a checkpoint of them), optionally shot-sampled, then the knit."""
     import torch
 
-    from .convert import resolve_device
     from .ops.knit import knit_values, smolin_project
-    from .ops.variant_engine import run_all_fragments
+    from .parallel.mesh import every_rank, mesh_device, world
 
-    dev = resolve_device(device)
+    if engine == "sharded":
+        dev = mesh.device if mesh is not None else mesh_device(device)
+    else:
+        from .convert import resolve_device
+
+        dev = resolve_device(device)
 
     def clock():
         # device work is asynchronous: a phase ends when the card is done
@@ -348,28 +359,47 @@ def _run_batched(virt, chunk_size, project, keep_clbits, device,
             load_fragment_results,
         )
 
-        fingerprint = checkpoint_fingerprint(virt)
-        if has_checkpoint(checkpoint_dir):
+        fingerprint = checkpoint_fingerprint(virt, dtype=dtype)
+        found = has_checkpoint(checkpoint_dir)
+        if found:
             results = load_fragment_results(
                 checkpoint_dir, expect_fingerprint=fingerprint)
-            if results is None:
-                log.warning(
-                    f"Checkpoint at {checkpoint_dir} belongs to a different "
-                    "circuit/cut plan; re-simulating."
-                )
-            else:
-                log.info(f"Resumed fragment results from {checkpoint_dir}.")
-                for res in results:
-                    res.values = torch.as_tensor(res.values,
-                                                 dtype=torch.float32,
-                                                 device=dev)
+        if engine == "sharded" and not every_rank(results is not None, dev):
+            # resume only where every rank can: a rank that simulates
+            # enters collectives that the others would never join
+            results = None
+        if results is not None:
+            log.info(f"Resumed fragment results from {checkpoint_dir}.")
+            for res in results:
+                res.values = torch.as_tensor(res.values, dtype=torch.float32,
+                                             device=dev)
+        elif found:
+            log.warning(
+                f"Checkpoint at {checkpoint_dir} belongs to a different "
+                "circuit/cut plan, or not every rank could read it; "
+                "re-simulating."
+            )
     if results is None:
-        results = run_all_fragments(virt, chunk_size, dev)
-        if checkpoint_dir is not None:
-            from .utils.checkpoint import save_fragment_results
+        if engine == "sharded":
+            from .ops.sharded_fragment import run_all_fragments_sharded
 
-            save_fragment_results(results, checkpoint_dir,
-                                  fingerprint=fingerprint)
+            results = run_all_fragments_sharded(
+                virt, max_local_qubits=max_local_qubits, mesh=mesh,
+                dtype=dtype, device=dev)
+        else:
+            from .ops.variant_engine import run_all_fragments
+
+            results = run_all_fragments(virt, chunk_size, dev)
+        if checkpoint_dir is not None:
+            if world()[1] == 0:
+                # every rank holds the same rows: one writer
+                from .utils.checkpoint import save_fragment_results
+
+                save_fragment_results(results, checkpoint_dir,
+                                      fingerprint=fingerprint)
+            if engine == "sharded":
+                # no rank looks for the checkpoint before it is written
+                every_rank(True, dev)
     if shots is not None:
         from .ops.sampling import sample_fragment_results
 

@@ -540,10 +540,12 @@ def test_auto_takes_the_streamed_scan_above_its_threshold(monkeypatch):
 @pytest.mark.parametrize("engine", ["xla", "auto"])
 @pytest.mark.parametrize("kw", [
     dict(shots=100), dict(noise=object()), dict(dtype=torch.bfloat16),
-    dict(mesh=object()),
+    dict(mesh="one"),
 ], ids=["shots", "noise", "dtype", "mesh"])
 def test_batched_engine_refusals_name_their_roadmap_item(engine, kw):
-    """A mesh stays refused, naming its ROADMAP item.  ``noise`` is no
+    """``mesh`` (a mesh of one in each package) is read by the sharded
+    and sampled engines only: here, as in the JAX package, the result is
+    the JAX engine's without it.  ``noise`` is no
     keyword of ``run_virtual_circuit``, a TypeError as in the JAX package
     (noise runs through ``ops.noise.run_noisy_virtual_circuit``).  Since
     the streamed engine landed: shots run (variant rows sampled; GHZ
@@ -577,22 +579,27 @@ def test_batched_engine_refusals_name_their_roadmap_item(engine, kw):
         assert info.knit_time == 0.0
         np.testing.assert_allclose(got.values, want.values, atol=5e-3)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
-        trun.run_virtual_circuit(tv, engine=engine, device="cpu", **kw)
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.parallel.mesh import (  # noqa: E501
+        make_mesh as j_make_mesh,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.parallel.mesh import (  # noqa: E501
+        make_mesh,
+    )
+
+    want, _ = j_run(jv, engine=engine, mesh=j_make_mesh(1))
+    got, _ = trun.run_virtual_circuit(tv, engine=engine, device="cpu",
+                                      mesh=make_mesh(device="cpu"))
+    np.testing.assert_allclose(got.values, want.values, atol=ATOL)
 
 
 @pytest.mark.parametrize("engine", ["streamed", "sharded"])
 def test_engines_still_to_port_name_their_roadmap_item(engine):
-    """"sharded" raises naming its ROADMAP item; "streamed" (ported)
-    equals the batched engine."""
+    """Both are ported now: "streamed" and "sharded" (one device: each
+    fragment's mesh is (1, 1)) equal the batched engine."""
     _, _, _, tv = _slice("ghz10_p2q5")
-    if engine == "streamed":
-        got, _ = trun.run_virtual_circuit(tv, engine=engine, device="cpu")
-        want, _ = trun.run_virtual_circuit(tv, engine="xla", device="cpu")
-        np.testing.assert_allclose(got.values, want.values, atol=ATOL)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
-        trun.run_virtual_circuit(tv, engine=engine, device="cpu")
+    got, _ = trun.run_virtual_circuit(tv, engine=engine, device="cpu")
+    want, _ = trun.run_virtual_circuit(tv, engine="xla", device="cpu")
+    np.testing.assert_allclose(got.values, want.values, atol=ATOL)
 
 
 def test_unknown_engine_and_sampled_knobs_are_refused():

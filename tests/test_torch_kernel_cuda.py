@@ -1037,3 +1037,24 @@ def test_noisy_sampled_rows_on_card_match_cpu(card):
                                            engine="sampled", device=dev)[0]
            for dev in ("cpu", card)]
     np.testing.assert_allclose(got[1].values, got[0].values, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_streamed_pallas_staged_false_equals_staged_on_card(card):
+    """``make_streamed_knit(pallas_staged=False)``: the variant kernel
+    without its per-slot checkpoints gives the staged kernel's values."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.streamed import (  # noqa: E501
+        make_streamed_knit,
+    )
+
+    virt = _chain()
+    vals = {}
+    for staged in (True, False):
+        step, xs, meta = make_streamed_knit(virt, 24, pallas_variant=True,
+                                            pallas_staged=staged,
+                                            device=card)
+        assert set(meta["fragment_kernels"].values()) == {"variant"}
+        assert all(p.plan.staged == staged
+                   for p in meta["fragment_plans"].values())
+        vals[staged] = step(xs).cpu().numpy()
+    np.testing.assert_allclose(vals[False], vals[True], atol=TOL)

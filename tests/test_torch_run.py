@@ -341,10 +341,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
     pytest.param("sampled", dict(sample_pallas=False), id="sampled"),
 ])
 def test_unported_engines_name_their_roadmap_item(engine, kw):
-    """The engines still to port raise naming their ROADMAP item;
-    "streamed" is ported and gives the JAX engine's result, and so does
-    "sampled" with ``sample_pallas=False`` (the same labels: agreement to
-    the JAX kernel-route tolerance)."""
+    """Every engine of the JAX package is ported and gives the JAX
+    engine's result: "streamed", "sharded" (on one device: each
+    fragment's mesh is (1, 1)) and "sampled" with
+    ``sample_pallas=False`` (the same labels: agreement to the JAX
+    kernel-route tolerance)."""
     _, _, jv, tv, chunk = _pair("ghz10_p2q5")
     if engine == "sampled":
         want, _ = j_run(jv, engine=engine, shots=400, seed=2, **kw)
@@ -354,21 +355,18 @@ def test_unported_engines_name_their_roadmap_item(engine, kw):
         np.testing.assert_allclose(got.values, np.asarray(want.values),
                                    atol=5e-5, rtol=1e-3)
         return
-    if engine == "streamed":
-        want, _ = j_run(jv, engine="streamed", chunk_size=chunk)
-        got, _ = run_virtual_circuit(tv, engine=engine, chunk_size=chunk,
-                                     device="cpu")
-        np.testing.assert_allclose(got.values, want.values, atol=1e-6)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP H100 port"):
-        run_virtual_circuit(tv, engine=engine, device="cpu", **kw)
+    want, _ = j_run(jv, engine=engine, chunk_size=chunk)
+    got, _ = run_virtual_circuit(tv, engine=engine, chunk_size=chunk,
+                                 device="cpu")
+    assert got.bit_positions == want.bit_positions
+    np.testing.assert_allclose(got.values, want.values, atol=1e-6)
 
 
 _JAX_KEYWORDS = {
     # name: (JAX default, a value that is not ported, its ROADMAP item)
     "tracer": (None, object(), "item 10 \\(tracing\\)"),
     "checkpoint_dir": (None, "ckpt", None),
-    "max_local_qubits": (None, 4, "sharded fragments"),
+    "max_local_qubits": (None, 4, None),
     "trunc_eps": (0.0, 0.01, None),
     "teleport": ("qpd", "execute", "item 4 \\(Teleport execution\\)"),
 }
@@ -385,7 +383,9 @@ def test_jax_keywords_default_or_refused(name, case, tmp_path):
     teleport mode ValueError (as in the JAX package).  Ported since the
     streamed engine landed: ``checkpoint_dir`` (the default engine's
     carry checkpoint gives JAX's result) and ``trunc_eps``, which
-    ``engine="pallas"`` refuses with JAX's ValueError."""
+    ``engine="pallas"`` refuses with JAX's ValueError; since the sharded
+    engine landed, ``max_local_qubits`` (``engine="sharded"`` as
+    JAX's)."""
     jc, tc, jv, tv, chunk = _pair("ghz10_p2q5")
     default, other, item = _JAX_KEYWORDS[name]
     if case == "unknown":
@@ -398,6 +398,14 @@ def test_jax_keywords_default_or_refused(name, case, tmp_path):
             with pytest.raises(ValueError, match="not engine='pallas'"):
                 run(jv if run is j_run else tv, engine="pallas",
                     chunk_size=chunk, trunc_eps=other, **kw)
+        return
+    if case == "refused" and name == "max_local_qubits":
+        # read by engine="sharded": one device gives each fragment the
+        # mesh (1, 1) whatever the cap, as in the JAX package
+        want, _ = j_run(jv, engine="sharded", max_local_qubits=other)
+        got, _ = run_virtual_circuit(tv, engine="sharded", device="cpu",
+                                     max_local_qubits=other)
+        np.testing.assert_allclose(got.values, want.values, atol=1e-6)
         return
     if case == "refused" and name == "checkpoint_dir":
         want, _ = j_run(jv, engine="pallas", chunk_size=chunk,

@@ -126,6 +126,18 @@ def jax_scan(monkeypatch):
     monkeypatch.setattr(jq, "_label_budget", lambda: 1 << 12)
 
 
+def _meshes():
+    """A mesh of one in each package: (jax, port)."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.parallel.mesh import (  # noqa: E501
+        make_mesh as j_make_mesh,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.parallel.mesh import (  # noqa: E501
+        make_mesh,
+    )
+
+    return j_make_mesh(1), make_mesh(device="cpu")
+
+
 def _kolkata(traj=2):
     """fake_kolkata_v2 with ``traj`` trajectories: (jax, port)."""
     from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.ops import (  # noqa: E501
@@ -143,24 +155,19 @@ def _kolkata(traj=2):
 @pytest.mark.parametrize("kw,match", [
     (dict(noise=object()), "noise"),
     (dict(dtype=torch.bfloat16), "bf16"),
-    (dict(mesh=object()), "mesh"),
+    (dict(mesh="one"), "mesh"),
     (dict(sample_pallas=False), "rows without a kernel"),
 ], ids=["noise", "dtype", "mesh", "sample_pallas"])
 def test_sampled_engine_refusals_name_their_roadmap_item(qft9, jax_scan, kw,
                                                          match):
-    """A mesh stays refused, naming the sharded engine's item.  Since the
-    rest of the sampled engine was ported, the other knobs run and give
-    the JAX package's result from the same arguments: noise through
+    """Every knob runs and gives the JAX package's result from the same
+    arguments: ``mesh`` (a mesh of one in each package: the dp-sharded
+    scan on one device, within the kernel-route tolerance), noise through
     ``ops.noise.run_noisy_virtual_circuit(engine="sampled")`` (as in the
     JAX package, ``run_virtual_circuit`` takes no ``noise``), bf16 states
     within the JAX bf16 test's 5e-3 of JAX's bf16, and
     ``sample_pallas=False`` within the kernel-route tolerance."""
     jv, tv = qft9
-    if "mesh" in kw:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP H100 port.*item 11.*" + match):
-            t_run(tv, engine="sampled", shots=10, device="cpu", **kw)
-        return
     if "noise" in kw:
         from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.ops.noise import (  # noqa: E501
             run_noisy_virtual_circuit as j_noisy,
@@ -178,6 +185,13 @@ def test_sampled_engine_refusals_name_their_roadmap_item(qft9, jax_scan, kw,
         return
     run_kw = dict(shots=300, engine="sampled", seed=3, keep_clbits=[0, 1],
                   project=False)
+    if "mesh" in kw:
+        jm, tm = _meshes()
+        want, _ = j_run(jv, mesh=jm, **run_kw)
+        got, _ = t_run(tv, device="cpu", mesh=tm, **run_kw)
+        np.testing.assert_allclose(got.values, np.asarray(want.values),
+                                   **KNIT_TOL)
+        return
     if "dtype" in kw:
         import jax.numpy as jnp
 
@@ -194,24 +208,18 @@ def test_sampled_engine_refusals_name_their_roadmap_item(qft9, jax_scan, kw,
 @pytest.mark.parametrize("kw,match", [
     (dict(noise=object()), "noise"),
     (dict(dtype=torch.bfloat16), "bf16"),
-    (dict(mesh=object()), "mesh"),
+    (dict(mesh="one"), "mesh"),
     (dict(pallas_variant=False), "rows without a kernel"),
 ], ids=["noise", "dtype", "mesh", "pallas_variant"])
 def test_sampled_estimators_refuse_unported_knobs(qft9, jax_scan, kw, match):
-    """``mesh`` stays refused (the sharded engine's item); noise, bf16
-    states and ``pallas_variant=False`` run in both estimators and give
-    the JAX package's estimates from the same seeds."""
+    """``mesh`` (a mesh of one in each package), noise, bf16 states and
+    ``pallas_variant=False`` run in both estimators and give the JAX
+    package's estimates from the same seeds."""
     jv, tv = qft9
     zs = [{0}, {1, 2}]
-    if "mesh" in kw:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP H100 port.*item 11.*" + match):
-            tq.sampled_knit(tv, 10, device="cpu", **kw)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP H100 port.*item 11.*" + match):
-            tq.sampled_expectation_z(tv, zs, 10, device="cpu", **kw)
-        return
     jkw, tkw, tol = dict(kw), dict(kw), KNIT_TOL
+    if "mesh" in kw:
+        jkw["mesh"], tkw["mesh"] = _meshes()
     if "noise" in kw:
         jkw["noise"], tkw["noise"] = _kolkata()
         jkw["noise_seed"] = tkw["noise_seed"] = 4
@@ -257,8 +265,9 @@ def test_wide_fragments_are_refused_by_name(qft9):
     """Past a kernel's gate the scan takes the route without a kernel
     (JAX's XLA builder), and says so: qft-16's 15-qubit fragment in
     ancilla mode simulates 30 qubits, past the variant kernel's 20, while
-    the 1-qubit fragment (16 simulated qubits) keeps the kernel.  Only
-    ``mesh=`` is still refused by name."""
+    the 1-qubit fragment (16 simulated qubits) keeps the kernel.  The
+    same circuit in collapse mode runs with ``mesh=`` (refused until the
+    sharded engine landed)."""
     from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.cutter.cutter import (  # noqa: E501
         Cutter as TCutter,
     )
@@ -280,6 +289,10 @@ def test_wide_fragments_are_refused_by_name(qft9):
     assert ent["routes"] == ["ancilla, no kernel" if n > 20
                              else "variant kernel" for n in sims]
     assert sorted(sims) == [16, 30]
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP H100 port.*item 11.*mesh"):
-        tq.sampled_knit(tv, 10, collapse=False, mesh=object(), device="cpu")
+    # the mesh of one scans every block on its one rank: the estimate
+    # equals the unsharded one (which the tests above hold to JAX)
+    _, mesh = _meshes()
+    np.testing.assert_array_equal(
+        tq.sampled_knit(tv, 10, keep_clbits=[0, 1], mesh=mesh,
+                        device="cpu").values,
+        tq.sampled_knit(tv, 10, keep_clbits=[0, 1], device="cpu").values)

@@ -699,3 +699,47 @@ if __name__ == "__main__":
     import sys
 
     print(json.dumps(bf16_witness(*(int(a) for a in sys.argv[1:3]))))
+
+
+@pytest.mark.parametrize("name,n,depth,cap", [
+    ("hwe", 8, 2, 5),     # multiple gate cuts
+    ("aqft", 6, 2, 5),    # gate + wire cuts
+    ("add", 6, 1, 5),     # adder: wire cuts + deferral ancillas
+])
+def test_fused_slots_match_unfused(name, n, depth, cap):
+    """The JAX keyword ``fused_slots`` (tests/test_shared_prefix.py's
+    twin): one composed block a slot, or the pre, measure and post
+    blocks apart, with banks off and on; each within 1e-6 of JAX's scan
+    with the same keywords."""
+    _, _, jv, tv = _pair_of(j_gen_circ(name, n, depth), cap)
+    for fused in (False, True):
+        for share in (False, True):
+            want, _ = _jax_values(jv, 32, share_prefix=share,
+                                  fused_slots=fused)
+            step, xs, _ = ts.make_streamed_knit(
+                tv, 32, share_prefix=share, fused_slots=fused, device="cpu")
+            np.testing.assert_allclose(step(xs).numpy(), want, atol=ATOL,
+                                       err_msg=str((fused, share)))
+
+
+def test_streamed_knit_takes_fuse_qubits_and_pallas_staged():
+    """The JAX keywords ``fuse_qubits`` (a fixed width, or "auto": the
+    byte model) and ``pallas_staged`` (the variant kernel without its
+    per-slot checkpoints: the same rows, here from its plain version)."""
+    _, _, jv, tv = _case("hwe8")
+    for fq in (3, 5, "auto"):
+        want, _ = _jax_values(jv, 32, fuse_qubits=fq)
+        step, xs, meta = ts.make_streamed_knit(tv, 32, fuse_qubits=fq,
+                                               device="cpu")
+        if fq != "auto":
+            assert set(meta["fuse_qubits"].values()) == {fq}
+        np.testing.assert_allclose(step(xs).numpy(), want, atol=ATOL)
+    rows = {}
+    for staged in (True, False):
+        step, xs, meta = ts.make_streamed_knit(
+            tv, 32, pallas_variant=True, pallas_staged=staged, device="cpu")
+        assert all(p.plan.staged == staged
+                   for p in meta["fragment_plans"].values())
+        rows[staged] = step(xs).numpy()
+    np.testing.assert_allclose(rows[False], rows[True], atol=ATOL)
+    np.testing.assert_allclose(rows[True], want, atol=ATOL)
