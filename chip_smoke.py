@@ -173,12 +173,37 @@ Phases (any failure exits non-zero without the result line):
              the kernel route) within 2e-6 of the whole scan.  Each
              prints the card, warm time, idle share, peak memory and
              error.  Exchanges between cards cannot run on one card;
-12. where the time goes — host build of the scan, the run without the
+12. variational — the variational path (ops/sweep.py, ops/hamiltonian.py,
+             ops/optim.py, models/qaoa.py: plain PyTorch and autograd,
+             no kernel in either package) at the full width of the
+             repo's VQE configs (benchmarks/vqe_tpu.py, rebuilt with the
+             port): tfim20 (20 qubits, 2 layers, cap 11, 5 cuts, solved
+             in the run) from linspace(0.2, 1.7, 60): e_theta0 within
+             5e-4 of the oracle (X flips and Z signs over the port's
+             statevector on the card), the gradient equal to the CPU's
+             within 2e-5, 1 + 10 steps of lr 0.1 descend, no kernel
+             launched; qaoa16 (MaxCut on the 16-ring given as a plain
+             object, P=1, cap 9, 8 cuts) at (2.0, 1.5) within 2e-3 of
+             its oracle, 1 + 3 steps descend; tfim16's contraction and
+             knitted distribution within 2e-5 (energy and gradient);
+             tfim20's stochastic energy (20000 LHS samples) within 0.5
+             of the exact one with a gradient of norm > 1e-3; one
+             make_parameter_sweep runner on tfim20's ansatz in the Z
+             basis serving three bindings, each within 3e-6 of
+             run_virtual_circuit(engine="pallas") (kernel 1's knit) and
+             fidelity > 1 - 1e-5 to the oracle; spsa_minimize and
+             nes_minimize (10 steps, 8 probes a step) on tfim16 below
+             the start, the batched population within 1e-5 of a loop,
+             and a mesh of one (energy, gradient, population) within
+             1e-6 of no mesh.  Each prints its times (build, first step,
+             median steady step, idle share over two traced steps, peak
+             memory) with the card;
+13. where the time goes — host build of the scan, the run without the
              simplex projection, and a torch.profiler trace (device time
              by kernel, device idle share of the wall) for sup-20, ghz-24,
              hwe-40, qft-16 (there also the host's label sampling) and
              the two hwe-16 routes (lane table, upload, kernel, knit);
-13. report — one JSON line of kernels (launches, error, times, bound), the
+14. report — one JSON line of kernels (launches, error, times, bound), the
              card's name and power limit, and the contract's last line.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Details go to
@@ -3308,6 +3333,426 @@ def phase_streamed_sup20_dp1(virt, report, card):
 
 
 
+# ---------------------------------------------------------------------------
+# 12. the variational path (ops/sweep.py, ops/hamiltonian.py, ops/optim.py)
+# ---------------------------------------------------------------------------
+#
+# The repo's VQE configs (benchmarks/vqe_tpu.py CONFIGS): tfim20 (20 qubits,
+# 2 entangling layers, partition cap 11, 5 cuts) and qaoa16 (MaxCut on the
+# 16-ring, P=1, cap 9, 8 cuts), plus tfim16 (1 layer, cap 9).  The ansatz,
+# Hamiltonian and cutter arguments are that script's; they are rebuilt here
+# with the port (the script imports the JAX package).  No kernel lies on this
+# path: plain PyTorch with autograd, as the JAX package runs it in XLA.
+
+VQE_CONFIGS = {"tfim16": (16, 1, 9), "tfim20": (20, 2, 11),
+               "qaoa16": (16, 1, 9)}
+VQE_JAX_RECORD = {"tfim20": -12.536766, "qaoa16": -7.538621}  # vqe_tpu.json
+VQE_ORACLE_TOL = {"tfim20": 5e-4, "qaoa16": 2e-3}  # tests/test_hamiltonian.py
+VQE_STEPS = 10           # benchmarks/vqe_tpu.py's steps, lr 0.1
+VQE_GRAD_TOL = 2e-5      # the card's gradient against the CPU's
+VQE_MODES_TOL = 2e-5     # contract vs distribution (test_hamiltonian.py:157)
+VQE_SAMPLES = 20000      # the stochastic energy's LHS budget
+VQE_SAMPLED_TOL = 0.5    # tests/test_hamiltonian.py:287
+SWEEP_TOL = 3e-6         # tests/test_sweep.py:72
+MESH1_TOL = 1e-6
+POP_TOL = 1e-5
+
+
+class _Ring:
+    """The n-ring as a graph object with nodes() and edges() only (the
+    card's machine has no networkx), edges in networkx's cycle_graph
+    order, so the circuit is benchmarks/vqe_tpu.py's."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def nodes(self):
+        return list(range(self.n))
+
+    def edges(self):
+        return [(0, 1), (0, self.n - 1)] + [(i, i + 1)
+                                            for i in range(1, self.n - 1)]
+
+
+def _tfim_terms(n, j=1.0, h=0.7):
+    terms = []
+    for i in range(n - 1):
+        zz = ["I"] * n
+        zz[i] = zz[i + 1] = "Z"
+        terms.append((-j, "".join(zz)))
+    for i in range(n):
+        x = ["I"] * n
+        x[i] = "X"
+        terms.append((-h, "".join(x)))
+    return terms
+
+
+def _maxcut_terms(n):
+    terms = []
+    for i in range(n):
+        zz = ["I"] * n
+        zz[i] = zz[(i + 1) % n] = "Z"
+        terms.append((0.5, "".join(zz)))
+    terms.append((-0.5 * n, "I" * n))
+    return terms
+
+
+def _vqe_config(key):
+    """(build(theta, mark), terms, theta0, cutter kwargs) of a config, as
+    benchmarks/vqe_tpu.run_config sets them."""
+    import numpy as np
+
+    circuit = _port("circuit.circuit")
+    n, layers, cap = VQE_CONFIGS[key]
+    if key.startswith("qaoa"):
+        qaoa = _port("models.qaoa")
+
+        def build(th, mark=True):
+            params = ([circuit.ParamRef(0, float(th[0])),
+                       circuit.ParamRef(1, float(th[1]))] if mark
+                      else [float(th[0]), float(th[1])])
+            return qaoa.construct_qaoa_plus(P=1, G=_Ring(n), params=params)
+
+        terms, th0, budget = _maxcut_terms(n), np.array([2.0, 1.5]), 8
+    else:
+        def build(th, mark=True):
+            c = circuit.Circuit(n, n)
+            k = 0
+            for layer in range(layers + 1):
+                for q in range(n):
+                    c.ry(circuit.ParamRef(k, float(th[k])) if mark
+                         else float(th[k]), q)
+                    k += 1
+                if layer < layers:
+                    for i in range(n - 1):
+                        c.cx(i, i + 1)
+            return c
+
+        terms = _tfim_terms(n)
+        th0 = np.linspace(0.2, 1.7, (layers + 1) * n)
+        budget = 5
+    kw = dict(maxNPartitions=2, maxNQubitsPerPartition=cap,
+              maxNQpdCuts=budget, maxNCuts=budget,
+              maxCutsPerPartitions=budget)
+    return build, terms, th0, kw
+
+
+def _oracle_energy(circ, terms):
+    """<H> on the uncut state of ``circ`` (no measurements) from the
+    port's statevector on the card: Z terms as diagonal signs, X terms as
+    bit flips (benchmarks/vqe_tpu.oracle_energy), in float64."""
+    import torch
+
+    sv = _port("ops.statevector")
+    n = circ.num_qubits
+    state = sv.run_statevector(sv.compile_circuit(circ), device=DEV)
+    psi = torch.complex(state[0].double(), state[1].double())
+    idx = torch.arange(1 << n, device=psi.device)
+    total = 0.0
+    for coeff, pauli in terms:
+        phase = torch.ones(1 << n, dtype=torch.float64, device=psi.device)
+        flip = 0
+        for q, ch in enumerate(pauli):
+            if ch == "Z":
+                phase = phase * (1.0 - 2.0 * ((idx >> (n - 1 - q)) & 1))
+            elif ch == "X":
+                flip ^= 1 << (n - 1 - q)
+            elif ch != "I":
+                raise ValueError(f"oracle takes I, X and Z, not {ch!r}")
+        total += coeff * float(torch.real(
+            psi.conj() @ (phase * psi[idx ^ flip])))
+    return total
+
+
+def _value_and_grad(energy, theta, device):
+    """(energy as a float, its gradient as numpy) at ``theta``."""
+    import numpy as np
+    import torch
+
+    t = torch.tensor(np.asarray(theta, np.float32), device=device,
+                     requires_grad=True)
+    e = energy(t)
+    (g,) = torch.autograd.grad(e, t)
+    return float(e.detach()), g.detach().cpu().numpy()
+
+
+def _descent(energy, theta, steps):
+    """``steps`` of ``theta -= 0.1 * grad`` on the card (theta never
+    leaves it): the energies, each step's time, and the final theta."""
+    import torch
+
+    t = torch.as_tensor(theta, dtype=torch.float32, device=DEV)
+    energies, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.requires_grad_(True)
+        e = energy(t)
+        (g,) = torch.autograd.grad(e, t)
+        t = (t - 0.1 * g).detach()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        energies.append(float(e.detach()))
+    return energies, times, t
+
+
+def _vqe_main(key, report, card, steps):
+    """One config's main path: build (cut solve included), the first
+    energy+gradient step, ``steps`` steady steps, all on the card with
+    the kernels' counts read around the whole path (this path runs none
+    of them), a device-only trace of two steps and the peak memory."""
+    import numpy as np
+    import torch
+
+    hmod = _port("ops.hamiltonian")
+    build, terms, th0, kw = _vqe_config(key)
+    _reset_counts()
+    (energy, info), build_s = _timed(
+        lambda: hmod.make_hamiltonian_energy(build(th0), kw, terms,
+                                             device=DEV))
+    (e0, g0), first_s = _timed(lambda: _value_and_grad(energy, th0, DEV))
+    torch.cuda.reset_peak_memory_stats()
+    energies, times, theta = _descent(energy, th0 - 0.1 * g0, steps)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts = _counts()
+    prof = _profile(lambda: _descent(energy, theta, 2), cpu=False)
+    oracle = _oracle_energy(build(th0, mark=False), terms)
+    out = {"card": card, "config": key, "n_qubits": VQE_CONFIGS[key][0],
+           "n_params": info.n_params, "n_groups": info.n_groups,
+           "instances_per_eval": info.instances_per_step,
+           "build_s": build_s, "first_step_s": first_s,
+           "steady_step_s": float(np.median(times[1:] or times)),
+           "step_s": times, "steps": 1 + steps, "e_theta0": e0,
+           "e_oracle_theta0": oracle, "oracle_err": abs(e0 - oracle),
+           "jax_record_theta0": VQE_JAX_RECORD[key],
+           "jax_record_diff": e0 - VQE_JAX_RECORD[key],
+           "energies": energies, "e_final": energies[-1],
+           "descended": energies[-1] < e0, "peak_gb": peak,
+           "launches": counts, "theta0": th0, "grad0": g0}
+    out.update(prof)
+    print(f"vqe_{key}: card={card} build_s={build_s:.3f} first_step_s="
+          f"{first_s:.3f} steady_step_s={out['steady_step_s']!r} "
+          f"instances_per_eval={info.instances_per_step} idle_share="
+          f"{out['device_idle_share']} peak_gb={peak:.4f}", flush=True)
+    print(f"  e_theta0={e0!r} oracle={oracle!r} err={out['oracle_err']!r} "
+          f"(jax record {VQE_JAX_RECORD[key]}: {out['jax_record_diff']!r}) "
+          f"e_final={energies[-1]!r} launches={counts}", flush=True)
+    if counts != _only():
+        raise RuntimeError(f"vqe_{key} launched a kernel: {counts}")
+    if not out["oracle_err"] <= VQE_ORACLE_TOL[key]:
+        raise RuntimeError(f"vqe_{key}: e_theta0 {e0!r} is "
+                           f"{out['oracle_err']!r} from the oracle")
+    if not out["descended"]:
+        raise RuntimeError(f"vqe_{key} did not descend: {energies}")
+    return energy, out
+
+
+def phase_vqe_tfim20(report, card):
+    """tfim20 as benchmarks/vqe_tpu.py runs it: e_theta0 within 5e-4 of
+    the oracle, 10 steps of lr 0.1 descend, the card's gradient equal to
+    the CPU's within 2e-5 (the energy built anew on the CPU)."""
+    energy, out = _vqe_main("tfim20", report, card, VQE_STEPS)
+    build, terms, th0, kw = _vqe_config("tfim20")
+    cpu_energy, _ = _port("ops.hamiltonian").make_hamiltonian_energy(
+        build(th0), kw, terms, device="cpu")
+    e_cpu, g_cpu = _value_and_grad(cpu_energy, th0, "cpu")
+    out["cpu_energy_err"] = abs(out["e_theta0"] - e_cpu)
+    out["cpu_grad_err"] = float(abs(out.pop("grad0") - g_cpu).max())
+    out.pop("theta0")
+    report["vqe_tfim20"] = out
+    print(f"  card vs cpu: energy {out['cpu_energy_err']!r} grad "
+          f"{out['cpu_grad_err']!r}", flush=True)
+    if not out["cpu_grad_err"] <= VQE_GRAD_TOL:
+        raise RuntimeError(f"tfim20 gradient on the card differs from the "
+                           f"CPU's by {out['cpu_grad_err']!r}")
+    return energy, out["e_theta0"]
+
+
+def phase_vqe_qaoa16(report, card):
+    """qaoa16 (the ring as a plain object): the energy at (2.0, 1.5)
+    within 2e-3 of the oracle, one gradient step (and the steps after
+    it) descend."""
+    _energy, out = _vqe_main("qaoa16", report, card, 3)
+    out.pop("theta0")
+    out.pop("grad0")
+    report["vqe_qaoa16"] = out
+
+
+def phase_vqe_tfim16_modes(report, card):
+    """tfim16 through the contraction and through the knitted
+    distribution: energies and gradients within 2e-5."""
+    hmod = _port("ops.hamiltonian")
+    build, terms, th0, kw = _vqe_config("tfim16")
+    out = {"card": card}
+    got = {}
+    for mode, contract in (("contract", True), ("distribution", False)):
+        energy, info = hmod.make_hamiltonian_energy(build(th0), kw, terms,
+                                                    contract=contract,
+                                                    device=DEV)
+        _value_and_grad(energy, th0, DEV)
+        got[mode], secs = _timed(lambda: _value_and_grad(energy, th0, DEV))
+        out[f"{mode}_s"] = secs
+    out["energy_err"] = abs(got["contract"][0] - got["distribution"][0])
+    out["grad_err"] = float(abs(got["contract"][1]
+                                - got["distribution"][1]).max())
+    out["instances_per_eval"] = info.instances_per_step
+    report["vqe_tfim16_modes"] = out
+    print(f"vqe_tfim16_modes: card={card} contract_s={out['contract_s']!r} "
+          f"distribution_s={out['distribution_s']!r} energy_err="
+          f"{out['energy_err']!r} grad_err={out['grad_err']!r}", flush=True)
+    if not (out["energy_err"] <= VQE_MODES_TOL
+            and out["grad_err"] <= VQE_MODES_TOL):
+        raise RuntimeError(f"tfim16 routes differ: {out}")
+
+
+def phase_vqe_tfim20_sampled(report, card, e_exact):
+    """tfim20's stochastic energy (20000 LHS samples shared by both
+    groups) within 0.5 of the exact one; its gradient finite with norm
+    above 1e-3; the time of one energy+gradient."""
+    import numpy as np
+
+    hmod = _port("ops.hamiltonian")
+    build, terms, th0, kw = _vqe_config("tfim20")
+    (energy, info), build_s = _timed(lambda: hmod.make_hamiltonian_energy(
+        build(th0), kw, terms, num_samples=VQE_SAMPLES, sample_seed=0,
+        sample_method="lhs", device=DEV))
+    (e, g), cold_s = _timed(lambda: _value_and_grad(energy, th0, DEV))
+    (e, g), warm_s = _timed(lambda: _value_and_grad(energy, th0, DEV))
+    out = {"card": card, "build_s": build_s, "cold_s": cold_s,
+           "warm_s": warm_s, "energy": e, "exact": e_exact,
+           "err": abs(e - e_exact), "grad_norm": float(np.linalg.norm(g)),
+           "instances_per_eval": info.instances_per_step}
+    report["vqe_tfim20_sampled"] = out
+    print(f"vqe_tfim20_sampled: card={card} samples={VQE_SAMPLES} "
+          f"instances_per_eval={info.instances_per_step} warm_s={warm_s!r}"
+          f" energy={e!r} exact={e_exact!r} grad_norm="
+          f"{out['grad_norm']!r}", flush=True)
+    if not (out["err"] < VQE_SAMPLED_TOL and np.isfinite(g).all()
+            and out["grad_norm"] > 1e-3):
+        raise RuntimeError(f"tfim20 sampled: {out}")
+
+
+def phase_sweep_tfim20_bind(report, card):
+    """make_parameter_sweep on tfim20's ansatz in the Z basis, without
+    ParamRefs: three theta sets, each cut with the template's plan,
+    bound and run through one runner; values within 3e-6 of
+    run_virtual_circuit(engine="pallas") on the same VirtualCircuit
+    (kernel 1's knit) and fidelity to the uncut oracle > 1 - 1e-5."""
+    import numpy as np
+
+    cutter_mod = _port("cutter.cutter")
+    hmod = _port("ops.hamiltonian")
+    sweep = _port("ops.sweep")
+    run = _port("run")
+    sv = _port("ops.statevector")
+    evaluate = _port("evaluate")
+    virt_mod = _port("virt.virtual_circuit")
+    build, _terms, th0, kw = _vqe_config("tfim20")
+    rng = np.random.default_rng(0)
+    thetas = [th0, th0 + rng.normal(0, 0.3, th0.size),
+              rng.uniform(-np.pi, np.pi, th0.size)]
+    plan = None
+    runner = bind = None
+    out = {"card": card, "cases": []}
+    for th in thetas:
+        circ = hmod.measurement_circuit(build(th, mark=False), "Z" * 20)
+        cutter = cutter_mod.Cutter(circ, **kw)
+        if plan is None:
+            if not cutter.solve():
+                raise RuntimeError("no cut plan for tfim20")
+            plan = cutter.plan
+        else:
+            cutter.use_plan(plan)
+        virt = virt_mod.VirtualCircuit(cutter.getResultCircs()[3])
+        if runner is None:
+            runner, bind = sweep.make_parameter_sweep(virt, device=DEV)
+        args, bind_s = _timed(lambda: bind(virt))
+        vals, run_s = _timed(lambda: runner(args))
+        vals, warm_s = _timed(lambda: runner(args))
+        want, _ = run.run_virtual_circuit(virt, project=False, device=DEV)
+        vals = vals.cpu().numpy()
+        got = sv.Distribution(vals, sorted(range(20)), virt.num_clbits)
+        fid = evaluate.hellinger_fidelity(
+            sv.simulate_circuit(circ, device=DEV), got)
+        out["cases"].append({
+            "bind_s": bind_s, "cold_s": run_s, "warm_s": warm_s,
+            "max_abs_err": float(np.abs(vals - want.values).max()),
+            "fidelity": fid})
+    out["runner_served"] = len(thetas)
+    out["warm_s"] = [c["warm_s"] for c in out["cases"]]
+    out["max_abs_err"] = max(c["max_abs_err"] for c in out["cases"])
+    out["min_fidelity"] = min(c["fidelity"] for c in out["cases"])
+    report["sweep_tfim20_bind"] = out
+    print(f"sweep_tfim20_bind: card={card} warm_s={out['warm_s']!r} "
+          f"max_abs_err={out['max_abs_err']!r} (engine=\"pallas\") "
+          f"min_fidelity={out['min_fidelity']!r}", flush=True)
+    if not (out["max_abs_err"] <= SWEEP_TOL
+            and out["min_fidelity"] > FID_MIN):
+        raise RuntimeError(f"sweep_tfim20_bind: {out}")
+
+
+def phase_optim_tfim16(report, card):
+    """spsa_minimize (10 steps, 4 pairs) and nes_minimize (10 steps, pop
+    8) on tfim16's energy: the batched population equals a loop of
+    single energies within 1e-5, both end below the start.  Then a mesh
+    of one: make_hamiltonian_energy(mesh=) and population_energy(mesh=)
+    equal to the unsharded energy, gradient and energies within 1e-6."""
+    import numpy as np
+    import torch
+
+    hmod = _port("ops.hamiltonian")
+    optim = _port("ops.optim")
+    mesh = _port("parallel.mesh").make_mesh(1, device=DEV)
+    build, terms, th0, kw = _vqe_config("tfim16")
+    energy, _ = hmod.make_hamiltonian_energy(build(th0), kw, terms,
+                                             device=DEV)
+    thetas = torch.as_tensor(
+        th0 + np.random.default_rng(0).normal(0, 0.1, (8, th0.size)),
+        dtype=torch.float32, device=DEV)
+    with torch.no_grad():
+        batched, pop_s = _timed(lambda: optim.population_energy(energy)(
+            thetas))
+        batched, pop_s = _timed(lambda: optim.population_energy(energy)(
+            thetas))
+        loop, loop_s = _timed(lambda: torch.stack([energy(t)
+                                                   for t in thetas]))
+        meshed = optim.population_energy(energy, mesh)(thetas)
+    start = float(energy(th0))
+    out = {"card": card, "start": start, "population": 8,
+           "population_s": pop_s, "loop_s": loop_s,
+           "population_err": float((batched - loop).abs().max()),
+           "mesh1_population_err": float((meshed - batched).abs().max())}
+    for name, fn, kw_opt in (
+            ("spsa", optim.spsa_minimize, dict(pairs=4, a=0.2, c=0.1)),
+            ("nes", optim.nes_minimize, dict(pop=8, sigma=0.15, lr=0.1))):
+        res, secs = _timed(lambda: fn(energy, th0, steps=10, key=3,
+                                      device=DEV, **kw_opt))
+        out[name] = {"energy": res.energy, "step_s": secs / 10,
+                     "evaluations": res.evaluations,
+                     "history": res.history.tolist()}
+    e_mesh, _ = hmod.make_hamiltonian_energy(build(th0), kw, terms,
+                                             mesh=mesh)
+    a, ga = _value_and_grad(energy, th0, DEV)
+    b, gb = _value_and_grad(e_mesh, th0, DEV)
+    out["mesh1_energy_err"] = abs(a - b)
+    out["mesh1_grad_err"] = float(abs(ga - gb).max())
+    report["optim_tfim16"] = out
+    print(f"optim_tfim16: card={card} start={start!r} spsa="
+          f"{out['spsa']['energy']!r} ({out['spsa']['step_s']!r} s/step) "
+          f"nes={out['nes']['energy']!r} ({out['nes']['step_s']!r} s/step)"
+          f" population_s={pop_s!r} loop_s={loop_s!r} population_err="
+          f"{out['population_err']!r} mesh1: energy "
+          f"{out['mesh1_energy_err']!r} grad {out['mesh1_grad_err']!r} "
+          f"population {out['mesh1_population_err']!r}", flush=True)
+    if not out["population_err"] <= POP_TOL:
+        raise RuntimeError(f"population differs from the loop: {out}")
+    if not (out["spsa"]["energy"] < start and out["nes"]["energy"] < start):
+        raise RuntimeError(f"optimisers did not descend: {out}")
+    if not max(out["mesh1_energy_err"], out["mesh1_grad_err"],
+               out["mesh1_population_err"]) <= MESH1_TOL:
+        raise RuntimeError(f"mesh of one differs: {out}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3485,6 +3930,15 @@ def main() -> int:
             phase("main_hwe16_xla", phase_main_xla, circ, virt, report, rows)
         del rows
     phase("sv_width_gate", phase_sv_width_gate, report)
+    tfim20 = phase("vqe_tfim20", phase_vqe_tfim20, report, card)
+    phase("vqe_qaoa16", phase_vqe_qaoa16, report, card)
+    phase("vqe_tfim16_modes", phase_vqe_tfim16_modes, report, card)
+    if tfim20 is not None:
+        phase("vqe_tfim20_sampled", phase_vqe_tfim20_sampled, report, card,
+              tfim20[1])
+    del tfim20
+    phase("sweep_tfim20_bind", phase_sweep_tfim20_bind, report, card)
+    phase("optim_tfim16", phase_optim_tfim16, report, card)
     if "sup20" in cuts:
         circ, virt = cuts["sup20"]
         phase("sv_sup20", phase_sv, "sup20", virt, report)

@@ -11,8 +11,8 @@ scan without a kernel, the batched ``engine="xla"``, the
 variant x amplitude co-sharding):
   circuit/   — typed circuit IR + gate library; routing onto a device
                coupling map (routing.py)
-  models/    — supremacy, Sycamore, hardware-efficient-ansatz, QFT / AQFT
-               and GHZ generators
+  models/    — supremacy, Sycamore, hardware-efficient-ansatz, QFT / AQFT,
+               GHZ and QAOA (qaoa.py) generators
   cutter/    — optimal joint wire+gate cut search (pure-Python solver; the
                angle-aware gamma search) and the rewrite into fragments
   virt/      — QPD virtual-gate tables and fragment bookkeeping
@@ -28,7 +28,10 @@ variant x amplitude co-sharding):
                engine; the QPD sampler (qpd_sampling.py); shot sampling
                (sampling.py); the uncut oracle; noise models and noisy
                execution through the batched and streamed engines
-               (noise.py) and error mitigation (mitigation.py)
+               (noise.py) and error mitigation (mitigation.py); the
+               variational path in plain PyTorch with autograd: parameter
+               sweeps (sweep.py), Pauli Hamiltonian energies and VQE
+               (hamiltonian.py), population SPSA / NES (optim.py)
   parallel/  — process-group meshes over torch.distributed (mesh.py) and
                the sharded knit step and dp-split streamed scan
                (sharded.py); the amplitude-sharded statevector and the
@@ -40,7 +43,34 @@ variant x amplitude co-sharding):
                packages, tables onto devices
 
 Entry points run on ``device="cuda"`` unless the caller passes
-``device="cpu"``; they raise when no card is present.
+``device="cpu"``; they raise when no card is present.  The names below
+are importable from the package itself (each loads its module on first
+use).
 """
 
+import importlib
+
 __version__ = "0.1.0"
+
+_ENTRY_POINTS = {
+    "run_virtual_circuit": "run",
+    "simulate_circuit": "ops.statevector",
+    "make_parameter_sweep": "ops.sweep",
+    "make_differentiable_sweep": "ops.sweep",
+    "make_sampled_sweep": "ops.sweep",
+    "pauli_z_diagonal": "ops.sweep",
+    "make_hamiltonian_energy": "ops.hamiltonian",
+    "population_energy": "ops.optim",
+    "spsa_minimize": "ops.optim",
+    "nes_minimize": "ops.optim",
+    "OptimResult": "ops.optim",
+    "construct_qaoa_plus": "models.qaoa",
+}
+__all__ = sorted(_ENTRY_POINTS)
+
+
+def __getattr__(name):
+    if name in _ENTRY_POINTS:
+        module = importlib.import_module(f"{__name__}.{_ENTRY_POINTS[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .circuit.circuit import Circuit, Instruction, Register
+from .circuit.circuit import Circuit, Instruction, ParamRef, Register
 from .cutter.plan import CutPlan
 from .virt.virtual_gates import VirtualGateOp, WireCutMark
 
@@ -49,12 +49,28 @@ def to_device(tables, device, dtype=None):
                            device=device)
 
 
+def _param_to_data(p):
+    """A gate parameter as plain data: a float, or for a ``ParamRef`` (of
+    either package) the dict of its ``index``, ``base``, ``scale`` and
+    ``shift``, so the theta reference survives the crossing."""
+    if type(p).__name__ == "ParamRef":
+        return {"index": int(p.index), "base": float(p.base),
+                "scale": float(p.scale), "shift": float(p.shift)}
+    return float(p)
+
+
+def _param_from_data(d):
+    if isinstance(d, dict):
+        return ParamRef(d["index"], d["base"], d["scale"], d["shift"])
+    return float(d)
+
+
 def _op_to_data(op):
     if op is None:
         return None
     if type(op).__name__ == "VirtualGateOp":
         return {"kind": "vgate", "base_name": op.base_name,
-                "params": [float(p) for p in op.params],
+                "params": [_param_to_data(p) for p in op.params],
                 "label": op.label, "teleport": bool(op.teleport)}
     if type(op).__name__ == "WireCutMark":
         return {"kind": "wirecut", "label": op.label,
@@ -69,7 +85,9 @@ def _op_from_data(data):
         return None
     kind = data["kind"]
     if kind == "vgate":
-        return VirtualGateOp(data["base_name"], tuple(data["params"]),
+        return VirtualGateOp(data["base_name"],
+                             tuple(_param_from_data(p)
+                                   for p in data["params"]),
                              data["label"], data["teleport"])
     if kind == "wirecut":
         return WireCutMark(data["label"], data["teleport"])
@@ -81,7 +99,9 @@ def _op_from_data(data):
 def circuit_to_instructions(circ) -> tuple[int, int, dict, list[dict]]:
     """``(num_qubits, num_clbits, regs, instrs)`` of a circuit object with
     the ``Circuit`` attributes (this package's or the JAX package's): the
-    plain form :func:`circuit_from_instructions` takes."""
+    plain form :func:`circuit_from_instructions` takes.  A parameter is a
+    float, or a ``ParamRef``'s ``{"index", "base", "scale", "shift"}``
+    dict (gates and cut gates alike)."""
     regs = {
         "name": circ.name,
         "qregs": [(r.name, r.size) for r in circ.qregs],
@@ -92,7 +112,7 @@ def circuit_to_instructions(circ) -> tuple[int, int, dict, list[dict]]:
             "name": ins.name,
             "qubits": [int(q) for q in ins.qubits],
             "clbits": [int(c) for c in ins.clbits],
-            "params": [float(p) for p in ins.params],
+            "params": [_param_to_data(p) for p in ins.params],
             "label": ins.label,
             "condition": (None if ins.condition is None
                           else tuple(int(v) for v in ins.condition)),
@@ -108,7 +128,8 @@ def circuit_from_instructions(num_qubits: int, num_clbits: int, regs: dict,
     """Rebuild this package's :class:`Circuit` from plain data: ``regs``
     holds ``qregs``/``cregs`` as ``(name, size)`` pairs (and optionally the
     circuit ``name``); each instruction is a dict with ``name``,
-    ``qubits``, ``clbits``, ``params``, ``label``, ``condition`` and
+    ``qubits``, ``clbits``, ``params`` (floats, or ParamRef dicts rebuilt
+    as this package's ``ParamRef``), ``label``, ``condition`` and
     ``op`` (None, a ``vgate``/``wirecut`` payload dict, or an ``array``
     holding a unitary)."""
     circ = Circuit(
@@ -125,7 +146,8 @@ def circuit_from_instructions(num_qubits: int, num_clbits: int, regs: dict,
         cond = d.get("condition")
         circ.append(Instruction(
             d["name"], list(d["qubits"]), list(d.get("clbits", ())),
-            list(d.get("params", ())), d.get("label"),
+            [_param_from_data(p) for p in d.get("params", ())],
+            d.get("label"),
             _op_from_data(d.get("op")),
             None if cond is None else tuple(cond),
         ))

@@ -16,23 +16,43 @@ unfused stream.
 
 Convention (ops/statevector.apply_matrix): ``axes[0]`` is the most
 significant bit of the matrix index.
+
+``xp=torch`` runs the same passes on complex64 tensors (the
+differentiable sweep, ops/sweep.py: blocks holding a parameterised gate
+are rebuilt from theta and carry its gradient).  Every matrix handed in
+is then a tensor on one device; the identities the passes add are made
+on that device.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _I2 = np.eye(2, dtype=complex)
 
 
-def _swap_operands(u4, xp=np):
+def _eye(n: int, like, xp=np):
+    """The ``n x n`` identity in ``like``'s backend (and device)."""
+    if xp is torch:
+        return torch.eye(n, dtype=like.dtype, device=like.device)
+    return np.eye(n, dtype=complex)
+
+
+def _swap_operands(u4):
     """Reorder a 4x4 matrix from qubit order (a, b) to (b, a)."""
-    perm = xp.asarray([0, 2, 1, 3])
+    perm = [0, 2, 1, 3]
     return u4[perm][:, perm]
 
 
 def _kron2(ua, ub, xp=np):
     """4x4 acting as ua on the first (most significant) operand, ub on
-    the second."""
+    the second (a 2x2 numpy identity becomes one of the other operand's
+    backend)."""
+    if xp is torch:
+        if not isinstance(ua, torch.Tensor):
+            ua = _eye(2, ub, xp)
+        if not isinstance(ub, torch.Tensor):
+            ub = _eye(2, ua, xp)
     return xp.kron(ua, ub)
 
 
@@ -43,8 +63,9 @@ class _OwnerMapFuser:
     operator order, ``passthrough`` flushes everything then emits an op
     unfused (the too-many-qubits escape).
 
-    ``xp`` selects the array backend (numpy here, the host compile
-    path); the fusion *structure* depends only on op axes.
+    ``xp`` selects the array backend: numpy (the host compile path) or
+    torch (complex64 tensors that may carry gradients); the fusion
+    *structure* depends only on op axes.
     """
 
     def __init__(self, xp=np):
@@ -57,7 +78,7 @@ class _OwnerMapFuser:
     def _as(self, mat):
         if self.xp is np:
             return np.asarray(mat, dtype=complex)
-        return self.xp.asarray(mat).astype(self.xp.complex64)
+        return mat.to(torch.complex64)
 
     def _flush(self, idx: int) -> None:
         mat, axes, alive = self.pending[idx]
@@ -117,7 +138,7 @@ class _Fuser(_OwnerMapFuser):
             pmat, paxes, _ = self.pending[ia]
             if len(paxes) == 2:  # same pair: compose
                 if tuple(paxes) == (b, a):
-                    mat = _swap_operands(mat, self.xp)
+                    mat = _swap_operands(mat)
                     a, b = paxes
                 self.pending[ia][0] = mat @ pmat
                 return
@@ -204,11 +225,12 @@ def _expand(mat, axes: tuple[int, ...],
     (qubit order = target; axes must be a subset)."""
     k = len(target)
     rest = [q for q in target if q not in axes]
-    m = xp.kron(xp.asarray(mat), np.eye(1 << len(rest)))
+    m = xp.kron(mat, _eye(1 << len(rest), mat, xp))
     cur = list(axes) + rest
     perm = [cur.index(q) for q in target]
     t = m.reshape((2,) * k + (2,) * k)
-    t = xp.transpose(t, perm + [k + p for p in perm])
+    t = t.permute(perm + [k + p for p in perm]) if xp is torch \
+        else np.transpose(t, perm + [k + p for p in perm])
     return t.reshape(1 << k, 1 << k)
 
 

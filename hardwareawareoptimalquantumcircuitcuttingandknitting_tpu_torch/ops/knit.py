@@ -92,7 +92,9 @@ def _fold_fragment(
         weights = fold_weights(virt, res.name)
 
     for ti, g in enumerate(touching):
-        w = torch.as_tensor(np.asarray(weights[ti]), dtype=t.dtype,
+        w = weights[ti]
+        w = torch.as_tensor(w if isinstance(w, torch.Tensor)
+                            else np.asarray(w), dtype=t.dtype,
                             device=t.device)
         shape = [1] * (nv + 2)
         shape[ti] = n_inst[ti]

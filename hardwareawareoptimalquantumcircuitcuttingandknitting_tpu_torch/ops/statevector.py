@@ -109,14 +109,15 @@ def apply_block_einsum(state: torch.Tensor, block, axes,
     """Apply a k-qubit real block to ``state [B, 2, 2^n]`` as one einsum
     (the JAX package's route for blocks wider than 3 qubits, where a
     slice combination would cost 4^k multiply-adds).  ``block``: a host
-    ``[2, m, 2, m]`` array shared by every label, or a per-label ``[B, 2,
-    m, 2, m]`` tensor; it is cast to the state's dtype.  Exact f32 with
-    TF32 off (PyTorch's default)."""
+    ``[2, m, 2, m]`` array or a ``[2, m, 2, m]`` tensor shared by every
+    label (a runtime block, which may carry a gradient: it is never
+    copied per label), or a per-label ``[B, 2, m, 2, m]`` tensor; it is
+    cast to the state's dtype.  Exact f32 with TF32 off (PyTorch's
+    default)."""
     k = len(axes)
     b = state.shape[0]
-    per_label = isinstance(block, torch.Tensor)
-    blk = (block if per_label else torch.as_tensor(block)).to(
-        device=state.device, dtype=state.dtype)
+    per_label = isinstance(block, torch.Tensor) and block.dim() == 5
+    blk = torch.as_tensor(block).to(device=state.device, dtype=state.dtype)
     blk = blk.reshape(((b,) if per_label else ()) + (2,) * (2 * k + 2))
     letters = iter("abcdefghijklmnopqrstuvw")
     outs = [next(letters) for _ in range(k)]

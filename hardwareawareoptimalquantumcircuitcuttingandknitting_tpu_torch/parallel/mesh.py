@@ -200,6 +200,83 @@ class Mesh:
                 f"device={self.device})")
 
 
+def dp_slice(count: int, mesh: Mesh, axis: str = "dp") -> tuple[int, int]:
+    """``(lo, hi)``: this rank's contiguous share of ``count`` rows split
+    over ``axis`` in chunks of ``ceil(count / size)`` (the last ranks may
+    hold fewer rows, or none)."""
+    per = -(-count // mesh.shape[axis])
+    lo = min(count, mesh.index(axis) * per)
+    return lo, min(count, lo + per)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's slice of the rows, concatenated in coordinate order;
+    backward hands each rank its own slice of the gradient (every rank
+    runs the same computation on the gathered rows, so their gradients
+    agree)."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, axis, count):
+        per = -(-count // mesh.shape[axis])
+        lo, hi = dp_slice(count, mesh, axis)
+        ctx.span = (lo, hi)
+        pad = local.new_zeros((per - (hi - lo),) + tuple(local.shape[1:]))
+        full = mesh.all_gather(torch.cat([local, pad]), axis)
+        return full[:count]
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo, hi = ctx.span
+        return grad[lo:hi], None, None, None
+
+
+class _SumGrads(torch.autograd.Function):
+    """The identity on tensors whose gradients are partial on each rank
+    (each rank used them on its own slice of the rows): backward sums
+    the gradients over ``axis`` in one ``all_reduce``."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, *tensors):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.shapes = [t.shape for t in tensors]
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = torch.cat([
+            (g if g is not None else torch.zeros(s, device=ctx.mesh.device))
+            .reshape(-1).to(torch.float32)
+            for g, s in zip(grads, ctx.shapes)
+        ])
+        ctx.mesh.all_reduce(flat, ctx.axis)
+        out, at = [], 0
+        for g, s in zip(grads, ctx.shapes):
+            n = int(np.prod(s))
+            out.append(flat[at:at + n].reshape(s).to(
+                g.dtype if g is not None else torch.float32))
+            at += n
+        return (None, None) + tuple(out)
+
+
+def gather_rows(local: torch.Tensor, mesh: Mesh, count: int,
+                axis: str = "dp") -> torch.Tensor:
+    """The ``[count, ...]`` rows whose slice :func:`dp_slice` gave this
+    rank, gathered from every rank on ``axis`` (differentiable: see
+    :class:`_GatherRows`).  Every rank of the axis must call it."""
+    return _GatherRows.apply(local, mesh, axis, count)
+
+
+def sum_grads(tensors, mesh: Mesh, axis: str = "dp") -> list:
+    """``tensors`` unchanged, their gradients summed over ``axis`` in the
+    backward pass: wrap what every rank computes alike but uses on its
+    own slice of the rows only.  The identity when none needs a
+    gradient."""
+    tensors = list(tensors)
+    if not any(t.requires_grad for t in tensors):
+        return tensors
+    return list(_SumGrads.apply(mesh, axis, *tensors))
+
+
 @dataclass(frozen=True)
 class NamedSharding:
     """A layout over a mesh, by axis name per array dimension (the JAX

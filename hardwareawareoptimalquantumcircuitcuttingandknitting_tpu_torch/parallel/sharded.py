@@ -21,8 +21,6 @@ variant fan-out and the knit contraction on a ``(dp, tp)`` mesh:
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
@@ -39,7 +37,7 @@ from ..ops.variant_engine import (
     variant_index_table,
 )
 from ..virt.virtual_circuit import VirtualCircuit
-from .mesh import Mesh
+from .mesh import Mesh, dp_slice
 
 
 def make_sharded_step(virt: VirtualCircuit, mesh: Mesh, dtype=None):
@@ -139,11 +137,7 @@ def streamed_values_dp(meta, xs, mesh: Mesh) -> torch.Tensor:
     ``tests/test_streamed_sharded.py``).  Works with the route without a
     kernel (ancestor banks on or off: a rank builds its own banks) and
     the kernel route (``pallas_variant=True``)."""
-    n = meta["n_chunks"]
-    dp = mesh.shape["dp"]
-    per = math.ceil(n / dp)
-    lo = min(n, mesh.index("dp") * per)
-    hi = min(n, lo + per)
+    lo, hi = dp_slice(meta["n_chunks"], mesh)
     carry = torch.zeros(meta["carry_shape"], dtype=torch.float32,
                         device=xs[0].device)
     if hi > lo:

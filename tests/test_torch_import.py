@@ -35,6 +35,15 @@ def test_importing_every_port_module_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_variational_modules_are_checked():
+    """The variational path's modules are among those the two checks
+    above import and read."""
+    names = {name for _, name in _port_modules()}
+    for mod in ("ops.sweep", "ops.hamiltonian", "ops.optim",
+                "models.qaoa"):
+        assert f"{PORT}.{mod}" in names, mod
+
+
 def _imported_names(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -109,3 +118,16 @@ def test_kernel_libraries_build_nothing_at_import():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_package_exports_the_entry_points():
+    """Each name of the package's ``__all__`` resolves to its module's
+    object, loaded on first use."""
+    import importlib
+
+    pkg = importlib.import_module(PORT)
+    for name in pkg.__all__:
+        module = importlib.import_module(
+            f"{PORT}.{pkg._ENTRY_POINTS[name]}")
+        assert getattr(pkg, name) is getattr(module, name), name
+    assert "make_hamiltonian_energy" in pkg.__all__

@@ -1058,3 +1058,88 @@ def test_streamed_pallas_staged_false_equals_staged_on_card(card):
                    for p in meta["fragment_plans"].values())
         vals[staged] = step(xs).cpu().numpy()
     np.testing.assert_allclose(vals[False], vals[True], atol=TOL)
+
+
+def _tfim_energy(n, device, mesh=None, **kw):
+    """A 2-partition cut TFIM-n VQE energy (ry layers as ParamRefs
+    around a cx chain), built with the port alone."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.circuit.circuit import (  # noqa: E501
+        ParamRef,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.hamiltonian import (  # noqa: E501
+        make_hamiltonian_energy,
+    )
+
+    th = np.linspace(0.2, 1.7, 2 * n)
+    c = Circuit(n, n)
+    for q in range(n):
+        c.ry(ParamRef(q, float(th[q])), q)
+    for i in range(n - 1):
+        c.cx(i, i + 1)
+    for q in range(n):
+        c.ry(ParamRef(n + q, float(th[n + q])), q)
+    terms = []
+    for i in range(n - 1):
+        p = ["I"] * n
+        p[i] = p[i + 1] = "Z"
+        terms.append((-1.0, "".join(p)))
+    for i in range(n):
+        p = ["I"] * n
+        p[i] = "X"
+        terms.append((-0.7, "".join(p)))
+    kw_cut = dict(maxNPartitions=2, maxNQubitsPerPartition=n // 2 + 1,
+                  maxNQpdCuts=5, maxNCuts=5, maxCutsPerPartitions=5)
+    energy, _ = make_hamiltonian_energy(c, kw_cut, terms, device=device,
+                                        mesh=mesh, **kw)
+    return energy, th
+
+
+def _value_and_grad(energy, th, device):
+    t = torch.tensor(th, dtype=torch.float32, device=device,
+                     requires_grad=True)
+    e = energy(t)
+    e.backward()
+    return float(e.detach()), t.grad.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [{"contract": True}, {"contract": False},
+                                  {"num_samples": 3000, "sample_seed": 2}],
+                         ids=["contract", "distribution", "sampled"])
+def test_vqe_autograd_on_card_equals_cpu(card, mode):
+    """Energy and gradient of the variational path (plain PyTorch and
+    autograd, no kernel) on the card against the CPU: 1e-5 and 2e-5."""
+    got = {}
+    for dev in ("cpu", card):
+        energy, th = _tfim_energy(8, dev, **mode)
+        got[dev] = _value_and_grad(energy, th, dev)
+    assert abs(got[card][0] - got["cpu"][0]) <= 1e-5
+    np.testing.assert_allclose(got[card][1], got["cpu"][1], atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_vqe_and_population_on_a_mesh_of_one_on_card(card):
+    """``mesh=`` a mesh of one on the card: the energy, its gradient and
+    a population's energies are the unsharded ones within 1e-6."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.optim import (  # noqa: E501
+        population_energy,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.parallel.mesh import (  # noqa: E501
+        make_mesh,
+    )
+
+    mesh = make_mesh(1, device=card)
+    plain, th = _tfim_energy(8, card)
+    meshed, _ = _tfim_energy(8, None, mesh=mesh)
+    a, ga = _value_and_grad(plain, th, card)
+    b, gb = _value_and_grad(meshed, th, card)
+    assert abs(a - b) <= 1e-6
+    np.testing.assert_allclose(ga, gb, atol=1e-6)
+    thetas = torch.as_tensor(
+        th + np.random.default_rng(0).normal(0, 0.2, (6, th.size)),
+        dtype=torch.float32, device=card)
+    want = population_energy(plain)(thetas)
+    got = population_energy(plain, mesh)(thetas)
+    loop = torch.stack([plain(t) for t in thetas])
+    assert (got - want).abs().max().item() <= 1e-6
+    assert (want - loop).abs().max().item() <= 1e-5

@@ -5,7 +5,9 @@ Port twins of the JAX package's multi-device tests
 (tests/test_sharded_sv.py, tests/test_sharded_fragment.py,
 tests/test_multichip.py::test_sampled_scan_dp_sharded,
 tests/test_streamed_sharded.py), which run virtual CPU meshes in
-subprocesses.  Each world is spawned once per module
+subprocesses, and of its dp dry-runs of the variational path
+(``__graft_entry__._dryrun_vqe_sharded``, ``_dryrun_population_sharded``),
+held against the port without a mesh.  Each world is spawned once per module
 (tests/torch_dist_common.spawn_world, a 120 s limit that kills every
 rank), runs all of its scenarios (tests/torch_dist_scenarios.py,
 importing only the port), and rank 0 writes the results; each test
@@ -15,10 +17,12 @@ all ranks hold the same answer.
 """
 import numpy as np
 import pytest
+import torch
 
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.circuit.circuit import (  # noqa: E501
     Circuit as JCircuit,
     Instruction as JInstruction,
+    ParamRef as JParamRef,
     Register as JRegister,
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.cutter.cutter import (  # noqa: E501
@@ -52,14 +56,20 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.evaluate imp
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
     qpd_sampling as tq,
 )
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.hamiltonian import (  # noqa: E501
+    make_hamiltonian_energy,
+)
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.knit import (  # noqa: E501
     nearest_probability_distribution,
+)
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.optim import (  # noqa: E501
+    spsa_minimize,
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.statevector import (  # noqa: E501
     Distribution,
 )
 from torch_dist_common import WorldFailed, spawn_world
-from torch_port_common import CUT_KW, qft_gamma_pair
+from torch_port_common import CUT_KW, qft_gamma_pair, to_port
 
 ATOL = 1e-6
 SAMPLED_KW = dict(num_samples=3000, seed=3, pallas_variant=False)
@@ -174,6 +184,55 @@ def world4(cases, tmp_path_factory):
                        tmp_path_factory.mktemp("world4"), payload)
 
 
+def _tfim_case(n, seed, low, h, cap):
+    """The JAX package's dp dry-run VQE shapes (``__graft_entry__``
+    ``_dryrun_vqe_sharded`` at n = 6, ``_dryrun_population_sharded`` at
+    n = 4): ry layers as ParamRefs around a cx chain, a TFIM chain,
+    ``(ansatz, theta, terms, cut_kw)``."""
+    rng = np.random.default_rng(seed)
+    layers = 2 if n == 6 else 1
+    th = rng.uniform(-low, low, layers * n).astype(np.float32)
+    c = JCircuit(n, n)
+    for q in range(n):
+        c.ry(JParamRef(q, float(th[q])), q)
+    for i in range(n - 1):
+        c.cx(i, i + 1)
+    if layers == 2:
+        for q in range(n):
+            c.ry(JParamRef(n + q, float(th[n + q])), q)
+    terms = []
+    for i in range(n - 1):
+        p = ["I"] * n
+        p[i] = p[i + 1] = "Z"
+        terms.append((-1.0, "".join(p)))
+    for i in ([*range(n)] if n == 6 else [0, n - 1]):
+        p = ["I"] * n
+        p[i] = "X"
+        terms.append((-h, "".join(p)))
+    kw = dict(maxNPartitions=2, maxNQubitsPerPartition=cap, maxNQpdCuts=5,
+              maxNCuts=5, maxCutsPerPartitions=5)
+    return c, th, terms, kw
+
+
+VQE = _tfim_case(6, 7, 1.0, 0.7, 4)
+POP = _tfim_case(4, 5, 0.5, 0.5, 3)
+VQE_MC = dict(num_samples=4000, sample_method="lhs", sample_seed=1)
+SPSA = dict(steps=5, key=9, pairs=4, a=0.3, c=0.1)
+POP_THETAS = (POP[1] + np.random.default_rng(2).normal(
+    0, 0.3, (5, POP[1].size))).astype(np.float32)
+
+
+def _variational_payload():
+    (vc, vth, vterms, vkw), (pc, pth, pterms, pkw) = VQE, POP
+    return {
+        "vqe": {"ansatz": circuit_to_instructions(vc), "theta": vth,
+                "terms": vterms, "cut_kw": vkw, "sampled": VQE_MC},
+        "population": {"ansatz": circuit_to_instructions(pc),
+                       "theta0": pth, "terms": pterms, "cut_kw": pkw,
+                       "thetas": POP_THETAS, "spsa": SPSA},
+    }
+
+
 @pytest.fixture(scope="module")
 def world2(cases, tmp_path_factory):
     payload = {
@@ -182,6 +241,7 @@ def world2(cases, tmp_path_factory):
         "chain8": circuit_to_instructions(cases["chain8"][1]),
         "sampled_kw": SAMPLED_KW,
         "checkpoint_dir": str(tmp_path_factory.mktemp("checkpoint")),
+        "variational": _variational_payload(),
     }
     return spawn_world(2, "torch_dist_scenarios", "world2",
                        tmp_path_factory.mktemp("world2"), payload)
@@ -345,6 +405,69 @@ def test_sharded_checkpoints_on_2_ranks(world2, chain8_jax):
     for call in (1, 2):
         np.testing.assert_array_equal(
             _same_on_every_rank(world2[f"ckpt_{call}"]), first)
+
+
+def _unsharded_value_and_grad(fn, theta):
+    t = torch.tensor(np.asarray(theta, np.float32), requires_grad=True)
+    e = fn(t)
+    e.sum().backward()
+    return e.detach().numpy(), t.grad.numpy()
+
+
+@pytest.mark.parametrize("key", ["vqe", "vqe_mc"])
+def test_vqe_energy_and_gradient_over_dp(world2, key):
+    """``make_hamiltonian_energy(mesh=)`` over dp = 2, exact and
+    stochastic (4000 LHS samples): energy, gradient and the energy after
+    one step of 0.1 along that gradient are the unsharded ones within
+    1e-6 on every rank; the step descends."""
+    ansatz, theta, terms, kw = VQE
+    energy, info = make_hamiltonian_energy(
+        to_port(ansatz), kw, terms, device="cpu",
+        **(VQE_MC if key == "vqe_mc" else {}))
+    e, g = _unsharded_value_and_grad(energy, theta)
+    got = _same_on_every_rank(world2[key])
+    grad = _same_on_every_rank(world2[key + "_grad"])
+    step = _same_on_every_rank(world2[key + "_step"])
+    assert int(world2[key + "_instances"]) == info.instances_per_step
+    assert abs(float(got) - float(e)) <= 1e-6
+    np.testing.assert_allclose(grad, g, atol=1e-6)
+    # the same step (the world's gradient) taken without the mesh
+    assert abs(float(step) - float(energy(theta - 0.1 * grad))) <= 1e-6
+    assert float(step) < float(got)
+    assert np.linalg.norm(grad) > 1e-3
+
+
+def test_population_over_dp(world2):
+    """5 candidates over dp = 2 (3 on rank 0, 2 on rank 1): every rank
+    holds all five energies and the unsharded gradient of their weighted
+    sum, within 1e-6."""
+    ansatz, _theta, terms, kw = POP
+    energy, _ = make_hamiltonian_energy(to_port(ansatz), kw, terms,
+                                        device="cpu")
+    weights = torch.arange(1.0, 6.0)
+    looped = torch.stack([energy(t) for t in torch.as_tensor(POP_THETAS)])
+    _e, g = _unsharded_value_and_grad(
+        lambda t: torch.stack([energy(x) for x in t]) * weights, POP_THETAS)
+    np.testing.assert_allclose(_same_on_every_rank(world2["pop"]),
+                               looped.detach().numpy(), atol=1e-6)
+    np.testing.assert_allclose(_same_on_every_rank(world2["pop_grad"]), g,
+                               atol=1e-6)
+
+
+def test_spsa_over_dp_reproduces_the_single_process_trajectory(world2):
+    """SPSA with 8 probes a step split over dp = 2 (the same int key on
+    every rank): theta, history and final energy of the single-process
+    run within 1e-5, identical on both ranks."""
+    ansatz, theta0, terms, kw = POP
+    energy, _ = make_hamiltonian_energy(to_port(ansatz), kw, terms,
+                                        device="cpu")
+    want = spsa_minimize(energy, theta0, device="cpu", **SPSA)
+    np.testing.assert_allclose(_same_on_every_rank(world2["spsa_theta"]),
+                               want.theta, atol=1e-5)
+    np.testing.assert_allclose(_same_on_every_rank(world2["spsa_history"]),
+                               want.history, atol=1e-5)
+    assert abs(float(_same_on_every_rank(world2["spsa_energy"])[0])
+               - want.energy) < 1e-5
 
 
 def test_a_failing_rank_fails_the_world_with_every_rank_quoted(tmp_path):

@@ -21,6 +21,13 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.convert impo
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
     sharded_fragment,
 )
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.hamiltonian import (  # noqa: E501
+    make_hamiltonian_energy,
+)
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.optim import (  # noqa: E501
+    population_energy,
+    spsa_minimize,
+)
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.qpd_sampling import (  # noqa: E501
     sampled_expectation_z,
     sampled_knit,
@@ -119,7 +126,8 @@ def world2(rank, size, payload) -> dict:
     """2 ranks: the dp-sharded sampled scan, the streamed scan's chunks
     over dp (banks off and on, and the kernel route's plain versions),
     the knit step at dp=2, the sharded engine's default (2 x 1) meshes,
-    and its checkpoints (:func:`_checkpoints`)."""
+    its checkpoints (:func:`_checkpoints`), and the variational path
+    over dp (:func:`variational`)."""
     out = {}
     mesh = make_mesh(2, device=CPU)
     qft = _virt(payload["qft7"])
@@ -151,6 +159,54 @@ def world2(rank, size, payload) -> dict:
                                    device=CPU)
     out["e2e_dp2"] = _every_rank(dist_.values)
     out.update(_checkpoints(rank, chain, payload["checkpoint_dir"]))
+    out.update(variational(mesh, payload["variational"]))
+    return out
+
+
+def _value_and_grad(fn, theta):
+    t = torch.tensor(np.asarray(theta, np.float32), requires_grad=True)
+    e = fn(t)
+    e.sum().backward()
+    return e.detach().numpy(), t.grad.numpy()
+
+
+def variational(mesh, payload) -> dict:
+    """The variational path over dp = 2 (the twins of the JAX package's
+    ``_dryrun_vqe_sharded`` and ``_dryrun_population_sharded``): the
+    exact and the stochastic VQE energy with ``mesh=`` (variant and
+    label rows split over dp) with their gradients and one descent step;
+    a population of 5 (not a multiple of dp) through
+    ``population_energy(mesh=)`` with the gradient of a weighted sum;
+    and SPSA with 8 probes a step over dp.  Every result from every
+    rank."""
+    out = {}
+    vqe = payload["vqe"]
+    for key, kw in (("vqe", {}), ("vqe_mc", vqe["sampled"])):
+        energy, info = make_hamiltonian_energy(
+            circuit_from_instructions(*vqe["ansatz"]), vqe["cut_kw"],
+            vqe["terms"], mesh=mesh, **kw)
+        e, g = _value_and_grad(energy, vqe["theta"])
+        out[key] = _every_rank(e)
+        out[key + "_grad"] = _every_rank(g)
+        out[key + "_step"] = _every_rank(
+            energy(vqe["theta"] - 0.1 * g).detach().numpy())
+        out[key + "_instances"] = np.asarray(info.instances_per_step)
+
+    pop = payload["population"]
+    energy, _ = make_hamiltonian_energy(
+        circuit_from_instructions(*pop["ansatz"]), pop["cut_kw"],
+        pop["terms"], device=CPU)
+    weights = torch.as_tensor(np.arange(1.0, 6.0, dtype=np.float32))
+    e, g = _value_and_grad(
+        lambda t: population_energy(energy, mesh)(t) * weights,
+        pop["thetas"])
+    out["pop"] = _every_rank(e / weights.numpy())
+    out["pop_grad"] = _every_rank(g)
+    res = spsa_minimize(energy, pop["theta0"], mesh=mesh, device=CPU,
+                        **pop["spsa"])
+    out["spsa_theta"] = _every_rank(res.theta)
+    out["spsa_history"] = _every_rank(res.history)
+    out["spsa_energy"] = _every_rank([res.energy])
     return out
 
 
