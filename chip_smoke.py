@@ -198,12 +198,35 @@ Phases (any failure exits non-zero without the result line):
              1e-6 of no mesh.  Each prints its times (build, first step,
              median steady step, idle share over two traced steps, peak
              memory) with the card;
-13. where the time goes — host build of the scan, the run without the
+13. front end — the cutter's host modules, feeding the kernels above
+             (no kernel of their own).  Right after the build: the
+             native cut solver built with g++ from native/cutsolver.cc
+             into build/ (timed), and ghz-40 P2 Q20, hwe-40 P2 Q21 and
+             sup-25 P2 Q13 re-solved from scratch by the port's Cutter,
+             each equal to its stored plan (every later cut of this
+             script is the native solver's too).  sup-20 through
+             to_qasm and from_qasm: the same instructions, the same plan,
+             engine="pallas" bit for bit.  BASELINE config #5: the seven
+             rows of benchmarks/topology_teleport_sweep.py (seed 7, the
+             reg rows drawn by models/graphs.py) with S, A, L, cut counts
+             and Q_p equal to topology_teleport_sweep.json, run by
+             engine="pallas" (teleport="execute" where a row teleports)
+             at fidelity >= 1 - 1e-6 and within 1e-6 of the record.
+             BASELINE config #1 (BV-5, P2 Q3, one wire cut) and bv-12 (P2
+             Q7, 46656 labels), exact.  ghz-20 (P2 Q11, teleports only):
+             teleport="execute" merges one 22-qubit fragment with no
+             vgate (kernel 4).  ghz-24 (P3 Q9, maxNQpdCuts=1,
+             maxNCuts=2): one teleport and one QPD cut, 26 qubits and
+             12 instantiations once expanded, exact (>= 1 - 1e-6) and
+             sampled (20000 lhs draws, control variate: >= 1 - 5e-3).
+             Each prints its launches (counted around its run), times,
+             idle share and peak memory with the card;
+14. where the time goes — host build of the scan, the run without the
              simplex projection, and a torch.profiler trace (device time
              by kernel, device idle share of the wall) for sup-20, ghz-24,
              hwe-40, qft-16 (there also the host's label sampling) and
              the two hwe-16 routes (lane table, upload, kernel, knit);
-14. report — one JSON line of kernels (launches, error, times, bound), the
+15. report — one JSON line of kernels (launches, error, times, bound), the
              card's name and power limit, and the contract's last line.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Details go to
@@ -3753,6 +3776,289 @@ def phase_optim_tfim16(report, card):
         raise RuntimeError(f"mesh of one differs: {out}")
 
 
+# ---------------------------------------------------------------------------
+# The cutter's front end: native solver, teleport execution, OpenQASM, zoo
+# (host modules that feed the kernels above; no kernel of their own)
+# ---------------------------------------------------------------------------
+
+FRONT_FID = 1 - 1e-6       # tests/test_teleport.py, tests/test_qasm.py
+SAMPLED_TELE_FID = 1 - 5e-3  # tests/test_teleport.py:164-178
+RECORD_TOL = 1e-6          # a sweep row's fidelity against its record
+TELE_SHOTS = 20000
+# the stored plans, re-solved: (plan, genCirc name, n, depth, cap, seed)
+STORED_SOLVES = [("ghz40_p2_q20", "ghz", 40, 1, 20, None),
+                 ("hwe40_d2_p2_q21", "hwe", 40, 2, 21, 0),
+                 ("sup25_p2_q13", "sup", 25, 1, 13, 0)]
+# benchmarks/topology_teleport_sweep.py's SWEEP (that script imports JAX):
+# (tag, genCirc name, n, depth, caps, maxNQpdCuts, maxNCuts), seed 7
+SWEEP_SEED = 7
+SWEEP = [
+    ("add6_sym", "add", 6, 1, [4, 4], 5, 5),
+    ("add6_hetero", "add", 6, 1, [5, 3], 5, 5),
+    ("ghz8_tele_only", "ghz", 8, 1, [6, 6], 0, 2),
+    ("add10_hetero", "add", 10, 1, [9, 5], 5, 5),
+    ("qaoa10_sym", "reg", 10, 1, [7, 7], 5, 5),
+    ("qaoa10_hetero", "reg", 10, 1, [8, 4], 5, 5),
+    ("erd10", "erd", 10, 1, [7, 7], 5, 5),
+]
+
+
+def _solved(circ, caps, **kw):
+    """A ``Cutter`` of ``circ`` over ``len(caps)`` partitions, solved by
+    the port (native solver), and the seconds the solve took."""
+    cutter = _port("cutter.cutter").Cutter(
+        circ, maxNPartitions=len(caps), maxNQubitsPerPartition=caps, **kw)
+    t0 = time.perf_counter()
+    if not cutter.solve():
+        raise RuntimeError(f"no cut plan for {circ.name} {caps} {kw}")
+    return cutter, time.perf_counter() - t0
+
+
+def _counted(fn):
+    """``fn()`` with the kernels' counts set to 0 just before and read
+    just after: (result, seconds, counts)."""
+    _reset_counts()
+    out, secs = _timed(fn)
+    return out, secs, _counts()
+
+
+def _front_run(label, circ, virt, card, **kw):
+    """The user's path: ``run_virtual_circuit(virt, **kw)`` on the card,
+    counted (cold), then warm with the peak memory, a device-only trace
+    of one more run, and the fidelity against the uncut oracle."""
+    run = _port("run").run_virtual_circuit
+    kw = dict(kw, device=DEV)
+    (dist, _), cold_s, counts = _counted(lambda: run(virt, **kw))
+    (_, _), warm_s, peak = _peak_run(lambda: run(virt, **kw))
+    prof = _profile(lambda: run(virt, **kw), cpu=False)
+    oracle = _port("ops.statevector").simulate_circuit(circ, device=DEV)
+    fid = _port("evaluate").hellinger_fidelity(oracle, dist)
+    out = {"card": card, "launches": counts, "cold_s": cold_s,
+           "warm_s": warm_s, "peak_gb": peak, "fidelity": fid,
+           "device_idle_share": prof["device_idle_share"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "device_ms_by_kernel": prof["device_ms_by_kernel"][:4]}
+    print(f"{label}: card={card} launches={counts} cold_s={cold_s:.4f} "
+          f"warm_s={warm_s!r} idle_share={out['device_idle_share']} "
+          f"peak_gb={peak:.4f} fidelity={fid!r}", flush=True)
+    return out
+
+
+def phase_native_solver(report, card):
+    """Build the native cut solver (``g++``, ``native/cutsolver.cc``,
+    into ``build/``) and re-solve three stored plans from scratch with
+    the port's ``Cutter``: each plan equal to the stored one."""
+    import platform
+
+    native = _port("cutter.native_solver")
+    signature = _port("cutter.solver").plan_signature
+    built = not native.library_path().exists()
+    _, build_s = _timed(native.load)
+    out = {"host": platform.node(), "built": built, "build_s": build_s,
+           "library": str(native.library_path().relative_to(ROOT)),
+           "solves": {}}
+    print(f"native_solver: host={out['host']} built={built} "
+          f"build_s={build_s:.3f} library={out['library']}", flush=True)
+    report["native_solver"] = out
+    for key, name, n, depth, cap, seed in STORED_SOLVES:
+        circ = _port("models.zoo").genCirc(name, n, depth, seed=seed)
+        cutter, secs = _solved(circ, [cap, cap], maxNQpdCuts=5, maxNCuts=5,
+                               maxCutsPerPartitions=5)
+        same = signature(cutter.plan) == signature(
+            _port("plans").load_plan(key))
+        out["solves"][key] = {"solve_s": secs, "equal_to_stored": same,
+                              "metrics": vars(cutter.plan.metrics)}
+        print(f"  {key}: solve_s={secs:.4f} on {out['host']} "
+              f"equal_to_stored={same}", flush=True)
+        if not same:
+            raise RuntimeError(f"native solve of {key} differs from the "
+                               "stored plan")
+
+
+def phase_teleport_sweep(report, card):
+    """BASELINE config #5: the seven rows of
+    benchmarks/topology_teleport_sweep.py cut by the port, their S, A, L,
+    cut counts and Q_p equal to topology_teleport_sweep.json, each
+    executed by ``engine="pallas"`` (``teleport="execute"`` where it has
+    teleport cuts) at fidelity >= 1 - 1e-6 and within 1e-6 of the
+    record."""
+    record = {r["config"]: r for r in json.loads(
+        (ROOT / "topology_teleport_sweep.json").read_text())["rows"]}
+    zoo = _port("models.zoo")
+    virtual = _port("virt.virtual_circuit").VirtualCircuit
+    rows, bad = {}, []
+    _reset_counts()
+    for tag, name, n, depth, caps, qpd, cuts in SWEEP:
+        circ = zoo.genCirc(name, n, depth, seed=SWEEP_SEED)
+        cutter, solve_s = _solved(circ, caps, maxNQpdCuts=qpd, maxNCuts=cuts,
+                                  maxCutsPerPartitions=cuts)
+        S, A, L, n_w, n_g, _, q_p, _, _ = cutter.getModelKeyResults()
+        tele = sum(1 for c in cutter.plan.cuts if c.teleport)
+        got = {"S": S, "A": A, "L": L, "wire": n_w, "gate": n_g,
+               "teleport": tele, "Q_p": list(q_p)}
+        want = {k: record[tag][k] for k in got}
+        mode = "execute" if tele else "qpd"
+        before = _counts()
+        (dist, _), run_s = _timed(lambda: _port("run").run_virtual_circuit(
+            virtual(cutter.getResultCircs()[3]), engine="pallas",
+            teleport=mode, device=DEV))
+        launches = {k: v - before[k] for k, v in _counts().items()}
+        fid = _port("evaluate").hellinger_fidelity(
+            _port("ops.statevector").simulate_circuit(circ, device=DEV),
+            dist)
+        rows[tag] = {**got, "teleport_mode": mode, "solve_s": solve_s,
+                     "run_s": run_s, "launches": launches, "fidelity": fid,
+                     "record_fidelity": record[tag]["fidelity"]}
+        print(f"  {tag}: {got} teleport={mode} solve_s={solve_s:.4f} "
+              f"run_s={run_s:.4f} launches={launches} fidelity={fid!r} "
+              f"(record {record[tag]['fidelity']})", flush=True)
+        if got != want:
+            bad.append(f"{tag}: {got} != record {want}")
+        if not (fid >= FRONT_FID
+                and abs(fid - record[tag]["fidelity"]) <= RECORD_TOL):
+            bad.append(f"{tag}: fidelity {fid!r}")
+    counts = _counts()
+    report["teleport_sweep"] = {"card": card, "rows": rows,
+                                "launches": counts}
+    print(f"teleport_sweep: card={card} launches={counts}", flush=True)
+    if bad:
+        raise RuntimeError("; ".join(bad))
+    if not counts["variant"] > 0:
+        raise RuntimeError(f"teleport_sweep launched {counts}")
+
+
+def phase_bv(report, card):
+    """BASELINE config #1, BV-5 (P2 Q3: one wire cut, S = 8), and bv-12
+    (P2 Q7: six gate cuts, 46656 labels, the scan on kernel 1), exact
+    through ``engine="pallas"`` at fidelity >= 1 - 1e-6."""
+    zoo = _port("models.zoo")
+    virtual = _port("virt.virtual_circuit").VirtualCircuit
+    out = {}
+    for label, n, cap, want in (("bv5", 5, 3, (1, 0, 8)),
+                                ("bv12", 12, 7, (0, 6, 46656))):
+        circ = zoo.genCirc("bv", n, 1)
+        cutter, solve_s = _solved(circ, [cap, cap])
+        m = cutter.plan.metrics
+        got = (m.n_wire_cuts, m.n_gate_cuts, m.S)
+        row = _front_run(f"bv {label}", circ,
+                         virtual(cutter.getResultCircs()[3]), card,
+                         engine="pallas")
+        row.update(solve_s=solve_s, wire_gate_S=got)
+        out[label] = row
+        if got != want:
+            raise RuntimeError(f"{label}: cuts and S {got} != {want}")
+        if not row["fidelity"] >= FRONT_FID:
+            raise RuntimeError(f"{label}: fidelity {row['fidelity']!r}")
+        if row["launches"] != _only(variant=row["launches"]["variant"]) \
+                or not row["launches"]["variant"] > 0:
+            raise RuntimeError(f"{label}: launched {row['launches']}")
+    report["bv"] = out
+
+
+def phase_teleport_ghz20(report, card):
+    """ghz-20, P2 Q11, teleports only (``maxNQpdCuts=0, maxNCuts=2``):
+    ``teleport="execute"`` merges both fragments into one 22-qubit
+    fragment with no vgate; exact at fidelity >= 1 - 1e-6."""
+    circ = _port("models.zoo").genCirc("ghz", 20, 1)
+    cutter, solve_s = _solved(circ, [11, 11], maxNQpdCuts=0, maxNCuts=2)
+    cut = cutter.getResultCircs()[3]
+    virt = _port("virt.virtual_circuit").VirtualCircuit
+    expanded = virt(_port("virt.teleport").expand_teleport_cuts(cut))
+    shape = [(f.name, expanded.programs[f.name].num_sim_qubits)
+             for f in expanded.fragments]
+    row = _front_run("teleport_ghz20", circ, virt(cut), card,
+                     engine="pallas", teleport="execute")
+    row.update(solve_s=solve_s, fragments=shape,
+               vgates=len(expanded.vgates))
+    report["teleport_ghz20"] = row
+    print(f"  fragments={shape} vgates={len(expanded.vgates)}", flush=True)
+    if shape != [("telegroup0", 22)] or expanded.vgates:
+        raise RuntimeError(f"teleport_ghz20: expanded into {shape}")
+    if not row["fidelity"] >= FRONT_FID:
+        raise RuntimeError(f"teleport_ghz20: fidelity {row['fidelity']!r}")
+    if not sum(row["launches"].values()) > 0:
+        raise RuntimeError("teleport_ghz20 launched no kernel")
+
+
+def phase_teleport_ghz24_p3(report, card):
+    """ghz-24, P3 Q9, one teleport and one QPD gate cut
+    (``maxNQpdCuts=1, maxNCuts=2``): 26 qubits once expanded, 12
+    instantiations; exact through ``engine="pallas"`` (>= 1 - 1e-6) and
+    through the sampled engine at tests/test_teleport.py's settings
+    (20000 shots, lhs, control variate: >= 1 - 5e-3)."""
+    circ = _port("models.zoo").genCirc("ghz", 24, 1)
+    cutter, solve_s = _solved(circ, [9, 9, 9], maxNQpdCuts=1, maxNCuts=2)
+    cut = cutter.getResultCircs()[3]
+    virt = _port("virt.virtual_circuit").VirtualCircuit
+    expanded = virt(_port("virt.teleport").expand_teleport_cuts(cut))
+    shape = [(f.name, expanded.programs[f.name].num_sim_qubits)
+             for f in expanded.fragments]
+    out = {"solve_s": solve_s, "fragments": shape,
+           "qubits": expanded._circuit.num_qubits,
+           "instantiations": expanded.total_instantiations()}
+    print(f"teleport_ghz24_p3: fragments={shape} qubits={out['qubits']} "
+          f"instantiations={out['instantiations']}", flush=True)
+    if (out["qubits"], out["instantiations"]) != (26, 12):
+        raise RuntimeError(f"teleport_ghz24_p3: expanded into {out}")
+    out["exact"] = _front_run("  exact", circ, virt(cut), card,
+                              engine="pallas", teleport="execute")
+    out["sampled"] = _front_run(
+        "  sampled", circ, virt(cut), card, engine="sampled",
+        teleport="execute", shots=TELE_SHOTS, sample_method="lhs",
+        sample_cv=True)
+    report["teleport_ghz24_p3"] = out
+    if not out["exact"]["fidelity"] >= FRONT_FID:
+        raise RuntimeError(f"ghz24_p3 exact: {out['exact']['fidelity']!r}")
+    if not out["sampled"]["fidelity"] >= SAMPLED_TELE_FID:
+        raise RuntimeError(
+            f"ghz24_p3 sampled: {out['sampled']['fidelity']!r}")
+    for leg in ("exact", "sampled"):
+        if not sum(out[leg]["launches"].values()) > 0:
+            raise RuntimeError(f"ghz24_p3 {leg} launched no kernel")
+
+
+def phase_qasm(circ, virt, report, card):
+    """sup-20 through ``to_qasm`` and back: the same instructions, the
+    same plan from the same ``Cutter`` settings, and an
+    ``engine="pallas"`` distribution equal to the original's bit for bit
+    (chunk 504)."""
+    import numpy as np
+
+    circuit = _port("circuit.circuit").Circuit
+    to_ins = _port("convert").circuit_to_instructions
+    text, to_s = _timed(circ.to_qasm)
+    back, from_s = _timed(lambda: circuit.from_qasm(text))
+    want, got = to_ins(circ), to_ins(back)
+    same_ins = (got[:2] == want[:2] and got[3] == want[3]
+                and got[2]["qregs"] == want[2]["qregs"]
+                and got[2]["cregs"] == want[2]["cregs"])
+    signature = _port("cutter.solver").plan_signature
+    kw = dict(maxNQpdCuts=5, maxNCuts=5, maxCutsPerPartitions=5)
+    cutter, _ = _solved(back, [10, 10], **kw)
+    same_plan = signature(cutter.plan) == signature(
+        _solved(circ, [10, 10], **kw)[0].plan)
+    run = _port("run").run_virtual_circuit
+    (dist, _), _, counts = _counted(lambda: run(
+        _port("virt.virtual_circuit").VirtualCircuit(
+            cutter.getResultCircs()[3]),
+        engine="pallas", chunk_size=CHUNK, device=DEV))
+    orig, _ = run(virt, engine="pallas", chunk_size=CHUNK, device=DEV)
+    equal = (dist.bit_positions == orig.bit_positions
+             and np.array_equal(dist.values, orig.values))
+    report["qasm"] = {"card": card, "chars": len(text), "to_qasm_s": to_s,
+                      "from_qasm_s": from_s, "same_instructions": same_ins,
+                      "same_plan": same_plan, "bit_equal": equal,
+                      "launches": counts}
+    print(f"qasm: card={card} chars={len(text)} to_qasm_s={to_s:.4f} "
+          f"from_qasm_s={from_s:.4f} same_instructions={same_ins} "
+          f"same_plan={same_plan} bit_equal={equal} launches={counts}",
+          flush=True)
+    if not (same_ins and same_plan and equal):
+        raise RuntimeError("qasm round trip differs")
+    if counts != _only(variant=counts["variant"]) or not counts["variant"]:
+        raise RuntimeError(f"qasm: launched {counts}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3811,6 +4117,8 @@ def main() -> int:
     if failed:
         print("chip_smoke FAILED: " + "; ".join(failed), file=sys.stderr)
         return 1
+    # the cut solver first: its build is timed here, before any cut
+    phase("native_solver", phase_native_solver, report, card)
     cuts = {}
 
     def cut(key, *args, build=_cut, **kw):
@@ -3833,6 +4141,7 @@ def main() -> int:
         phase("sampled_sup20", phase_sampled_sup20, virt, report)
         phase("main_sharded_sup20", phase_main_sharded_sup20, circ, virt,
               report, card)
+        phase("qasm", phase_qasm, circ, virt, report, card)
     if cut("wide26", build=_wide_cut):
         phase("sharded_wide26", phase_sharded_wide26, cuts["wide26"][1],
               report, card)
@@ -3939,6 +4248,10 @@ def main() -> int:
     del tfim20
     phase("sweep_tfim20_bind", phase_sweep_tfim20_bind, report, card)
     phase("optim_tfim16", phase_optim_tfim16, report, card)
+    phase("teleport_sweep", phase_teleport_sweep, report, card)
+    phase("bv", phase_bv, report, card)
+    phase("teleport_ghz20", phase_teleport_ghz20, report, card)
+    phase("teleport_ghz24_p3", phase_teleport_ghz24_p3, report, card)
     if "sup20" in cuts:
         circ, virt = cuts["sup20"]
         phase("sv_sup20", phase_sv, "sup20", virt, report)

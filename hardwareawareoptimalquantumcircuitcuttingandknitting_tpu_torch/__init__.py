@@ -10,12 +10,17 @@ scan without a kernel, the batched ``engine="xla"``, the
 ``engine="sampled"`` Monte-Carlo path and the ``engine="sharded"``
 variant x amplitude co-sharding):
   circuit/   — typed circuit IR + gate library; routing onto a device
-               coupling map (routing.py)
-  models/    — supremacy, Sycamore, hardware-efficient-ansatz, QFT / AQFT,
-               GHZ and QAOA (qaoa.py) generators
-  cutter/    — optimal joint wire+gate cut search (pure-Python solver; the
-               angle-aware gamma search) and the rewrite into fragments
-  virt/      — QPD virtual-gate tables and fragment bookkeeping
+               coupling map (routing.py); OpenQASM 2.0 in and out (qasm.py)
+  models/    — the benchmark zoo (zoo.py: supremacy, Sycamore, hardware-
+               efficient ansatz, QFT / AQFT, GHZ, BV, adder, random,
+               EfficientSU2, QAOA on random regular and Erdős–Rényi graphs
+               drawn by graphs.py) and the qcg generators (generators.py)
+  cutter/    — optimal joint wire+gate cut search (the native C++ solver,
+               native_solver.py, built with g++ at first use; the
+               pure-Python search; the angle-aware gamma search) and the
+               rewrite into fragments
+  virt/      — QPD virtual-gate tables and fragment bookkeeping; teleport
+               cuts expanded into EPR gadgets (teleport.py)
   plans/     — stored cut plans (solve once, cut many)
   ops/       — the variant kernel (csrc/variant_kernel.cu, fragments of up
                to 20 qubits), the segmented blocked kernel

@@ -263,20 +263,16 @@ class Circuit:
     # ------------------------------------------------------------ interchange
     @classmethod
     def from_qasm(cls, text: str) -> "Circuit":
-        """Parse OpenQASM 2.0.  Not ported yet: ROADMAP H100 port, queue A,
-        ``circuit/qasm.py``."""
-        raise NotImplementedError(
-            "circuit/qasm.py is not ported to the torch package yet: "
-            "ROADMAP H100 port, queue A, 'qasm.py'"
-        )
+        """Parse OpenQASM 2.0 (see :mod:`..circuit.qasm` for the subset)."""
+        from .qasm import from_qasm
+
+        return from_qasm(text)
 
     def to_qasm(self) -> str:
-        """Serialize to OpenQASM 2.0.  Not ported yet: ROADMAP H100 port,
-        queue A, ``circuit/qasm.py``."""
-        raise NotImplementedError(
-            "circuit/qasm.py is not ported to the torch package yet: "
-            "ROADMAP H100 port, queue A, 'qasm.py'"
-        )
+        """Serialize to OpenQASM 2.0 (uncut circuits only)."""
+        from .qasm import to_qasm
+
+        return to_qasm(self)
 
     # ------------------------------------------------------------ transforms
     def copy(self) -> "Circuit":

@@ -342,12 +342,18 @@ def plan_signature(plan: CutPlan) -> tuple:
 
 
 def solve(graph: CutGraph, cfg: SolverConfig) -> CutPlan | None:
-    """Solve with the angle-aware gamma search (``cfg.gamma_mode``,
-    cutter/gamma.py) or the pure-Python parity search.  The native C++
-    solver is not ported yet (ROADMAP "H100 port", queue A: native
-    solver)."""
+    """Solve with the native C++ solver (cutter/native_solver.py, built
+    at first use), or the pure-Python search where the native one does
+    not apply: gamma mode, no vertices, excluded plans or a custom cost
+    model.  A failed build of the native solver raises RuntimeError."""
     if cfg.gamma_mode:
         from .gamma import solve_gamma
 
         return solve_gamma(graph, cfg)
+    if graph.num_vertices == 0:
+        return solve_python(graph, cfg)  # trivial cut-free plan
+    if not cfg.exclude and cfg.has_default_costs():
+        from .native_solver import solve_native
+
+        return solve_native(graph, cfg)
     return solve_python(graph, cfg)

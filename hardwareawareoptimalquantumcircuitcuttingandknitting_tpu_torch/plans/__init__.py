@@ -1,8 +1,9 @@
 """Stored cut plans: solve once, cut many.
 
-The pure-Python cut search takes minutes on wide circuits, so a plan that
-a deployment reuses is solved once, saved with ``Cutter.save_plan`` as a
-JSON file beside this module, and adopted with ``Cutter.use_plan``:
+A plan that a deployment reuses is solved once, saved with
+``Cutter.save_plan`` as a JSON file beside this module, and adopted with
+``Cutter.use_plan`` (the native solver takes about a second on hwe-40,
+the pure-Python search minutes):
 
 * ``hwe40_d2_p2_q21`` — ``genCirc("hwe", 40, 2, seed=0)`` cut into 2
   partitions of at most 21 qubits (``maxNQpdCuts = maxNCuts =
@@ -20,9 +21,9 @@ JSON file beside this module, and adopted with ``Cutter.use_plan``:
 * ``sup25_p2_q13`` — ``genCirc("sup", 25, 1, seed=0)`` cut into 2
   partitions of at most 13 qubits (the same three limits at 5): four cz
   gate cuts and one wire cut, 10368 labels, fragments of 18 and 17
-  simulated qubits — the streamed engine's configuration (the port's
-  solver takes some 12 s on it).  The supremacy circuit's single-qubit
-  gates do not enter the plan.
+  simulated qubits — the streamed engine's configuration (the
+  pure-Python search takes some 12 s on it).  The supremacy circuit's
+  single-qubit gates do not enter the plan.
 """
 from __future__ import annotations
 

@@ -69,14 +69,6 @@ from .virt.virtual_circuit import VirtualCircuit
 # threshold).
 AUTO_STREAM_LABELS = 16384
 
-# keywords of the JAX package that are not ported: (JAX default, the
-# ROADMAP item that ports them).  Their defaults give the JAX result.
-_NOT_PORTED_KW = {
-    "tracer": (None, "ROADMAP H100 port, queue A, item 10 (tracing)"),
-    "teleport": ("qpd", "ROADMAP H100 port, queue A, item 4 (Teleport "
-                        "execution)"),
-}
-
 
 @dataclass
 class RunTimeInfo:
@@ -231,22 +223,31 @@ def run_virtual_circuit(
     on another engine.  Refused by this package, with ValueError: a
     ``dtype`` other than float32 on "pallas" (the kernels are float32;
     use "streamed").  Not ported, NotImplementedError naming the ROADMAP
-    item: ``tracer`` and ``teleport="execute"``.  Their JAX defaults
-    (None, "qpd") give the JAX result.  Noisy execution goes
+    item: ``tracer``; its JAX default (None) gives the JAX result.
+
+    ``teleport``: "qpd" (the default, the reference's behaviour:
+    teleport-flagged cuts execute through the QPD route) or "execute":
+    teleport cuts are expanded into the EPR-gadget protocol
+    (virt/teleport.py), the fragments they connect merge into one, and
+    the result is the run of that circuit on the engine asked for, as in
+    the JAX package.  Noisy execution goes
     through ``ops.noise.run_noisy_virtual_circuit``, as in the JAX package
     (no ``noise`` keyword here)."""
     if teleport not in ("qpd", "execute"):
         raise ValueError(f"unknown teleport mode {teleport!r}")
-    given = {"tracer": tracer, "teleport": teleport}
-    for name, (default, item) in _NOT_PORTED_KW.items():
-        if given[name] != default:
-            raise NotImplementedError(
-                f"{name}={given[name]!r} is not ported to the torch package "
-                f"yet: {item}"
-            )
+    if tracer is not None:
+        raise NotImplementedError(
+            f"tracer={tracer!r} is not ported to the torch package yet: "
+            "ROADMAP H100 port, queue A, item 10 (tracing)"
+        )
     if engine not in ("auto", "xla", "streamed", "pallas", "sampled",
                       "sharded"):
         raise ValueError(f"unknown engine {engine!r}")
+    if teleport == "execute":
+        from .virt.teleport import expand_teleport_cuts, has_teleport_cuts
+
+        if has_teleport_cuts(virt._circuit):
+            virt = VirtualCircuit(expand_teleport_cuts(virt._circuit))
     if trunc_eps and engine not in ("auto", "streamed"):
         raise ValueError(
             "trunc_eps (certified truncation) is a streamed-engine "

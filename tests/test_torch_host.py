@@ -180,15 +180,25 @@ def test_convert_rejects_register_mismatch():
 
 
 def test_port_refuses_what_it_does_not_carry():
-    """Unported generators, qasm and the parity solver's teleport-free
-    twin say which ROADMAP item ports them."""
-    with pytest.raises(NotImplementedError, match="zoo generators"):
-        t_gen_circ("bv", 8, 1)
-    with pytest.raises(NotImplementedError, match="zoo generators"):
-        t_generate_circ(8, 1, "adder")
+    """What the port still refuses: ``tracer`` names its ROADMAP item; a
+    cut circuit has no OpenQASM 2 spelling (JAX's ValueError).  The zoo,
+    qasm and teleport execution are ported."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.run import (  # noqa: E501
+        run_virtual_circuit,
+    )
+
     circ = t_gen_circ("ghz", 4, 1)
-    with pytest.raises(NotImplementedError, match="qasm"):
-        circ.to_qasm()
+    assert t_gen_circ("bv", 8, 1).num_qubits == 8
+    assert t_generate_circ(8, 1, "adder").num_qubits == 8
+    assert circ.to_qasm().startswith("OPENQASM 2.0;")
+    cutter = TCutter(circ, maxNPartitions=2, maxNQubitsPerPartition=3)
+    assert cutter.solve()
+    cut = cutter.getResultCircs()[3]
+    with pytest.raises(ValueError, match="not representable"):
+        cut.to_qasm()
+    with pytest.raises(NotImplementedError, match="queue A, item 10"):
+        run_virtual_circuit(TVirtualCircuit(cut), device="cpu",
+                            tracer=object())
 
 
 @pytest.mark.parametrize("name,n", [("qft", 9), ("qft", 16), ("aqft", 8),

@@ -1,4 +1,5 @@
-"""The torch port imports no JAX and nothing of the JAX package."""
+"""The torch port imports no JAX and nothing of the JAX package, and no
+networkx (the card's machine has none)."""
 import ast
 import pathlib
 import subprocess
@@ -26,6 +27,7 @@ def test_importing_every_port_module_loads_no_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'jaxlib' "
+        "or m.split('.')[0] == 'networkx' "
         f"or m == {JAX_PKG!r} or m.startswith({JAX_PKG + '.'!r}))\n"
         "print(len(sys.modules), bad)\n"
         "assert not bad, bad\n"
@@ -41,6 +43,19 @@ def test_variational_modules_are_checked():
     names = {name for _, name in _port_modules()}
     for mod in ("ops.sweep", "ops.hamiltonian", "ops.optim",
                 "models.qaoa"):
+        assert f"{PORT}.{mod}" in names, mod
+
+
+def test_front_end_modules_are_checked():
+    """The cutter's front end (native solver, teleport execution,
+    OpenQASM, the zoo and its graphs) is among the modules the checks
+    here import and read."""
+    names = {name for _, name in _port_modules()}
+    for mod in ("cutter.native_solver", "virt.teleport", "circuit.qasm",
+                "models.graphs", "models.zoo", "models.generators",
+                "models.bv", "models.adder", "models.random_circuit",
+                "models.su2", "models.dynamics", "models.qwalk",
+                "models.uccsd"):
         assert f"{PORT}.{mod}" in names, mod
 
 
@@ -67,11 +82,15 @@ def test_port_sources_name_no_jax_import():
 
 
 def test_port_has_no_networkx_dependency():
-    """The card's machine has no networkx: the port's zoo must not need
-    it."""
+    """The card's machine has no networkx: neither the port (its zoo
+    draws the QAOA graphs in ``models/graphs.py``) nor the smoke script
+    may import it, nor name it to ``importlib``."""
+    files = [p for p, _ in _port_modules()] + [ROOT / "chip_smoke.py"]
     offending = [
-        str(p.relative_to(ROOT)) for p, _ in _port_modules()
+        str(p.relative_to(ROOT)) for p in files
         if any(n.split(".")[0] == "networkx" for n in _imported_names(p))
+        or "import_module(\"networkx" in p.read_text()
+        or "import_module('networkx" in p.read_text()
     ]
     assert not offending, offending
 
@@ -100,8 +119,9 @@ def test_stored_plans_load_without_jax():
 
 
 def test_kernel_libraries_build_nothing_at_import():
-    """Every CUDA source the port binds exists in the checkout, and
-    importing the modules starts no compiler and loads no library."""
+    """Every CUDA source the port binds, and the native cut solver's C++
+    source, exist in the checkout, and importing the modules starts no
+    compiler and loads no library."""
     code = (
         "import subprocess\n"
         "def refuse(*a, **k):\n"
@@ -114,6 +134,9 @@ def test_kernel_libraries_build_nothing_at_import():
         "    lib = mod.LIBRARY\n"
         "    assert lib.source.is_file(), lib.source\n"
         "    assert lib.lib is None and lib.path is None\n"
+        f"from {PORT}.cutter import native_solver\n"
+        "assert native_solver.SOURCE.is_file(), native_solver.SOURCE\n"
+        "assert native_solver._lib is None\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=300)

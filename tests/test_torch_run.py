@@ -368,7 +368,7 @@ _JAX_KEYWORDS = {
     "checkpoint_dir": (None, "ckpt", None),
     "max_local_qubits": (None, 4, None),
     "trunc_eps": (0.0, 0.01, None),
-    "teleport": ("qpd", "execute", "item 4 \\(Teleport execution\\)"),
+    "teleport": ("qpd", "execute", None),
 }
 
 
@@ -385,7 +385,7 @@ def test_jax_keywords_default_or_refused(name, case, tmp_path):
     carry checkpoint gives JAX's result) and ``trunc_eps``, which
     ``engine="pallas"`` refuses with JAX's ValueError; since the sharded
     engine landed, ``max_local_qubits`` (``engine="sharded"`` as
-    JAX's)."""
+    JAX's); since teleport execution landed, ``teleport="execute"``."""
     jc, tc, jv, tv, chunk = _pair("ghz10_p2q5")
     default, other, item = _JAX_KEYWORDS[name]
     if case == "unknown":
@@ -414,6 +414,14 @@ def test_jax_keywords_default_or_refused(name, case, tmp_path):
                                      device="cpu",
                                      checkpoint_dir=tmp_path / "port")
         assert (tmp_path / "port" / "stream_carry.npz").exists()
+        np.testing.assert_allclose(got.values, want.values, atol=1e-6)
+        return
+    if case == "refused" and name == "teleport":
+        want, _ = j_run(jv, engine="pallas", chunk_size=chunk,
+                        teleport=other)
+        got, _ = run_virtual_circuit(tv, engine="pallas", chunk_size=chunk,
+                                     device="cpu", teleport=other)
+        assert got.bit_positions == want.bit_positions
         np.testing.assert_allclose(got.values, want.values, atol=1e-6)
         return
     if case == "refused":
