@@ -221,12 +221,42 @@ Phases (any failure exits non-zero without the result line):
              sampled (20000 lhs draws, control variate: >= 1 - 5e-3).
              Each prints its launches (counted around its run), times,
              idle share and peak memory with the card;
-14. where the time goes — host build of the scan, the run without the
+14. last modules — the host modules that feed kernels 1-2 (no kernel of
+             their own).  BASELINE config #4 (sycamore-32, seed 0):
+             depth 1 (P2 Q20, no cut, fragments of 18 and 14 qubits) on
+             the 8-clbit marginal {0..7} and depth 3 (stored plan
+             plans/syc32_d3_p2_q17.json: 4 gate cuts, 1296 labels, two
+             20-qubit fragments, kernel 1's global-memory path) on
+             {0, 1, 2, 3}, through run_virtual_circuit(engine="pallas",
+             keep_clbits=...), each within 1e-5 of lightcone_marginal on
+             the card.  compile_circuit(standard_pipeline(10), sup-20,
+             5) and (standard_pipeline(12), ghz-24, 5) under
+             random.seed(0): the JAX package's fragment widths and
+             vgates, the PassLedger's stages, engine="pallas" at
+             fidelity > 1 - 1e-5.  ghz-24 (P2 Q12): 20000 shots a row
+             from sampled_sparse_fragment_rows (kernel 2's full rows,
+             each fragment's first and last chunk held to the plain
+             version within 1e-5), sparse_knit, fidelity > 0.99 to the
+             analytic GHZ distribution.  sup-20 under a Tracer on engine="pallas"
+             and "xla": the JAX package's phase names, the traced result
+             bit for bit the untraced one, the walls side by side, a
+             torch.profiler trace written under profiles/.  The
+             roofline (ops/roofline.py at the H100's 3.35 TB/s) of
+             sup-20, sup-25 and hwe-40 beside their measured warm times,
+             and kernel 1's sup-20 chunk beside work_counts.  The lane
+             engine on sup-20 frag0's first 504 labels within 1e-5 of
+             make_sim_fn's rows, both timed.  transpile_to_basis /
+             count_cnots of sup-20 and a circuit a fragment, the
+             transpiled sup-20 cut and run against the untranspiled
+             oracle (> 1 - 1e-5), circuit_n_tangle(ghz-24) = 1 within
+             1e-5, and the PipelineConfig JSON -> make_cutter -> run ->
+             run directory flow into benchmark_results/;
+15. where the time goes — host build of the scan, the run without the
              simplex projection, and a torch.profiler trace (device time
              by kernel, device idle share of the wall) for sup-20, ghz-24,
              hwe-40, qft-16 (there also the host's label sampling) and
              the two hwe-16 routes (lane table, upload, kernel, knit);
-15. report — one JSON line of kernels (launches, error, times, bound), the
+16. report — one JSON line of kernels (launches, error, times, bound), the
              card's name and power limit, and the contract's last line.
 
 Run from the repository root: ``python3 chip_smoke.py``.  Details go to
@@ -250,7 +280,6 @@ REL_TOL = 1e-4       # the same, over the largest entry (dense 2^22 rows)
 FID_MIN = 1 - 1e-5   # cut-vs-uncut oracle on the exact path
 CHUNK = 504
 DEV = "cuda"
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_F32 = 67e12      # H100 SXM f32 outside the tensor cores, FLOP/s
 TPU_KERNEL = ("hardwareawareoptimalquantumcircuitcuttingandknitting_tpu/"
               "ops/pallas_variant.py:577")
@@ -490,7 +519,8 @@ def phase_kernel(virt, report):
 
 def _bound(work):
     """(bound_ms, bound_by) of a work count on one H100."""
-    t_bytes = work["bytes"] / PEAK_BYTES * 1e3
+    peak_bytes = _port("ops.roofline").H100_HBM_BYTES_PER_S
+    t_bytes = work["bytes"] / peak_bytes * 1e3
     t_ops = work["flops"] / PEAK_F32 * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -4058,6 +4088,389 @@ def phase_qasm(circ, virt, report, card):
     if counts != _only(variant=counts["variant"]) or not counts["variant"]:
         raise RuntimeError(f"qasm: launched {counts}")
 
+# ---------------------------------------------------------------------------
+# The last modules (no kernel of their own): the lightcone oracle and
+# BASELINE config #4, the compiler, the sparse knit, the tracer, the
+# roofline, the lane engine and the host tools
+# ---------------------------------------------------------------------------
+
+SYC_D1_KEEP = list(range(8))
+SYC_D3_KEEP = [0, 1, 2, 3]
+SPARSE_SHOTS = 20000
+SPARSE_FID = 0.99
+COMPILE_BUDGET = 5
+# standard_pipeline under random.seed(0) (ghz-24 takes the KL bisection,
+# which draws from it): genCirc args, size, fragment sim widths and
+# vgates as the JAX package gives them (tests/test_torch_compiler.py)
+COMPILES = {"sup20": (("sup", 20, 1, 0), 10, [15, 15], 5),
+            "ghz24": (("ghz", 24, 1, None), 12, [4, 6, 5, 7, 6, 6], 5)}
+PROFILE_DIR = ROOT / "profiles" / "tracer"
+
+
+def _syc32(label, depth, cap, keep, card, stored_plan=None):
+    """genCirc("syc", 32, depth, seed=0) cut at P2 Q``cap`` (solved, or a
+    stored plan), its marginal on ``keep`` through
+    run_virtual_circuit(engine="pallas", keep_clbits=...) counted (cold),
+    warm with the peak memory and a device-only trace, held to
+    lightcone_marginal on the card."""
+    lc = _port("circuit.lightcone")
+    run = _port("run").run_virtual_circuit
+    (circ, virt), cut_s = _timed(lambda: _cut(
+        "syc", 32, cap, 0, depth=depth, stored_plan=stored_plan))
+    kw = dict(engine="pallas", keep_clbits=keep, device=DEV)
+    (marg, _), cold_s, counts = _counted(lambda: run(virt, **kw))
+    (again, _), warm_s, peak = _peak_run(lambda: run(virt, **kw))
+    prof = _profile(lambda: run(virt, **kw), cpu=False)
+    sub, cmap = lc.lightcone_circuit(circ, set(keep))
+    oracle, oracle_s = _timed(lambda: lc.lightcone_marginal(
+        circ, set(keep), precomputed=(sub, cmap), device=DEV))
+    err = float(abs(marg.values - oracle.values).max())
+    labels = 1
+    for vg in virt.vgates:
+        labels *= vg.spec.num_instantiations
+    out = {"card": card, "cut_s": cut_s, "labels": labels,
+           "vgates": len(virt.vgates),
+           "fragment_sim_qubits": [virt.programs[r.name].num_sim_qubits
+                                   for r in virt.fragments],
+           "keep": keep, "launches": counts, "cold_s": cold_s,
+           "warm_s": warm_s, "peak_gb": peak,
+           "device_idle_share": prof["device_idle_share"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "device_ms_by_kernel": prof["device_ms_by_kernel"][:4],
+           "lightcone_qubits": sub.num_qubits, "oracle_s": oracle_s,
+           "max_abs_err": err,
+           "rerun_equal": bool((again.values == marg.values).all())}
+    print(f"syc32 {label}: card={card} labels={labels} fragment_sim_qubits="
+          f"{out['fragment_sim_qubits']} launches={counts} cold_s="
+          f"{cold_s:.4f} warm_s={warm_s!r} idle_share="
+          f"{out['device_idle_share']} peak_gb={peak:.4f} lightcone_qubits="
+          f"{sub.num_qubits} oracle_s={oracle_s:.4f} max_abs_err={err:.3e}",
+          flush=True)
+    if marg.bit_positions != oracle.bit_positions:
+        raise RuntimeError(f"syc32 {label}: positions {marg.bit_positions}")
+    if counts != _only(variant=counts["variant"]) or not counts["variant"]:
+        raise RuntimeError(f"syc32 {label}: launched {counts}")
+    if not err <= TOL:
+        raise RuntimeError(f"syc32 {label}: {err:.3e} from the lightcone "
+                           f"oracle > {TOL}")
+    return out
+
+
+def phase_syc32_lightcone(report, card):
+    """BASELINE config #4 (sycamore-32) at full width: depth 1 (P2 Q20, no
+    cut: fragments of 18 and 14 qubits) on an 8-clbit marginal, depth 3
+    (the stored plan, 4 gate cuts, two 20-qubit fragments: kernel 1's
+    global-memory path) on a 4-clbit marginal, each within 1e-5 of the
+    lightcone oracle."""
+    report["syc32_lightcone"] = {
+        "d1": _syc32("d1", 1, 20, SYC_D1_KEEP, card),
+        "d3": _syc32("d3", 3, 17, SYC_D3_KEEP, card,
+                     stored_plan="syc32_d3_p2_q17"),
+    }
+
+
+def phase_compiler(report, card):
+    """compile_circuit(standard_pipeline(q), circuit, 5) for sup-20 and
+    ghz-24 (random.seed(0)), each run through engine="pallas" against the
+    uncut oracle; fragment widths and vgates as the JAX package's."""
+    import random
+
+    comp = _port("compiler.compiler")
+    zoo = _port("models.zoo")
+    out = {}
+    for key, ((kind, n, depth, seed), size, widths, vgates) in \
+            COMPILES.items():
+        circ = zoo.genCirc(kind, n, depth, seed=seed)
+        random.seed(0)
+        t0 = time.perf_counter()
+        virt, ledger = comp.compile_circuit(comp.standard_pipeline(size),
+                                            circ, COMPILE_BUDGET)
+        compile_s = time.perf_counter() - t0
+        row = _front_run(f"compiler {key}", circ, virt, card,
+                         engine="pallas")
+        got = [virt.programs[r.name].num_sim_qubits for r in virt.fragments]
+        row.update(compile_s=compile_s, fragment_sim_qubits=got,
+                   vgates=len(virt.vgates), stages=[
+                       {"pass": r.pass_name, "budget_before": r.budget_before,
+                        "vgates_added": r.vgates_added,
+                        "host_s": r.seconds} for r in ledger.records])
+        out[key] = row
+        print(f"compiler {key}: compile_s={compile_s:.4f} widths={got} "
+              f"vgates={len(virt.vgates)} stages={row['stages']}",
+              flush=True)
+        if got != widths or len(virt.vgates) != vgates:
+            raise RuntimeError(f"compiler {key}: {got} / {len(virt.vgates)}"
+                               f" vgates, expected {widths} / {vgates}")
+        if row["launches"] != _only(variant=row["launches"]["variant"]) \
+                or not row["launches"]["variant"]:
+            raise RuntimeError(f"compiler {key}: launched {row['launches']}")
+        if not row["fidelity"] > FID_MIN:
+            raise RuntimeError(f"compiler {key}: fidelity {row['fidelity']!r}")
+    report["compiler"] = out
+
+
+def _sparse_rows_err(virt, chunk_size=256):
+    """Kernel 2's full rows against the plain version at the launch shapes
+    of sampled_sparse_fragment_rows (its default chunk_size): each
+    fragment's first and last chunk, labelled as that function labels
+    them.  Returns (max abs err, [(fragment, chunk, chunks)])."""
+    import torch
+
+    ve = _port("ops.variant_engine")
+    vk = _port("ops.variant_kernel")
+    specs = [vg.spec for vg in virt.vgates]
+    err, shapes = 0.0, []
+    for reg in virt.fragments:
+        prog = virt.programs[reg.name]
+        if not prog.slots:
+            continue
+        strides, n_inst, flat = ve.label_strides(specs, prog.touching)
+        chunk = min(chunk_size, flat, ve.chunk_cap(prog.num_sim_qubits))
+        n_chunks = -(-flat // chunk)
+        vidx = torch.as_tensor(ve.variant_index_table(
+            prog.touching, strides, n_inst, n_chunks * chunk,
+            clamp_to=flat), dtype=torch.int64, device=DEV)
+        rows_fn = vk.make_chunk_kernel(virt, reg.name, chunk, device=DEV)[0]
+        dp, ones = rows_fn.plan, rows_fn.weigh
+        cols = torch.as_tensor(list(prog.touching), dtype=torch.int64,
+                               device=DEV)
+        for i in sorted({0, n_chunks - 1}):
+            lab = torch.zeros((chunk, len(specs)), dtype=torch.int64,
+                              device=DEV)
+            lab[:, cols] = vidx[i * chunk:(i + 1) * chunk]
+            got = vk.label_rows(dp, lab, ones)
+            want = vk.plain_variant_rows(dp, dp.gather_entries(lab),
+                                         ones(lab))
+            err = max(err, (got - want).abs().max().item())
+        shapes.append((reg.name, chunk, n_chunks))
+    return err, shapes
+
+
+def phase_sparse_knit(circ, virt, report, card):
+    """ghz-24 (P2 Q12): sampled_sparse_fragment_rows at 20000 shots a row
+    (seed 11 + i, kernel 2's full rows), then sparse_knit(rows=) and the
+    projection, against the analytic GHZ distribution; kernel 2's rows
+    against the plain version at this path's chunks."""
+    sk = _port("virt.sparse_knit")
+    fidelity = _port("evaluate").hellinger_fidelity
+
+    def rows():
+        return {reg.name: sk.sampled_sparse_fragment_rows(
+            virt, reg.name, shots=SPARSE_SHOTS, seed=11 + i, device=DEV)
+            for i, reg in enumerate(virt.fragments)}
+
+    got, cold_s, counts = _counted(rows)
+    _, rows_s = _timed(rows)
+    q, knit_s = _timed(lambda: sk.sparse_knit(virt, rows=got)
+                       .nearest_probability_distribution())
+    ones = sum(1 << c for ins in circ.instructions if ins.name == "measure"
+               for c in ins.clbits)
+    fid = fidelity(q.to_dict(), {0: 0.5, ones: 0.5})
+    rows_err, shapes = _sparse_rows_err(virt)
+    out = {"card": card, "shots": SPARSE_SHOTS, "launches": counts,
+           "rows_cold_s": cold_s, "rows_s": rows_s, "knit_s": knit_s,
+           "keys": len(q), "fidelity": fid,
+           "full_rows_max_abs_err_at_path_chunks": rows_err,
+           "chunks": shapes}
+    report["sparse_knit"] = out
+    print(f"sparse_knit ghz24: card={card} launches={counts} rows_cold_s="
+          f"{cold_s:.4f} rows_s={rows_s:.4f} knit_s={knit_s:.4f} keys="
+          f"{len(q)} fidelity={fid!r} full rows vs plain at (fragment, "
+          f"chunk, chunks) {shapes}: {rows_err:.3e}", flush=True)
+    if counts != _only(variant=counts["variant"]) or not counts["variant"]:
+        raise RuntimeError(f"sparse_knit: launched {counts}")
+    if not rows_err <= TOL:
+        raise RuntimeError(f"sparse_knit: full rows vs plain {rows_err:.3e}"
+                           f" > {TOL}")
+    if not fid > SPARSE_FID:
+        raise RuntimeError(f"sparse_knit: fidelity {fid!r} <= {SPARSE_FID}")
+
+
+def phase_tracer(circ, virt, report, card):
+    """sup-20 under engine="pallas" and "xla" with a Tracer: the JAX
+    package's phase names, the traced result equal to the untraced one
+    bit for bit, warm walls side by side; on "xla" a Tracer with a
+    profile_dir writes its torch.profiler trace."""
+    prof = _port("utils.profiling")
+    run = _port("run").run_virtual_circuit
+    out = {"card": card}
+    for engine, names in (("pallas", ["stream_sim_knit"]),
+                          ("xla", ["simulate", "knit", "project"])):
+        kw = dict(engine=engine, chunk_size=CHUNK, device=DEV)
+        run(virt, **kw)
+        (plain, _), untraced_s = _timed(lambda: run(virt, **kw))
+        tracer = prof.Tracer()
+        (traced, _), traced_s = _timed(lambda: run(virt, tracer=tracer,
+                                                   **kw))
+        row = {"untraced_s": untraced_s, "traced_s": traced_s,
+               "phases": tracer.report()["phases"]}
+        if [p.name for p in tracer.phases] != names:
+            raise RuntimeError(f"tracer {engine}: phases {tracer.phases}")
+        if not (plain.values == traced.values).all():
+            raise RuntimeError(f"tracer {engine}: traced result differs")
+        if engine == "xla":
+            pt = prof.Tracer(profile_dir=str(PROFILE_DIR))
+            _, row["profiled_s"] = _timed(lambda: run(virt, tracer=pt,
+                                                      **kw))
+            trace = pathlib.Path(pt.traces[0])
+            row["trace_mb"] = trace.stat().st_size / 1e6
+            row["trace"] = str(trace.relative_to(ROOT))
+        out[engine] = row
+        print(f"tracer {engine}: card={card} untraced_s={untraced_s:.4f} "
+              f"traced_s={traced_s:.4f} phases="
+              f"{[(p['name'], p['seconds']) for p in row['phases']]}"
+              + (f" profiled_s={row['profiled_s']:.4f} trace_mb="
+                 f"{row['trace_mb']:.2f}" if engine == "xla" else ""),
+              flush=True)
+    report["tracer"] = out
+
+
+def phase_roofline(report, cuts):
+    """The analytic model (ops/roofline.py, the H100's peaks) of sup-20,
+    sup-25 and hwe-40 beside their measured warm times from the phases
+    above; kernel 1's sup-20 chunk: the model's bytes beside
+    variant_kernel.work_counts."""
+    roof = _port("ops.roofline")
+    streamed = _port("ops.streamed")
+    out = {}
+    sup25 = _cut("sup", 25, 13, 0, stored_plan="sup25_p2_q13")[1]
+    hwe40 = cuts["hwe40"][1]
+    cases = [
+        ("sup20", cuts["sup20"][1], CHUNK, None,
+         {"pallas_warm_s": report.get("sup20", {}).get("warm_wall_s")}),
+        ("sup25", sup25, streamed.auto_chunk(sup25, SUP25_CHUNK), None,
+         {"pallas_s": report.get("sup25_streamed", {}).get("pallas_s"),
+          "streamed_warm_s": report.get("sup25_streamed", {}).get(
+              "warm_s")}),
+        ("hwe40", hwe40, streamed.auto_chunk(hwe40, HWE_CHUNK),
+         sorted(c for cs in _written_data_clbits(hwe40) for c in cs[:10]),
+         {"pallas_warm_scan_s": report.get("hwe40", {}).get(
+             "warm_scan_s")}),
+    ]
+    for key, virt, chunk, keep, measured in cases:
+        t0 = time.perf_counter()
+        model = roof.streamed_step_model(virt, chunk=chunk, keep_clbits=keep)
+        model_s = time.perf_counter() - t0
+        row = {"chunk": chunk, "global_labels": model.global_labels,
+               "n_chunks": model.n_chunks,
+               "total_bytes": model.total_bytes,
+               "total_flops": model.total_flops,
+               "knit_bytes": model.knit_bytes,
+               "bound_s": model.seconds(roof.H100_HBM_BYTES_PER_S),
+               "fragments": [dict(name=f.name, sim_qubits=f.sim_qubits,
+                                  prefix_width=f.prefix_width,
+                                  variants=f.num_variants,
+                                  bytes_per_variant=f.bytes_per_variant)
+                             for f in model.fragments],
+               "measured": measured, "model_host_s": model_s}
+        out[key] = row
+        print(f"roofline {key}: chunk={chunk} labels={model.global_labels} "
+              f"bytes={model.total_bytes} bound_s={row['bound_s']:.6f} "
+              f"(at {roof.H100_HBM_BYTES_PER_S:.3g} B/s) measured={measured}"
+              f" model_host_s={model_s:.3f}", flush=True)
+    virt = cuts["sup20"][1]
+    per_label = sum(roof.fragment_cost(virt, r.name).bytes_per_variant
+                    for r in virt.fragments)
+    work = _kernel_row(report, "variant_rows/folded_staged")["work"]
+    out["kernel1_sup20_chunk"] = {
+        "labels": CHUNK, "model_bytes": per_label * CHUNK,
+        "work_counts_bytes": work["bytes"],
+        "work_counts_pass_bytes": work["pass_bytes"]}
+    print(f"roofline kernel 1, one {CHUNK}-label sup-20 chunk: model "
+          f"{per_label * CHUNK} B (every pass through memory) beside "
+          f"work_counts {work['bytes']} B (inputs and rows once) and "
+          f"{work['pass_bytes']} B of the kernel's state passes", flush=True)
+    report["roofline"] = out
+
+
+def phase_lane_engine(virt, report):
+    """sup-20 frag0's first 504-label chunk through the lane engine (chunk
+    axis trailing) against make_sim_fn's rows of the same slot tables,
+    both timed warm."""
+    import torch
+
+    ve = _port("ops.variant_engine")
+    lane = _port("ops.lane_engine")
+    name = virt.fragments[0].name
+    sim_fn, all_mats, _, _ = ve.make_sim_fn(virt, name)
+    mats = [tuple(torch.as_tensor(m[:CHUNK], device=DEV) for m in tabs)
+            for tabs in all_mats]
+    sim_chunk, _, _ = lane.make_lane_sim(virt, name, device=DEV)
+    got, want = sim_chunk(mats), sim_fn(mats)
+    err = (got - want.T).abs().max().item()
+    lane_ms = _time_ms(lambda: sim_chunk(mats), reps=5, warm=1)
+    rows_ms = _time_ms(lambda: sim_fn(mats), reps=5, warm=1)
+    out = {"fragment": name, "labels": CHUNK,
+           "sim_qubits": virt.programs[name].num_sim_qubits,
+           "max_abs_err": err, "lane_ms": lane_ms, "make_sim_fn_ms": rows_ms}
+    report["lane_engine"] = out
+    print(f"lane_engine sup20/{name}: {CHUNK} labels max_abs_err={err:.3e} "
+          f"lane_ms={lane_ms:.3f} make_sim_fn_ms={rows_ms:.3f}", flush=True)
+    if not err <= TOL:
+        raise RuntimeError(f"lane_engine: {err:.3e} > {TOL}")
+
+
+def phase_host_tools(circ, virt, report, card):
+    """The host tools: transpile_to_basis / count_cnots of sup-20 and of
+    one circuit a fragment (the CNOT benchmark's rule), the transpiled
+    sup-20 cut and run on kernel 1 against the untranspiled oracle;
+    circuit_n_tangle(ghz-24) = 1; the benchmark CLI's flow
+    (PipelineConfig JSON -> make_cutter -> run -> make_run_dir /
+    save_circuit / save_metrics) into benchmark_results/."""
+    tr = _port("circuit.transpile")
+    cutter_mod = _port("cutter.cutter")
+    config = _port("utils.config")
+    art = _port("utils.artifacts")
+    vc = _port("virt.virtual_circuit")
+    run = _port("run").run_virtual_circuit
+    t0 = time.perf_counter()
+    tcirc = tr.transpile_to_basis(circ)
+    transpile_s = time.perf_counter() - t0
+    frag_cnots = []
+    for variants in cutter_mod.generate_instantiation_circuits(virt):
+        frag_cnots.append(tr.count_cnots(tr.transpile_to_basis(variants[0])))
+    cutter, solve_s = _solved(tcirc, [10, 10], maxNQpdCuts=5, maxNCuts=5,
+                              maxCutsPerPartitions=5)
+    row = _front_run("host_tools transpiled sup20", circ,
+                     vc.VirtualCircuit(cutter.getResultCircs()[3]), card,
+                     engine="pallas")
+    ghz = _port("models.zoo").genCirc("ghz", 24, 1)
+    tau, tangle_s = _timed(lambda: _port(
+        "utils.entanglement").circuit_n_tangle(ghz, device=DEV))
+    cfg = config.PipelineConfig.from_json(config.PipelineConfig(
+        config.CutterConfig(max_n_qubits_per_partition=10),
+        config.ExecutionConfig(engine="pallas", chunk_size=CHUNK)).to_json())
+    cli = config.make_cutter(circ, cfg.cutter)
+    if not cli.solve():
+        raise RuntimeError("host_tools: the config's cutter found no plan")
+    cut = cli.getResultCircs()[3]
+    dist, _ = run(vc.VirtualCircuit(cut), engine=cfg.execution.engine,
+                  chunk_size=cfg.execution.chunk_size, device=DEV)
+    fid = _port("evaluate").hellinger_fidelity(
+        _port("ops.statevector").simulate_circuit(circ, device=DEV), dist)
+    run_dir = art.make_run_dir(str(ROOT / cfg.results_dir), "sup_20_1_2_10")
+    art.save_circuit(cut, run_dir, "cut")
+    art.save_metrics(run_dir, {"fidelity": fid, "config": cfg})
+    written = sorted(p.name for p in run_dir.iterdir())
+    out = {"card": card, "cnots": tr.count_cnots(tcirc),
+           "transpile_s": transpile_s, "fragment_cnots": frag_cnots,
+           "transpiled_solve_s": solve_s, "transpiled": row,
+           "ghz24_tangle": tau, "tangle_s": tangle_s, "cli_fidelity": fid,
+           "run_dir": str(run_dir.relative_to(ROOT)), "written": written}
+    report["host_tools"] = out
+    print(f"host_tools: sup20 cnots={out['cnots']} transpile_s="
+          f"{transpile_s:.4f} fragment_cnots={frag_cnots} transpiled "
+          f"fidelity={row['fidelity']!r} ghz24 tangle={tau!r} tangle_s="
+          f"{tangle_s:.4f} cli fidelity={fid!r} run_dir={out['run_dir']} "
+          f"{written}", flush=True)
+    if not row["fidelity"] > FID_MIN or not fid > FID_MIN:
+        raise RuntimeError(f"host_tools: fidelity {row['fidelity']!r}, "
+                           f"{fid!r}")
+    if not abs(tau - 1.0) <= TOL:
+        raise RuntimeError(f"host_tools: ghz-24 tangle {tau!r}")
+    if written != ["cut.txt", "instantiations", "metrics.json"]:
+        raise RuntimeError(f"host_tools: run dir holds {written}")
+
 
 def main() -> int:
     try:
@@ -4252,6 +4665,17 @@ def main() -> int:
     phase("bv", phase_bv, report, card)
     phase("teleport_ghz20", phase_teleport_ghz20, report, card)
     phase("teleport_ghz24_p3", phase_teleport_ghz24_p3, report, card)
+    # the last modules: no kernel of their own, they feed kernels 1-2
+    phase("syc32_lightcone", phase_syc32_lightcone, report, card)
+    phase("compiler", phase_compiler, report, card)
+    if "ghz24" in cuts:
+        phase("sparse_knit", phase_sparse_knit, *cuts["ghz24"], report, card)
+    if "sup20" in cuts:
+        phase("tracer", phase_tracer, *cuts["sup20"], report, card)
+        phase("lane_engine", phase_lane_engine, cuts["sup20"][1], report)
+        phase("host_tools", phase_host_tools, *cuts["sup20"], report, card)
+        if "hwe40" in cuts:
+            phase("roofline", phase_roofline, report, cuts)
     if "sup20" in cuts:
         circ, virt = cuts["sup20"]
         phase("sv_sup20", phase_sv, "sup20", virt, report)

@@ -24,6 +24,11 @@ the pure-Python search minutes):
   simulated qubits — the streamed engine's configuration (the
   pure-Python search takes some 12 s on it).  The supremacy circuit's
   single-qubit gates do not enter the plan.
+* ``syc32_d3_p2_q17`` — ``genCirc("syc", 32, 3)`` (BASELINE config #4 at
+  depth 3) cut into 2 partitions of at most 17 qubits (``maxNQpdCuts =
+  maxNCuts = maxCutsPerPartitions = 6``), solved by this package's native
+  solver (some 19 s): four gate cuts, 1296 labels, two fragments of 20
+  simulated qubits (16 data qubits and 4 deferral ancillas each).
 """
 from __future__ import annotations
 

@@ -53,6 +53,15 @@ sampled engine's label blocks over its "dp" axis.
 The whole-fragment kernel (ops/sv_kernel.py) is not an engine here, as in
 the JAX package: a caller composes ``run_fragment_kernel`` with
 ``ops.knit.knit``.
+
+``tracer`` (a ``utils.profiling.Tracer``) records the JAX package's
+phases with its names and meta: ``qpd_sample_knit`` /
+``qpd_sample_knit_adaptive`` (sampled), ``stream_sim_knit`` ("pallas",
+"streamed"), and ``load_checkpoint``, ``simulate``, ``save_checkpoint``,
+``sample``, ``knit``, ``project`` (the batched engines, whose
+``simulate`` to ``knit`` run inside the tracer's device trace).  Each
+phase of a tracer waits for the card before it reads its clock; without
+a tracer the phases are empty contexts.
 """
 from __future__ import annotations
 
@@ -61,6 +70,7 @@ from dataclasses import dataclass
 
 from .ops.statevector import Distribution
 from .utils.logger import get_logger
+from .utils.profiling import NO_TRACER
 from .virt.virtual_circuit import VirtualCircuit
 
 # "auto" switches from the batched engine to the streamed scan above this
@@ -80,7 +90,7 @@ class RunTimeInfo:
 
 def _run_sampled(virt, shots, seed, project, head_labels, sample_method,
                  sample_eps, sample_cv, keep_clbits, device, dtype,
-                 sample_pallas, mesh):
+                 sample_pallas, mesh, tracer):
     """``engine="sampled"``: ``shots`` is the QPD sample budget (default:
     the plan's kappa / 0.05^2 Hoeffding budget, capped at 2M), or with
     ``sample_eps`` the cap of the adaptive budget."""
@@ -95,38 +105,42 @@ def _run_sampled(virt, shots, seed, project, head_labels, sample_method,
     now = time.perf_counter()
     if sample_eps is not None:
         cap = shots if shots is not None else 2_000_000
-        dist, _, used = sampled_knit_adaptive(
-            virt, sample_eps, seed=seed, head_labels=head_labels,
-            method=sample_method, keep_clbits=keep_clbits, max_samples=cap,
-            control_variate=sample_cv, dtype=dtype,
-            pallas_variant=sample_pallas, mesh=mesh, device=device,
-        )
-        log.info(f"sampled engine: eps={sample_eps:g} met with {used} "
-                 f"samples (cap {cap})")
-    else:
-        budget = shots
-        if budget is None:
-            over = sampling_overhead(virt, eps=0.05)
-            # the Hoeffding budget kappa/eps^2 grows as 9^n_cuts — cap the
-            # default and report the accuracy actually bought; callers
-            # wanting tighter eps pass ``shots`` explicitly
-            budget = min(over["shots_for_eps"], 2_000_000)
-            if budget < over["shots_for_eps"]:
-                log.warning(
-                    f"sampled engine: default budget capped at {budget} "
-                    f"(kappa={over['kappa']:.3g} wants "
-                    f"{over['shots_for_eps']} for eps=0.05; the cap buys "
-                    f"eps~{(over['kappa'] / budget) ** 0.5:.3g}); pass "
-                    "shots= for a larger budget"
-                )
+        with tracer.phase("qpd_sample_knit_adaptive", eps=sample_eps):
+            dist, _, used = sampled_knit_adaptive(
+                virt, sample_eps, seed=seed, head_labels=head_labels,
+                method=sample_method, keep_clbits=keep_clbits,
+                max_samples=cap, control_variate=sample_cv, dtype=dtype,
+                pallas_variant=sample_pallas, mesh=mesh, device=device,
+            )
+            log.info(f"sampled engine: eps={sample_eps:g} met with {used} "
+                     f"samples (cap {cap})")
+            if project:
+                dist = nearest_probability_distribution(dist)
+        return dist, RunTimeInfo(time.perf_counter() - now, 0.0)
+    budget = shots
+    if budget is None:
+        over = sampling_overhead(virt, eps=0.05)
+        # the Hoeffding budget kappa/eps^2 grows as 9^n_cuts — cap the
+        # default and report the accuracy actually bought; callers wanting
+        # tighter eps pass ``shots`` explicitly
+        budget = min(over["shots_for_eps"], 2_000_000)
+        if budget < over["shots_for_eps"]:
+            log.warning(
+                f"sampled engine: default budget capped at {budget} "
+                f"(kappa={over['kappa']:.3g} wants "
+                f"{over['shots_for_eps']} for eps=0.05; the cap buys "
+                f"eps~{(over['kappa'] / budget) ** 0.5:.3g}); pass "
+                "shots= for a larger budget"
+            )
+    with tracer.phase("qpd_sample_knit", samples=budget):
         dist = sampled_knit(
             virt, budget, seed=seed, head_labels=head_labels,
             method=sample_method, keep_clbits=keep_clbits,
             control_variate=sample_cv, dtype=dtype,
             pallas_variant=sample_pallas, mesh=mesh, device=device,
         )
-    if project:
-        dist = nearest_probability_distribution(dist)
+        if project:
+            dist = nearest_probability_distribution(dist)
     return dist, RunTimeInfo(time.perf_counter() - now, 0.0)
 
 
@@ -222,8 +236,14 @@ def run_virtual_circuit(
     "xla", an unknown engine or ``teleport`` mode, a sampled-engine knob
     on another engine.  Refused by this package, with ValueError: a
     ``dtype`` other than float32 on "pallas" (the kernels are float32;
-    use "streamed").  Not ported, NotImplementedError naming the ROADMAP
-    item: ``tracer``; its JAX default (None) gives the JAX result.
+    use "streamed").
+
+    ``tracer``: a ``utils.profiling.Tracer`` that records the JAX
+    package's phases (names and meta as there), each ending in a
+    synchronise of ``device``'s card; with ``profile_dir`` set, the batched
+    engines' simulate-to-knit phases run inside a ``torch.profiler``
+    trace written there.  None (the default) records nothing and adds no
+    synchronise.
 
     ``teleport``: "qpd" (the default, the reference's behaviour:
     teleport-flagged cuts execute through the QPD route) or "execute":
@@ -235,11 +255,6 @@ def run_virtual_circuit(
     (no ``noise`` keyword here)."""
     if teleport not in ("qpd", "execute"):
         raise ValueError(f"unknown teleport mode {teleport!r}")
-    if tracer is not None:
-        raise NotImplementedError(
-            f"tracer={tracer!r} is not ported to the torch package yet: "
-            "ROADMAP H100 port, queue A, item 10 (tracing)"
-        )
     if engine not in ("auto", "xla", "streamed", "pallas", "sampled",
                       "sharded"):
         raise ValueError(f"unknown engine {engine!r}")
@@ -248,6 +263,11 @@ def run_virtual_circuit(
 
         if has_teleport_cuts(virt._circuit):
             virt = VirtualCircuit(expand_teleport_cuts(virt._circuit))
+    if tracer is None:
+        tracer = NO_TRACER
+    else:
+        # a phase waits for this run's card, not the current one
+        tracer.device = device
     if trunc_eps and engine not in ("auto", "streamed"):
         raise ValueError(
             "trunc_eps (certified truncation) is a streamed-engine "
@@ -276,7 +296,8 @@ def run_virtual_circuit(
     if engine == "sampled":
         return _run_sampled(virt, shots, seed, project, head_labels,
                             sample_method, sample_eps, sample_cv,
-                            keep_clbits, device, dtype, sample_pallas, mesh)
+                            keep_clbits, device, dtype, sample_pallas, mesh,
+                            tracer)
     log = get_logger(__name__)
     if engine == "auto":
         labels = 1
@@ -309,21 +330,25 @@ def run_virtual_circuit(
             f"{virt.total_instantiations()} instances (engine={engine!r})..."
         )
         now = time.perf_counter()
-        dist = run_virtual_circuit_streamed(
-            virt, chunk=chunk_size, project=project, shots=shots,
-            seed=seed, checkpoint_dir=checkpoint_dir, dtype=dtype,
-            trunc_eps=trunc_eps, keep_clbits=keep_clbits,
-            pallas_variant=engine == "pallas", device=device,
-        )
+        with tracer.phase("stream_sim_knit",
+                          instances=virt.total_instantiations(),
+                          chunk=chunk_size):
+            dist = run_virtual_circuit_streamed(
+                virt, chunk=chunk_size, project=project, shots=shots,
+                seed=seed, checkpoint_dir=checkpoint_dir, dtype=dtype,
+                trunc_eps=trunc_eps, keep_clbits=keep_clbits,
+                pallas_variant=engine == "pallas", device=device,
+            )
         return dist, RunTimeInfo(time.perf_counter() - now, 0.0)
     return _run_batched(virt, chunk_size, project, keep_clbits, device,
                         shots, seed, checkpoint_dir, engine, mesh,
-                        max_local_qubits, dtype)
+                        max_local_qubits, dtype, tracer)
 
 
 def _run_batched(virt, chunk_size, project, keep_clbits, device,
                  shots=None, seed=0, checkpoint_dir=None, engine="xla",
-                 mesh=None, max_local_qubits=None, dtype=None):
+                 mesh=None, max_local_qubits=None, dtype=None,
+                 tracer=NO_TRACER):
     """``engine="xla"`` / ``"sharded"``: all variants of every fragment
     (or a checkpoint of them), optionally shot-sampled, then the knit."""
     import torch
@@ -363,8 +388,9 @@ def _run_batched(virt, chunk_size, project, keep_clbits, device,
         fingerprint = checkpoint_fingerprint(virt, dtype=dtype)
         found = has_checkpoint(checkpoint_dir)
         if found:
-            results = load_fragment_results(
-                checkpoint_dir, expect_fingerprint=fingerprint)
+            with tracer.phase("load_checkpoint"):
+                results = load_fragment_results(
+                    checkpoint_dir, expect_fingerprint=fingerprint)
         if engine == "sharded" and not every_rank(results is not None, dev):
             # resume only where every rank can: a rank that simulates
             # enters collectives that the others would never join
@@ -380,40 +406,53 @@ def _run_batched(virt, chunk_size, project, keep_clbits, device,
                 "circuit/cut plan, or not every rank could read it; "
                 "re-simulating."
             )
-    if results is None:
-        if engine == "sharded":
-            from .ops.sharded_fragment import run_all_fragments_sharded
+    try:
+        if results is None:
+            tracer.start_device_trace()
+            with tracer.phase("simulate",
+                              instances=virt.total_instantiations(),
+                              engine=engine):
+                if engine == "sharded":
+                    from .ops.sharded_fragment import (
+                        run_all_fragments_sharded,
+                    )
 
-            results = run_all_fragments_sharded(
-                virt, max_local_qubits=max_local_qubits, mesh=mesh,
-                dtype=dtype, device=dev)
-        else:
-            from .ops.variant_engine import run_all_fragments
+                    results = run_all_fragments_sharded(
+                        virt, max_local_qubits=max_local_qubits, mesh=mesh,
+                        dtype=dtype, device=dev)
+                else:
+                    from .ops.variant_engine import run_all_fragments
 
-            results = run_all_fragments(virt, chunk_size, dev)
-        if checkpoint_dir is not None:
-            if world()[1] == 0:
-                # every rank holds the same rows: one writer
-                from .utils.checkpoint import save_fragment_results
+                    results = run_all_fragments(virt, chunk_size, dev)
+            if checkpoint_dir is not None:
+                with tracer.phase("save_checkpoint"):
+                    if world()[1] == 0:
+                        # every rank holds the same rows: one writer
+                        from .utils.checkpoint import save_fragment_results
 
-                save_fragment_results(results, checkpoint_dir,
-                                      fingerprint=fingerprint)
-            if engine == "sharded":
-                # no rank looks for the checkpoint before it is written
-                every_rank(True, dev)
-    if shots is not None:
-        from .ops.sampling import sample_fragment_results
+                        save_fragment_results(results, checkpoint_dir,
+                                              fingerprint=fingerprint)
+                if engine == "sharded":
+                    # no rank looks for the checkpoint before it is written
+                    every_rank(True, dev)
+        if shots is not None:
+            from .ops.sampling import sample_fragment_results
 
-        results = sample_fragment_results(results, shots, seed)
-    run_time = clock() - now
+            with tracer.phase("sample", shots=shots):
+                results = sample_fragment_results(results, shots, seed)
+        run_time = clock() - now
 
-    log.info("Knitting...")
-    now = clock()
-    values, positions = knit_values(virt, results, keep_clbits)
-    knit_time = clock() - now
+        log.info("Knitting...")
+        now = clock()
+        with tracer.phase("knit"):
+            values, positions = knit_values(virt, results, keep_clbits)
+        knit_time = clock() - now
+    finally:
+        tracer.stop_device_trace()
     log.info(f"Knitted in {knit_time:.2f}s.")
 
     if project:
-        values = smolin_project(values).to(torch.float32)
+        with tracer.phase("project"):
+            values = smolin_project(values).to(torch.float32)
     dist = Distribution(values.cpu().numpy(), positions, virt.num_clbits)
     return dist, RunTimeInfo(run_time, knit_time)

@@ -180,9 +180,10 @@ def test_convert_rejects_register_mismatch():
 
 
 def test_port_refuses_what_it_does_not_carry():
-    """What the port still refuses: ``tracer`` names its ROADMAP item; a
-    cut circuit has no OpenQASM 2 spelling (JAX's ValueError).  The zoo,
-    qasm and teleport execution are ported."""
+    """What the port still refuses: a cut circuit has no OpenQASM 2
+    spelling (JAX's ValueError).  The zoo, qasm, teleport execution and,
+    since the last modules landed, ``tracer`` are ported: a Tracer
+    records the run's phases."""
     from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.run import (  # noqa: E501
         run_virtual_circuit,
     )
@@ -196,9 +197,13 @@ def test_port_refuses_what_it_does_not_carry():
     cut = cutter.getResultCircs()[3]
     with pytest.raises(ValueError, match="not representable"):
         cut.to_qasm()
-    with pytest.raises(NotImplementedError, match="queue A, item 10"):
-        run_virtual_circuit(TVirtualCircuit(cut), device="cpu",
-                            tracer=object())
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.utils.profiling import (  # noqa: E501
+        Tracer,
+    )
+
+    tracer = Tracer()
+    run_virtual_circuit(TVirtualCircuit(cut), device="cpu", tracer=tracer)
+    assert [p.name for p in tracer.phases] == ["stream_sim_knit"]
 
 
 @pytest.mark.parametrize("name,n", [("qft", 9), ("qft", 16), ("aqft", 8),

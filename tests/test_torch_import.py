@@ -59,6 +59,35 @@ def test_front_end_modules_are_checked():
         assert f"{PORT}.{mod}" in names, mod
 
 
+def test_last_modules_are_checked():
+    """The last modules ported (the compiler on ``models/graphs.py``,
+    the lightcone oracle, the sparse knit, the tracer, the roofline, the
+    lane engine and the host tools) are among the modules the checks
+    here import and read, the no-networkx check included."""
+    names = {name for _, name in _port_modules()}
+    for mod in ("compiler.types", "compiler.dag", "compiler.partition",
+                "compiler.passes", "compiler.qubit_reuser",
+                "compiler.compiler", "circuit.lightcone",
+                "circuit.transpile", "virt.quasi_distr", "virt.sparse_knit",
+                "utils.profiling", "utils.entanglement", "utils.config",
+                "utils.artifacts", "ops.roofline", "ops.lane_engine"):
+        assert f"{PORT}.{mod}" in names, mod
+
+
+def test_port_has_a_twin_of_every_jax_module():
+    """Every ``.py`` file of the JAX package has a twin at the same path
+    in the port, but the Pallas files (ported as ``csrc/`` kernels) and
+    the artefacts of JAX or the TPU that are not ported."""
+    jax_files = {p.relative_to(ROOT / JAX_PKG)
+                 for p in (ROOT / JAX_PKG).rglob("*.py")}
+    port_files = {p.relative_to(ROOT / PORT)
+                  for p in (ROOT / PORT).rglob("*.py")}
+    not_ported = {pathlib.Path(p) for p in (
+        "ops/pallas_variant.py", "ops/pallas_blocked.py", "ops/pallas_sv.py",
+        "_compile_probe.py", "bench_impl.py", "utils/jaxcache.py")}
+    assert sorted(map(str, jax_files - port_files - not_ported)) == []
+
+
 def _imported_names(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -363,31 +363,34 @@ def test_unported_engines_name_their_roadmap_item(engine, kw):
 
 
 _JAX_KEYWORDS = {
-    # name: (JAX default, a value that is not ported, its ROADMAP item)
-    "tracer": (None, object(), "item 10 \\(tracing\\)"),
-    "checkpoint_dir": (None, "ckpt", None),
-    "max_local_qubits": (None, 4, None),
-    "trunc_eps": (0.0, 0.01, None),
-    "teleport": ("qpd", "execute", None),
+    # name: (JAX default, a value other than the default)
+    "tracer": (None, "a Tracer"),
+    "checkpoint_dir": (None, "ckpt"),
+    "max_local_qubits": (None, 4),
+    "trunc_eps": (0.0, 0.01),
+    "teleport": ("qpd", "execute"),
 }
 
 
+# the case "refused" keeps the name it had while the port refused these
+# values; each now runs its keyword's other value as a ported case
 @pytest.mark.parametrize("name,case", [
     (name, case) for name in sorted(_JAX_KEYWORDS)
     for case in ("default", "refused")
 ] + [("teleport", "unknown")])
 def test_jax_keywords_default_or_refused(name, case, tmp_path):
     """The JAX keywords of ``run_virtual_circuit``: each at its JAX
-    default gives JAX's result; a value the port does not implement
-    raises NotImplementedError naming its ROADMAP item, an unknown
-    teleport mode ValueError (as in the JAX package).  Ported since the
-    streamed engine landed: ``checkpoint_dir`` (the default engine's
-    carry checkpoint gives JAX's result) and ``trunc_eps``, which
-    ``engine="pallas"`` refuses with JAX's ValueError; since the sharded
-    engine landed, ``max_local_qubits`` (``engine="sharded"`` as
-    JAX's); since teleport execution landed, ``teleport="execute"``."""
+    default gives JAX's result, and every other value is ported; an
+    unknown teleport mode raises ValueError (as in the JAX package).
+    Ported since the streamed engine landed: ``checkpoint_dir`` (the
+    default engine's carry checkpoint gives JAX's result) and
+    ``trunc_eps``, which ``engine="pallas"`` refuses with JAX's
+    ValueError; since the sharded engine landed, ``max_local_qubits``
+    (``engine="sharded"`` as JAX's); since teleport execution landed,
+    ``teleport="execute"``; since the tracer landed, ``tracer`` (JAX's
+    phases with JAX's meta, JAX's result)."""
     jc, tc, jv, tv, chunk = _pair("ghz10_p2q5")
-    default, other, item = _JAX_KEYWORDS[name]
+    default, other = _JAX_KEYWORDS[name]
     if case == "unknown":
         with pytest.raises(ValueError, match="unknown teleport mode"):
             run_virtual_circuit(tv, device="cpu", teleport="wire")
@@ -424,11 +427,21 @@ def test_jax_keywords_default_or_refused(name, case, tmp_path):
         assert got.bit_positions == want.bit_positions
         np.testing.assert_allclose(got.values, want.values, atol=1e-6)
         return
-    if case == "refused":
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP H100 port, queue A.*{item}"):
-            run_virtual_circuit(tv, chunk_size=chunk, device="cpu",
-                                **{name: other})
+    if case == "refused" and name == "tracer":
+        from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.utils.profiling import (  # noqa: E501
+            Tracer as JTracer,
+        )
+        from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.utils.profiling import (  # noqa: E501
+            Tracer,
+        )
+
+        jt, tt = JTracer(), Tracer()
+        want, _ = j_run(jv, engine="pallas", chunk_size=chunk, tracer=jt)
+        got, _ = run_virtual_circuit(tv, engine="pallas", chunk_size=chunk,
+                                     device="cpu", tracer=tt)
+        assert [(p.name, p.meta) for p in tt.phases] == \
+            [(p.name, p.meta) for p in jt.phases] != []
+        np.testing.assert_allclose(got.values, want.values, atol=1e-6)
         return
     want, _ = j_run(jv, engine="pallas", chunk_size=chunk,
                     **{name: default})
