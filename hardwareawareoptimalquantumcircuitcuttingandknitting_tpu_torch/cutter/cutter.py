@@ -8,10 +8,12 @@ reference lacks (SURVEY §5).
 """
 from __future__ import annotations
 
+import logging
 from typing import List, Tuple
 
 from ..circuit.circuit import Circuit
 from ..utils.logger import get_logger
+from ..utils.profiling import spanned
 from ..virt.virtual_circuit import VirtualCircuit
 from .graph import read_circuit
 from .plan import CutPlan
@@ -25,6 +27,7 @@ from .solver import SolverConfig, plan_signature, solve
 
 
 class Cutter:
+    @spanned("port.cutter")
     def __init__(
         self,
         inputCirc: Circuit,
@@ -128,6 +131,7 @@ class Cutter:
         self._seen: set = set()
 
     # ------------------------------------------------------------------
+    @spanned("port.cut")
     def solve(self) -> bool:
         """Find the (next) lexicographically optimal cut.  Repeat calls
         enumerate further solutions (Cutter.py:96-102)."""
@@ -142,6 +146,7 @@ class Cutter:
         return True
 
     # ------------------------------------------------------------------
+    @spanned("port.cut")
     def getResultCircs(
         self, getInstantiations: bool = False
     ) -> Tuple[Circuit, Circuit, Circuit, Circuit, list]:
@@ -159,11 +164,13 @@ class Cutter:
             marked_with_moves, graph, self.plan,
             self.maxNQubitsPerPartition, vmove_to_vidx, move_qubits,
         )
-        for idx, frag in enumerate(fragments):
-            names = [
-                "{}{}".format(*marked_with_moves.qubit_info(q)) for q in frag
-            ]
-            self.logger.debug(f"    {idx}: {names}")
+        if self.logger.isEnabledFor(logging.DEBUG):
+            for idx, frag in enumerate(fragments):
+                names = [
+                    "{}{}".format(*marked_with_moves.qubit_info(q))
+                    for q in frag
+                ]
+                self.logger.debug("    %d: %s", idx, names)
         cut_circ, qubit_map = fragment_circuit(marked_with_moves, fragments)
 
         insts = []
@@ -204,6 +211,7 @@ class Cutter:
             raise RuntimeError("no model exists")
         self.plan.save(path)
 
+    @spanned("port.cut")
     def use_plan(self, plan: CutPlan) -> None:
         """Adopt a previously solved plan (solve once / cut many): the
         plan's vertex indices must come from a circuit with the same

@@ -45,7 +45,7 @@ def apply_gate_cuts_and_mark_wire_cuts(
                     ins.name, tuple(ins.params), gate_name, cut.teleport
                 ),
             )
-            log.info(f"GateCut {gate_name} is replaced.")
+            log.info("GateCut %s is replaced.", gate_name)
         else:
             label = f"{u_idx}_{v_idx}"
             if cut.teleport:
@@ -53,7 +53,7 @@ def apply_gate_cuts_and_mark_wire_cuts(
             markers.setdefault(id(u.instr), []).append(
                 (u.qubit, label, cut.teleport)
             )
-            log.info(f"WireCut {label} is marked.")
+            log.info("WireCut %s is marked.", label)
 
     out = Circuit(list(circ.qregs), list(circ.cregs), circ.name)
     for ins in circ.instructions:

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..convert import resolve_device, to_device
+from ..utils.profiling import span
 from ..virt.virtual_circuit import VirtualCircuit
 from . import op_rewrite
 from .kernel_build import KernelLibrary, check_tensor
@@ -170,10 +171,12 @@ def build_plan(virt: VirtualCircuit, frag_name: str, keep_clbits=None,
                     mask |= 1 << fb
             z_masks.append(mask)
 
-    st = np.zeros((2, 1 << n), np.float32)
-    st[0, 0] = 1.0
-    for _, mat, axes in prefix_ops:
-        st = apply_matrix_host(st, mat, tuple(index[q] for q in axes), n)
+    with span("port.build.prefix"):
+        st = np.zeros((2, 1 << n), np.float32)
+        st[0, 0] = 1.0
+        for _, mat, axes in prefix_ops:
+            st = apply_matrix_host(st, mat, tuple(index[q] for q in axes),
+                                   n)
 
     table = OpTable(prog, [vg.spec for vg in virt.vgates])
     for op in suffix:

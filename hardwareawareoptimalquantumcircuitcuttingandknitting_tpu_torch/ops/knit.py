@@ -22,6 +22,7 @@ import string
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
 from ..virt.virtual_circuit import VirtualCircuit
 from .bits import permute_bits_flat
 from .statevector import Distribution
@@ -244,6 +245,7 @@ def expectation_z_multi(
     return torch.einsum(expr, *operands)
 
 
+@spanned("port.project")
 def smolin_project(vals: torch.Tensor) -> torch.Tensor:
     """Smolin projection onto the probability simplex, in float64 on
     ``vals``' own device, numerically the reference's ascending scan

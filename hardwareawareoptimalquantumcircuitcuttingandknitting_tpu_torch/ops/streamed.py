@@ -54,6 +54,7 @@ kernel route; the message names ``engine="sharded"``, which runs them.
 """
 from __future__ import annotations
 
+import logging
 import math
 
 import numpy as np
@@ -61,6 +62,7 @@ import torch
 
 from ..convert import resolve_device, to_device
 from ..utils.logger import get_logger
+from ..utils.profiling import span, spanned
 from ..virt.virtual_circuit import VirtualCircuit
 from .bits import permute_bits_flat
 from .blocked_kernel import MAX_BLOCKED_QUBITS, make_blocked_chunk_kernel
@@ -349,6 +351,7 @@ class _SimRows:
         return rows.repeat_interleave(cur, dim=0) if cur != 1 else rows
 
 
+@spanned("port.build")
 def make_streamed_knit(
     virt: VirtualCircuit, chunk: int = 512, keep_clbits=None,
     noise=None, trajectories: int | None = None, seed: int = 0,
@@ -549,16 +552,21 @@ def make_streamed_knit(
         )
 
     def segment_fn(carry, xs_seg, banks=None):
-        if banks is None and any_split:
-            banks = bank_fn()
-        vidx_seg, valid_seg, *pidx_seg = xs_seg
-        for c in range(vidx_seg.shape[0]):
-            es = [fn(vidx_seg[c], None if banks is None else banks[fi],
-                     pidx_seg[fi][c])
-                  for fi, fn in enumerate(rows_fns)]
-            es[0] = es[0] * valid_seg[c][:, None]
-            carry = carry + torch.einsum(expr, *es)
-        return carry
+        with span("port.scan"):
+            if banks is None and any_split:
+                banks = bank_fn()
+            vidx_seg, valid_seg, *pidx_seg = xs_seg
+            for c in range(vidx_seg.shape[0]):
+                es = []
+                for fi, fn in enumerate(rows_fns):
+                    with span("port.rows"):
+                        es.append(fn(vidx_seg[c],
+                                     None if banks is None else banks[fi],
+                                     pidx_seg[fi][c]))
+                with span("port.knit"):
+                    es[0] = es[0] * valid_seg[c][:, None]
+                    carry = carry + torch.einsum(expr, *es)
+            return carry
 
     def finish_fn(carry):
         # interleave fragment bit groups to global ascending clbit order
@@ -610,8 +618,9 @@ def make_streamed_knit(
         "fragment_plans": plans,
         "fragment_rows": rows_fns,
     }
-    if pallas_variant:
-        get_logger(__name__).info(
+    log = get_logger(__name__)
+    if pallas_variant and log.isEnabledFor(logging.INFO):
+        log.info(
             "engine='pallas': " + "; ".join(
                 f"{kind} kernel backs "
                 f"{[n for n in frag_names if kernels[n] == kind]}"
@@ -850,7 +859,9 @@ def run_virtual_circuit_streamed(
         return sample_distribution(dist, shots, seed)
     if project:
         values = smolin_project(values).to(torch.float32)
-    return Distribution(values.cpu().numpy(), positions, virt.num_clbits)
+    with span("port.fetch"):
+        return Distribution(values.cpu().numpy(), positions,
+                            virt.num_clbits)
 
 
 def streamed_expectation_z(

@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from ..convert import resolve_device, to_device
+from ..utils.profiling import span
 from ..virt.virtual_circuit import VirtualCircuit
 from . import op_rewrite
 from .kernel_build import KernelLibrary, check_tensor
@@ -410,10 +411,11 @@ def build_plan(virt: VirtualCircuit, frag_name: str) -> SvPlan | None:
     # n-1-q')
     first = next((i for i, g in enumerate(generic) if g[0] == "slot"),
                  len(generic))
-    st = np.zeros((2, 1 << n), np.float32)
-    st[0, 0] = 1.0
-    for _, mat, js in generic[:first]:
-        st = apply_matrix_host(st, mat, tuple(n - 1 - j for j in js), n)
+    with span("port.build.prefix"):
+        st = np.zeros((2, 1 << n), np.float32)
+        st[0, 0] = 1.0
+        for _, mat, js in generic[:first]:
+            st = apply_matrix_host(st, mat, tuple(n - 1 - j for j in js), n)
     slot_tab, slot_meta, v_count, total = _slot_tables(
         virt, prog, meas_vgates, slots)
     return SvPlan(

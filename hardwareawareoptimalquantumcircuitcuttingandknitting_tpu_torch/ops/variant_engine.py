@@ -40,6 +40,7 @@ import torch
 
 from ..circuit.gates import COMPLEX, CX
 from ..convert import resolve_device, to_device
+from ..utils.profiling import span
 from ..virt.tables import VGateSpec
 from ..virt.virtual_circuit import FragmentProgram, VirtualCircuit
 from .statevector import (
@@ -960,19 +961,20 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
         (i for i, stp in enumerate(plan) if stp[0] not in ("ins", "u")),
         len(plan),
     )
-    st = np.zeros((2, 1), np.float32)
-    st[0, 0] = 1.0
-    m0 = 0
-    for stp in plan[:first_var]:
-        if stp[0] == "ins":
-            pos = stp[1]
-            r = st.reshape(2, 1 << pos, 1 << (m0 - pos))
-            st = np.stack(
-                [r, np.zeros_like(r)], axis=2
-            ).reshape(2, 1 << (m0 + 1))
-            m0 += 1
-        else:
-            st = apply_matrix_host(st, stp[1], stp[2], m0)
+    with span("port.build.prefix"):
+        st = np.zeros((2, 1), np.float32)
+        st[0, 0] = 1.0
+        m0 = 0
+        for stp in plan[:first_var]:
+            if stp[0] == "ins":
+                pos = stp[1]
+                r = st.reshape(2, 1 << pos, 1 << (m0 - pos))
+                st = np.stack(
+                    [r, np.zeros_like(r)], axis=2
+                ).reshape(2, 1 << (m0 + 1))
+                m0 += 1
+            else:
+                st = apply_matrix_host(st, stp[1], stp[2], m0)
     prefix_state, run_plan = st, plan[first_var:]
 
     # union nonzero pattern of each fused slot table: a host-known static

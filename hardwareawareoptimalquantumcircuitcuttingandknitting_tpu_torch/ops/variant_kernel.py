@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..convert import resolve_device, to_device
+from ..utils.profiling import span
 from ..virt.virtual_circuit import VirtualCircuit
 from . import op_rewrite
 from .kernel_build import KernelLibrary, check_tensor
@@ -317,12 +318,13 @@ def build_plan(virt: VirtualCircuit, frag_name: str, fold=None,
 
     # host-shared prefix at full width (apply_matrix_host's qubit q' sits
     # on flat bit n-1-q')
-    st = np.zeros((2, 1 << n), np.float32)
-    st[0, 0] = 1.0
-    for op in prefix_ops:
-        st = apply_matrix_host(
-            st, op[1], tuple(n - 1 - flat_of_q[q] for q in op[2]), n
-        )
+    with span("port.build.prefix"):
+        st = np.zeros((2, 1 << n), np.float32)
+        st[0, 0] = 1.0
+        for op in prefix_ops:
+            st = apply_matrix_host(
+                st, op[1], tuple(n - 1 - flat_of_q[q] for q in op[2]), n
+            )
 
     table = OpTable(prog, specs)
     for op in suffix:

@@ -58,19 +58,21 @@ the JAX package: a caller composes ``run_fragment_kernel`` with
 phases with its names and meta: ``qpd_sample_knit`` /
 ``qpd_sample_knit_adaptive`` (sampled), ``stream_sim_knit`` ("pallas",
 "streamed"), and ``load_checkpoint``, ``simulate``, ``save_checkpoint``,
-``sample``, ``knit``, ``project`` (the batched engines, whose
-``simulate`` to ``knit`` run inside the tracer's device trace).  Each
+``sample``, ``knit``, ``project`` (the batched engines).  With the
+tracer's ``profile_dir`` set, ``stream_sim_knit`` and the batched
+engines' ``simulate`` to ``knit`` run inside its device trace.  Each
 phase of a tracer waits for the card before it reads its clock; without
 a tracer the phases are empty contexts.
 """
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass
 
 from .ops.statevector import Distribution
 from .utils.logger import get_logger
-from .utils.profiling import NO_TRACER
+from .utils.profiling import NO_TRACER, span
 from .virt.virtual_circuit import VirtualCircuit
 
 # "auto" switches from the batched engine to the streamed scan above this
@@ -112,8 +114,8 @@ def _run_sampled(virt, shots, seed, project, head_labels, sample_method,
                 max_samples=cap, control_variate=sample_cv, dtype=dtype,
                 pallas_variant=sample_pallas, mesh=mesh, device=device,
             )
-            log.info(f"sampled engine: eps={sample_eps:g} met with {used} "
-                     f"samples (cap {cap})")
+            log.info("sampled engine: eps=%g met with %s samples (cap %s)",
+                     sample_eps, used, cap)
             if project:
                 dist = nearest_probability_distribution(dist)
         return dist, RunTimeInfo(time.perf_counter() - now, 0.0)
@@ -240,9 +242,10 @@ def run_virtual_circuit(
 
     ``tracer``: a ``utils.profiling.Tracer`` that records the JAX
     package's phases (names and meta as there), each ending in a
-    synchronise of ``device``'s card; with ``profile_dir`` set, the batched
-    engines' simulate-to-knit phases run inside a ``torch.profiler``
-    trace written there.  None (the default) records nothing and adds no
+    synchronise of ``device``'s card; with ``profile_dir`` set, the scan's
+    phase (``"pallas"``, ``"streamed"``) and the batched engines'
+    simulate-to-knit phases run inside a ``torch.profiler`` trace written
+    there.  None (the default) records nothing and adds no
     synchronise.
 
     ``teleport``: "qpd" (the default, the reference's behaviour:
@@ -309,8 +312,8 @@ def run_virtual_circuit(
             log.info("auto engine: dtype/trunc_eps -> streamed scan")
             engine = "streamed"
         elif labels > AUTO_STREAM_LABELS:
-            log.info(f"auto engine: {labels} global labels > "
-                     f"{AUTO_STREAM_LABELS} -> streamed scan")
+            log.info("auto engine: %s global labels > %s -> streamed scan",
+                     labels, AUTO_STREAM_LABELS)
             engine = "streamed"
     if engine == "pallas" and not _is_f32(dtype):
         raise ValueError(
@@ -325,20 +328,24 @@ def run_virtual_circuit(
     if engine in ("streamed", "pallas"):
         from .ops.streamed import run_virtual_circuit_streamed
 
-        log.info(
-            f"Running {len(virt.fragments)} fragments over "
-            f"{virt.total_instantiations()} instances (engine={engine!r})..."
-        )
+        if log.isEnabledFor(logging.INFO):
+            log.info("Running %s fragments over %s instances (engine=%r)...",
+                     len(virt.fragments), virt.total_instantiations(),
+                     engine)
         now = time.perf_counter()
-        with tracer.phase("stream_sim_knit",
-                          instances=virt.total_instantiations(),
-                          chunk=chunk_size):
-            dist = run_virtual_circuit_streamed(
-                virt, chunk=chunk_size, project=project, shots=shots,
-                seed=seed, checkpoint_dir=checkpoint_dir, dtype=dtype,
-                trunc_eps=trunc_eps, keep_clbits=keep_clbits,
-                pallas_variant=engine == "pallas", device=device,
-            )
+        tracer.start_device_trace()
+        try:
+            with tracer.phase("stream_sim_knit",
+                              instances=virt.total_instantiations(),
+                              chunk=chunk_size):
+                dist = run_virtual_circuit_streamed(
+                    virt, chunk=chunk_size, project=project, shots=shots,
+                    seed=seed, checkpoint_dir=checkpoint_dir, dtype=dtype,
+                    trunc_eps=trunc_eps, keep_clbits=keep_clbits,
+                    pallas_variant=engine == "pallas", device=device,
+                )
+        finally:
+            tracer.stop_device_trace()
         return dist, RunTimeInfo(time.perf_counter() - now, 0.0)
     return _run_batched(virt, chunk_size, project, keep_clbits, device,
                         shots, seed, checkpoint_dir, engine, mesh,
@@ -370,12 +377,12 @@ def _run_batched(virt, chunk_size, project, keep_clbits, device,
         return time.perf_counter()
 
     log = get_logger(__name__)
-    frag_sizes = tuple(p.num_data_qubits for p in virt.programs.values())
-    log.info(
-        f"Running virtualizer with {len(virt.fragments)} {frag_sizes} "
-        f"fragments and {len(virt.vgates)} vgates..."
-    )
-    log.info(f"Running {virt.total_instantiations()} instances...")
+    if log.isEnabledFor(logging.INFO):
+        log.info("Running virtualizer with %s %s fragments and %s vgates...",
+                 len(virt.fragments),
+                 tuple(p.num_data_qubits for p in virt.programs.values()),
+                 len(virt.vgates))
+        log.info("Running %s instances...", virt.total_instantiations())
     now = clock()
     results = None
     if checkpoint_dir is not None:
@@ -396,7 +403,7 @@ def _run_batched(virt, chunk_size, project, keep_clbits, device,
             # enters collectives that the others would never join
             results = None
         if results is not None:
-            log.info(f"Resumed fragment results from {checkpoint_dir}.")
+            log.info("Resumed fragment results from %s.", checkpoint_dir)
             for res in results:
                 res.values = torch.as_tensor(res.values, dtype=torch.float32,
                                              device=dev)
@@ -449,10 +456,12 @@ def _run_batched(virt, chunk_size, project, keep_clbits, device,
         knit_time = clock() - now
     finally:
         tracer.stop_device_trace()
-    log.info(f"Knitted in {knit_time:.2f}s.")
+    log.info("Knitted in %.2fs.", knit_time)
 
     if project:
         with tracer.phase("project"):
             values = smolin_project(values).to(torch.float32)
-    dist = Distribution(values.cpu().numpy(), positions, virt.num_clbits)
+    with span("port.fetch"):
+        dist = Distribution(values.cpu().numpy(), positions,
+                            virt.num_clbits)
     return dist, RunTimeInfo(run_time, knit_time)

@@ -15,14 +15,56 @@ device)``, the device ``run_virtual_circuit`` binds to the tracer)
 before it starts its clock and before it reads it.  A caller that
 passes no tracer gets :data:`NO_TRACER`, whose phases are empty
 contexts: tracing adds no synchronise to an untraced call.
+
+:func:`span` names a stretch of the request path on the profiler's own
+clock, the clock the card's kernels are on, so a trace shows what the
+host was doing while the card waited.  With ``torch.profiler`` running it
+enters a function-scope record (``_RecordFunctionFast``): a host-only
+event.  ``record_function`` would not do: it is a user annotation, and
+with CUDA activity on the profiler gives it a device-side copy that runs
+from the first to the last kernel it launched, so a span around a scan
+would count the idle gaps between its launches as device work.  A span
+never synchronises.  With the profiler off, ``span`` reads one module
+flag and returns a shared null context: no record is built and no clock
+is read (0.2-0.4 us a span on the host CPU of an H100 machine).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import pathlib
 import time
 from dataclasses import dataclass, field
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# a host-only record on the profiler's clock (the type is looked up at
+# each call, so a test may count its constructions)
+_Record = torch._C._profiler._RecordFunctionFast
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context naming its block ``name`` in a running ``torch.profiler``
+    trace; the shared null context when no profiler runs (the flag is a
+    module attribute that the profiler rebinds, so it is read through
+    the module)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Record(name)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 @dataclass
@@ -35,8 +77,6 @@ class Phase:
 def _sync(device) -> None:
     """Wait for ``device``'s queue (None = the current card), where CUDA is
     in use in this process; a CPU device has no queue."""
-    import torch
-
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and torch.cuda.is_initialized():
         torch.cuda.synchronize(dev)
@@ -64,7 +104,9 @@ class Tracer:
         _sync(self.device)
         t0 = time.perf_counter()
         try:
-            yield
+            # and a span on the kernels' clock, inside the phase's own
+            with span("port.phase." + name):
+                yield
         finally:
             _sync(self.device)
             self.phases.append(Phase(name, time.perf_counter() - t0, meta))
@@ -74,7 +116,6 @@ class Tracer:
         kernels and copies)."""
         if self.profile_dir is None or self._profiling:
             return
-        import torch
         from torch.profiler import ProfilerActivity, profile
 
         pathlib.Path(self.profile_dir).mkdir(parents=True, exist_ok=True)

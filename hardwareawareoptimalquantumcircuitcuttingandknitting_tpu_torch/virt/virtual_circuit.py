@@ -22,6 +22,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..circuit.circuit import Circuit, Register
+from ..utils.profiling import spanned
 from .virtual_gates import VirtualGateOp
 
 
@@ -64,6 +65,7 @@ class FragmentProgram:
 class VirtualCircuit:
     """Splits a cut circuit (one register per fragment) into programs."""
 
+    @spanned("port.virtual_circuit")
     def __init__(self, circuit: Circuit) -> None:
         self._circuit = circuit
         self.vgate_instrs = [

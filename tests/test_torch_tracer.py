@@ -2,8 +2,8 @@
 the same phases (names, order and meta) on the batched engine (with a
 checkpoint saved, then loaded, and shots), the sampled engine and the
 streamed scans; the traced result equals the untraced one bit for bit;
-a ``profile_dir`` gets a ``torch.profiler`` Chrome trace; and an untraced
-call never waits for the card."""
+a ``profile_dir`` gets a ``torch.profiler`` Chrome trace (batched and
+default routes); and an untraced call never waits for the card."""
 import json
 
 import numpy as np
@@ -64,6 +64,10 @@ def test_phases_match_jax(engine, kw, tmp_path, monkeypatch):
         assert len(calls) == n_sync  # no tracer, no synchronise
         assert plain.bit_positions == got.bit_positions
         np.testing.assert_array_equal(plain.values, got.values)
+    if engine == "pallas":
+        # the default route's scan runs inside the tracer's device trace
+        trace = tmp_path / "prof" / "trace_0.json"
+        assert tt.traces == [str(trace)] and json.loads(trace.read_text())
     if engine == "xla":
         # the first run simulated inside a device trace; the second loaded
         # the checkpoint and traced nothing
