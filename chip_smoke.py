@@ -387,15 +387,17 @@ def _variant_chunk(label, virt, blk, folded, staged, on_main_path=False):
     """One chunk of labels ``blk`` (on the card) through every fragment's
     row call of the variant kernel (``label_rows``: sorted by slot digits,
     run table, kernel, rows put back), held to the plain version on the
-    order given, a second call equal bit for bit; times of the call, of
-    the kernel alone (traced) and of the plain version; the roofline
-    work of the function's own stages on the sorted chunk, and what the
-    kernel's runs replay.  Returns the kernels-line row."""
+    order given, a second call equal bit for bit, and each plan's shared
+    prefix (built on the card by the blocked kernel) held to its plain
+    version on the CPU; times of the call, of the kernel alone (traced)
+    and of the plain version; the roofline work of the function's own
+    stages on the sorted chunk, and what the kernel's runs replay.
+    Returns the kernels-line row."""
     import numpy as np
     import torch
 
     vk = _port("ops.variant_kernel")
-    calls, err, frags = [], 0.0, {}
+    calls, err, prefix_err, frags = [], 0.0, 0.0, {}
     keys = ("bytes", "flops", "passes", "passes_before", "pass_bytes")
     work, kwork = dict.fromkeys(keys, 0), dict.fromkeys(keys, 0)
     for name in (r.name for r in virt.fragments):
@@ -406,6 +408,7 @@ def _variant_chunk(label, virt, blk, folded, staged, on_main_path=False):
             fn, _ = vk.make_chunk_kernel(virt, name, blk.shape[0],
                                          staged=staged, device=DEV)
         dp = fn.plan
+        prefix_err = max(prefix_err, _prefix_err(dp))
         got = vk.label_rows(dp, blk, fn.weigh)
         torch.cuda.synchronize()
         launch = dict(vk.variant_rows.last_launch)
@@ -431,6 +434,8 @@ def _variant_chunk(label, virt, blk, folded, staged, on_main_path=False):
             work[key] += wk[key]
             kwork[key] += kw[key]
         frags[name] = {"n": dp.plan.n, "ops": len(dp.plan.ops),
+                       "prefix_ops": len(dp.plan.prefix_ops),
+                       "prefix_launches": dp.prefix_launches,
                        "rewritten_rows": len(dp.plan.table.rows),
                        "segments": n_seg, "runs": int(launch["runs"]),
                        "cap": launch["cap"], "grid": launch["grid"],
@@ -456,6 +461,7 @@ def _variant_chunk(label, virt, blk, folded, staged, on_main_path=False):
         "replaces": TPU_KERNEL,
         "launches": None,  # filled from the main path's run
         "max_abs_err": err,
+        "prefix_max_abs_err": prefix_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -468,7 +474,8 @@ def _variant_chunk(label, virt, blk, folded, staged, on_main_path=False):
         "work": work,
         "kernel_work": kwork,
     }
-    print(f"kernel {label}: fragments={frags} max_abs_err={err:.3e} | one "
+    print(f"kernel {label}: fragments={frags} max_abs_err={err:.3e} "
+          f"prefix_max_abs_err={prefix_err:.3e} | one "
           f"{blk.shape[0]}-label chunk through {len(calls)} fragments: "
           f"ms={ms:.4f} (the kernel alone, traced: {kernel_ms:.4f}; the "
           f"call's device busy {prof['device_busy_ms']}) plain_ms="
@@ -480,6 +487,9 @@ def _variant_chunk(label, virt, blk, folded, staged, on_main_path=False):
           f"table: {kwork['passes_before']})", flush=True)
     if not err <= TOL:
         raise RuntimeError(f"{label}: kernel vs plain {err:.3e} > {TOL}")
+    if not prefix_err <= TOL:
+        raise RuntimeError(f"{label}: prefix vs plain {prefix_err:.3e} > "
+                           f"{TOL}")
     return row
 
 
@@ -676,23 +686,59 @@ def _kernel_row(report, name):
     return next(r for r in report["kernels"] if r["name"] == name)
 
 
+# the prefix_launches of the kernel-1 plans built since _reset_counts
+_PREFIX = {"launches": 0}
+
+
+def _count_prefixes():
+    """From here on every kernel-1 ``DevicePlan`` built adds its own
+    ``prefix_launches`` (the blocked kernel's launches that built its
+    shared prefix) to the ``prefix`` count of :func:`_counts`."""
+    plan = _port("ops.variant_kernel").DevicePlan
+    init = plan.__init__
+
+    def counted(self, *args, **kw):
+        init(self, *args, **kw)
+        _PREFIX["launches"] += self.prefix_launches
+
+    plan.__init__ = counted
+
+
 def _reset_counts():
     _port("ops.blocked_kernel").blocked_rows.launches = 0
     _port("ops.variant_kernel").variant_rows.launches = 0
     _port("ops.collapse_kernel").collapse_rows.launches = 0
     _port("ops.sv_kernel").sv_rows.launches = 0
+    _PREFIX["launches"] = 0
 
 
 def _counts():
+    """Each kernel's launches, counted where they launch, and ``prefix``:
+    what the kernel-1 plans built meanwhile say their prefixes took."""
     return {"blocked": _port("ops.blocked_kernel").blocked_rows.launches,
             "variant": _port("ops.variant_kernel").variant_rows.launches,
             "collapse": _port("ops.collapse_kernel").collapse_rows.launches,
-            "sv": _port("ops.sv_kernel").sv_rows.launches}
+            "sv": _port("ops.sv_kernel").sv_rows.launches,
+            "prefix": _PREFIX["launches"]}
 
 
-def _only(**launched):
-    """The launch counts of a path that ran these kernels and no other."""
-    return {"blocked": 0, "variant": 0, "collapse": 0, "sv": 0, **launched}
+def _only(prefix=0, **launched):
+    """The launch counts of a path that ran these kernels and no other,
+    besides ``prefix`` blocked launches: the shared prefixes of the
+    kernel-1 plans it built, each a plan's ``prefix_launches``."""
+    out = {"blocked": 0, "variant": 0, "collapse": 0, "sv": 0, **launched,
+           "prefix": prefix}
+    out["blocked"] += prefix
+    return out
+
+
+def _prefix_err(dp):
+    """How far a kernel-1 plan's shared prefix, built on the card by the
+    blocked kernel, lies from the same chain's plain version on the
+    CPU."""
+    want, _ = _port("ops.blocked_kernel").build_prefix(
+        dp.plan.prefix_ops, dp.plan.n, "cpu")
+    return (dp.prefix.cpu() - want).abs().max().item()
 
 
 def phase_forced_sup20(circ, virt, report, window=13):
@@ -969,14 +1015,20 @@ def phase_wide(label, virt, report, analytic, kernel_row=None,
              "global-memory path")
     need(np.isfinite(values).all() and values.shape == (1 << len(keep),),
          "marginal not finite or of the wrong shape")
-    need(counts == _only(**{kernel: expect + prefix}),
+    # kernel 1's plans are built anew by each call, their prefixes too
+    need(counts == _only(**{kernel: expect + prefix},
+                         prefix=counts["prefix"]),
          f"launched {counts}, expected {expect} + {prefix} {kernel} "
-         "launches only")
-    need(z_counts == _only(**{kernel: expect}),
+         "launches and kernel 1's prefixes only")
+    need(z_counts == _only(**{kernel: expect}, prefix=z_counts["prefix"]),
          f"expectation launched {z_counts}")
-    need(build_counts == [_only(blocked=prefix), _only()],
+    need(build_counts == [_only(blocked=prefix,
+                                prefix=build_counts[0]["prefix"]),
+                          _only(prefix=build_counts[1]["prefix"])],
          f"builds launched {build_counts}, expected {prefix} prefix "
-         "launches, then none")
+         "launches, then none but kernel 1's prefixes")
+    need((counts["prefix"] > 0) == (kernel == "variant"),
+         f"kernel 1's prefixes launched {counts['prefix']} times")
     need(all(metas[1]["fragment_plans"][n] is metas[0]["fragment_plans"][n]
              for n in prefix_segs), "the second build built a plan")
     need(plain_counts == _only(),
@@ -1255,9 +1307,10 @@ def phase_sampled_sup20(virt, report):
     # the kernel's full rows against the plain version at the launch
     # shapes of this path: its first block and its short last one
     vk = _port("ops.variant_kernel")
-    rows_err = 0.0
+    rows_err = prefix_err = 0.0
     for fn in next(iter(virt._scan_step_cache.values()))["row_fns"]:
         dp, ones = fn.rows_fn.plan, fn.rows_fn.weigh
+        prefix_err = max(prefix_err, _prefix_err(dp))
         for rows in (vidx[:block], vidx[(total - 1) // block * block:]):
             blk = torch.as_tensor(rows, device=DEV, dtype=torch.int64)
             got = vk.label_rows(dp, blk, ones)
@@ -1269,22 +1322,25 @@ def phase_sampled_sup20(virt, report):
         "launches": counts, "expected_launches": expect, "wall_s": wall,
         "mass_sum": float(mass.sum()), "max_abs_err_vs_exact_knit": err,
         "full_rows_max_abs_err_at_path_blocks": rows_err,
+        "prefix_max_abs_err": prefix_err,
     }
     print(f"main sampled sup20 (ancilla mode, full grid): labels={total} "
           f"block={block} launches={counts} expected={expect} "
           f"wall_s={wall:.4f} max_abs_err_vs_exact_knit={err:.3e} "
           f"full rows vs plain at blocks of {block} and "
-          f"{total - (total - 1) // block * block}: {rows_err:.3e}",
-          flush=True)
+          f"{total - (total - 1) // block * block}: {rows_err:.3e} "
+          f"prefix_max_abs_err={prefix_err:.3e}", flush=True)
     if any(flags):
         raise RuntimeError(f"sup-20 went to collapse mode: {flags}")
-    if counts != _only(variant=expect):
+    if counts != _only(variant=expect, prefix=counts["prefix"]):
         raise RuntimeError(f"sampled sup-20 launched {counts}, expected "
-                           f"{expect} variant launches only")
+                           f"{expect} variant launches and kernel 1's "
+                           "prefixes only")
     if est.bit_positions != exact.bit_positions or not err <= 1e-6:
         raise RuntimeError(f"full-grid identity off by {err:.3e}")
-    if not rows_err <= TOL:
-        raise RuntimeError(f"full rows vs plain {rows_err:.3e} > {TOL}")
+    if not rows_err <= TOL or not prefix_err <= TOL:
+        raise RuntimeError(f"full rows vs plain {rows_err:.3e}, prefix "
+                           f"{prefix_err:.3e} > {TOL}")
     row = _kernel_row(report, "variant_rows/full_rows_staged")
     row["launches"] = counts["variant"]
     row["on_main_path"] = True
@@ -2293,8 +2349,9 @@ def phase_main_sup25_streamed(circ, virt, report):
     need(all(s is not None for s in out["splits"]), "a fragment has no bank")
     need(counts == _only(), f"the scan without a kernel launched {counts}")
     need(fid > FID_MIN, f"fidelity {fid!r}")
-    need(pallas_counts["variant"] > 0
-         and pallas_counts == _only(variant=pallas_counts["variant"]),
+    need(pallas_counts["variant"] > 0 and pallas_counts["prefix"] > 0
+         and pallas_counts == _only(variant=pallas_counts["variant"],
+                                    prefix=pallas_counts["prefix"]),
          f"engine='pallas' launched {pallas_counts}")
     need(pallas_err <= TOL and pallas_rel <= REL_TOL,
          f"pallas vs streamed {pallas_err:.3e} ({pallas_rel:.3e} of the "
@@ -3033,9 +3090,10 @@ def phase_main(label, circ, virt, report, timed_reps=1, kernel_row=None):
           f"launches={launches} first_run_s={first_s:.4f} "
           f"warm_wall_s={[round(w, 4) for w in walls]} fidelity={fid!r}",
           flush=True)
-    if counts != _only(variant=launches) or not launches > 0:
+    if counts != _only(variant=launches, prefix=counts["prefix"]) \
+            or not launches > 0:
         raise RuntimeError(f"{label}: launched {counts}, expected the "
-                           "variant kernel only")
+                           "variant kernel and its prefixes only")
     if not fid > FID_MIN:
         raise RuntimeError(f"{label}: fidelity {fid!r} <= {FID_MIN}")
     if kernel_row is not None:
@@ -3979,7 +4037,8 @@ def phase_bv(report, card):
             raise RuntimeError(f"{label}: cuts and S {got} != {want}")
         if not row["fidelity"] >= FRONT_FID:
             raise RuntimeError(f"{label}: fidelity {row['fidelity']!r}")
-        if row["launches"] != _only(variant=row["launches"]["variant"]) \
+        if row["launches"] != _only(variant=row["launches"]["variant"],
+                                    prefix=row["launches"]["prefix"]) \
                 or not row["launches"]["variant"] > 0:
             raise RuntimeError(f"{label}: launched {row['launches']}")
     report["bv"] = out
@@ -4085,7 +4144,8 @@ def phase_qasm(circ, virt, report, card):
           flush=True)
     if not (same_ins and same_plan and equal):
         raise RuntimeError("qasm round trip differs")
-    if counts != _only(variant=counts["variant"]) or not counts["variant"]:
+    if counts != _only(variant=counts["variant"],
+                       prefix=counts["prefix"]) or not counts["variant"]:
         raise RuntimeError(f"qasm: launched {counts}")
 
 # ---------------------------------------------------------------------------
@@ -4112,13 +4172,36 @@ def _syc32(label, depth, cap, keep, card, stored_plan=None):
     stored plan), its marginal on ``keep`` through
     run_virtual_circuit(engine="pallas", keep_clbits=...) counted (cold),
     warm with the peak memory and a device-only trace, held to
-    lightcone_marginal on the card."""
+    lightcone_marginal on the card.  Kernel 1's plans built again as the
+    path builds them: each shared prefix, made on the card by the blocked
+    kernel, held to its plain version on the CPU, and the prefix
+    launches alone timed against the plain version on the card."""
+    import torch
+
+    bk = _port("ops.blocked_kernel")
+    vk = _port("ops.variant_kernel")
     lc = _port("circuit.lightcone")
     run = _port("run").run_virtual_circuit
     (circ, virt), cut_s = _timed(lambda: _cut(
         "syc", 32, cap, 0, depth=depth, stored_plan=stored_plan))
     kw = dict(engine="pallas", keep_clbits=keep, device=DEV)
     (marg, _), cold_s, counts = _counted(lambda: run(virt, **kw))
+    dps, _, plan_counts = _counted(lambda: [vk.make_folded_chunk_kernel(
+        virt, r.name, CHUNK, keep_clbits=keep, device=DEV)[0].plan
+        for r in virt.fragments])
+    prefix_err = max(_prefix_err(dp) for dp in dps)
+    chains = [bk.BlockedDevicePlan(bk.plan_prefix(dp.plan.prefix_ops,
+                                                  dp.plan.n), DEV)
+              for dp in dps]
+    prefix_ms = _time_ms(lambda: [bk.prefix_state(c) for c in chains],
+                         reps=5)
+    prefix_plain_ms = _time_ms(
+        lambda: [bk.plain_prefix_state(c) for c in chains], reps=2, warm=1)
+    # a segment reads and writes the [2, 2^n] float32 state once
+    prefix_bound = _bound({"bytes": sum(16 * c.plan.n_prefix << c.plan.n
+                                        for c in chains), "flops": 0})
+    del dps, chains
+    torch.cuda.synchronize()
     (again, _), warm_s, peak = _peak_run(lambda: run(virt, **kw))
     prof = _profile(lambda: run(virt, **kw), cpu=False)
     sub, cmap = lc.lightcone_circuit(circ, set(keep))
@@ -4133,6 +4216,9 @@ def _syc32(label, depth, cap, keep, card, stored_plan=None):
            "fragment_sim_qubits": [virt.programs[r.name].num_sim_qubits
                                    for r in virt.fragments],
            "keep": keep, "launches": counts, "cold_s": cold_s,
+           "plan_launches": plan_counts, "prefix_max_abs_err": prefix_err,
+           "prefix_ms": prefix_ms, "prefix_plain_ms": prefix_plain_ms,
+           "prefix_bound": prefix_bound,
            "warm_s": warm_s, "peak_gb": peak,
            "device_idle_share": prof["device_idle_share"],
            "device_busy_ms": prof["device_busy_ms"],
@@ -4144,12 +4230,24 @@ def _syc32(label, depth, cap, keep, card, stored_plan=None):
           f"{out['fragment_sim_qubits']} launches={counts} cold_s="
           f"{cold_s:.4f} warm_s={warm_s!r} idle_share="
           f"{out['device_idle_share']} peak_gb={peak:.4f} lightcone_qubits="
-          f"{sub.num_qubits} oracle_s={oracle_s:.4f} max_abs_err={err:.3e}",
-          flush=True)
+          f"{sub.num_qubits} oracle_s={oracle_s:.4f} max_abs_err={err:.3e}"
+          f"\n  kernel 1's plans again: launches={plan_counts} "
+          f"prefix_max_abs_err={prefix_err:.3e} prefix launches alone "
+          f"ms={prefix_ms:.4f} plain_ms={prefix_plain_ms:.4f} bound_ms="
+          f"{prefix_bound[0]:.6f}", flush=True)
     if marg.bit_positions != oracle.bit_positions:
         raise RuntimeError(f"syc32 {label}: positions {marg.bit_positions}")
-    if counts != _only(variant=counts["variant"]) or not counts["variant"]:
+    if counts != _only(variant=counts["variant"],
+                       prefix=counts["prefix"]) or not counts["variant"]:
         raise RuntimeError(f"syc32 {label}: launched {counts}")
+    if not (plan_counts["prefix"] > 0
+            and plan_counts == _only(prefix=plan_counts["prefix"])
+            and counts["prefix"] == plan_counts["prefix"]):
+        raise RuntimeError(f"syc32 {label}: the plans' prefixes launched "
+                           f"{plan_counts}, the path's {counts}")
+    if not prefix_err <= TOL:
+        raise RuntimeError(f"syc32 {label}: prefix vs plain "
+                           f"{prefix_err:.3e} > {TOL}")
     if not err <= TOL:
         raise RuntimeError(f"syc32 {label}: {err:.3e} from the lightcone "
                            f"oracle > {TOL}")
@@ -4161,12 +4259,27 @@ def phase_syc32_lightcone(report, card):
     cut: fragments of 18 and 14 qubits) on an 8-clbit marginal, depth 3
     (the stored plan, 4 gate cuts, two 20-qubit fragments: kernel 1's
     global-memory path) on a 4-clbit marginal, each within 1e-5 of the
-    lightcone oracle."""
-    report["syc32_lightcone"] = {
-        "d1": _syc32("d1", 1, 20, SYC_D1_KEEP, card),
-        "d3": _syc32("d3", 3, 17, SYC_D3_KEEP, card,
-                     stored_plan="syc32_d3_p2_q17"),
-    }
+    lightcone oracle; d3's kernel-1 prefixes, built by the blocked
+    kernel, are its kernels-line row ``blocked_rows/variant_prefix``."""
+    out = report["syc32_lightcone"] = {
+        "d1": _syc32("d1", 1, 20, SYC_D1_KEEP, card)}
+    d3 = out["d3"] = _syc32("d3", 3, 17, SYC_D3_KEEP, card,
+                            stored_plan="syc32_d3_p2_q17")
+    report.setdefault("kernels", []).append({
+        "name": "blocked_rows/variant_prefix",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/blocked_kernel.cu",
+        "replaces": TPU_BLOCKED,
+        "launches": d3["launches"]["prefix"],
+        "max_abs_err": d3["prefix_max_abs_err"],
+        "ms": d3["prefix_ms"],
+        "plain_ms": d3["prefix_plain_ms"],
+        "bound_ms": d3["prefix_bound"][0],
+        "bound_by": d3["prefix_bound"][1],
+        "library_ms": None,
+        "on_main_path": True,
+        "fragment_sim_qubits": d3["fragment_sim_qubits"],
+    })
 
 
 def phase_compiler(report, card):
@@ -4201,7 +4314,8 @@ def phase_compiler(report, card):
         if got != widths or len(virt.vgates) != vgates:
             raise RuntimeError(f"compiler {key}: {got} / {len(virt.vgates)}"
                                f" vgates, expected {widths} / {vgates}")
-        if row["launches"] != _only(variant=row["launches"]["variant"]) \
+        if row["launches"] != _only(variant=row["launches"]["variant"],
+                                    prefix=row["launches"]["prefix"]) \
                 or not row["launches"]["variant"]:
             raise RuntimeError(f"compiler {key}: launched {row['launches']}")
         if not row["fidelity"] > FID_MIN:
@@ -4277,7 +4391,8 @@ def phase_sparse_knit(circ, virt, report, card):
           f"{cold_s:.4f} rows_s={rows_s:.4f} knit_s={knit_s:.4f} keys="
           f"{len(q)} fidelity={fid!r} full rows vs plain at (fragment, "
           f"chunk, chunks) {shapes}: {rows_err:.3e}", flush=True)
-    if counts != _only(variant=counts["variant"]) or not counts["variant"]:
+    if counts != _only(variant=counts["variant"],
+                       prefix=counts["prefix"]) or not counts["variant"]:
         raise RuntimeError(f"sparse_knit: launched {counts}")
     if not rows_err <= TOL:
         raise RuntimeError(f"sparse_knit: full rows vs plain {rows_err:.3e}"
@@ -4530,6 +4645,7 @@ def main() -> int:
     if failed:
         print("chip_smoke FAILED: " + "; ".join(failed), file=sys.stderr)
         return 1
+    _count_prefixes()
     # the cut solver first: its build is timed here, before any cut
     phase("native_solver", phase_native_solver, report, card)
     cuts = {}

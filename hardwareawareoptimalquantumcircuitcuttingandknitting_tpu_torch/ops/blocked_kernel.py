@@ -25,12 +25,17 @@ SEGMENTS:
   ``|psi|^2`` rows in place of the state;
 * the shared prefix runs through the same kernel, one state from
   ``|0...0>``, when the device plan is built, and the device plan is
-  cached on the ``VirtualCircuit`` (:func:`device_plan`).
+  cached on the ``VirtualCircuit`` (:func:`device_plan`);
+* the prefix routine serves kernel 1 too: :func:`build_prefix` plans any
+  fixed gate chain as :func:`plan_prefix` (the prefix half of
+  :func:`build_plan`) and runs it the same way, so the variant kernel's
+  shared prefix state is built on its plan's device as well.
 
-Layers, as in ``variant_kernel.py``: the host build (:func:`build_plan`),
-the wrappers (:func:`apply_segment` for one segment, :func:`segment_rows`
-for the last, :func:`blocked_rows` for a chunk's ``|psi|^2`` rows,
-:func:`prefix_state` for the prefix) that launch the CUDA kernel on CUDA
+Layers, as in ``variant_kernel.py``: the host build (:func:`build_plan`,
+:func:`plan_prefix`), the wrappers (:func:`apply_segment` for one
+segment, :func:`segment_rows` for the last, :func:`blocked_rows` for a
+chunk's ``|psi|^2`` rows, :func:`prefix_state` and :func:`build_prefix`
+for a prefix) that launch the CUDA kernel on CUDA
 tensors and count the launches, and the plain PyTorch versions
 (:func:`plain_segment`, :func:`plain_segment_rows`,
 :func:`plain_blocked_rows`, :func:`plain_prefix_state`: the same
@@ -328,22 +333,38 @@ def build_plan(virt: VirtualCircuit, frag_name: str,
     pinned bits (a 2q gate off them needs two slots) and build the
     tables: original and rewritten rows (moves folded), copy tables."""
     prefix_ops, suffix, prog = _plan_ops(virt, frag_name)
-    # an identity does nothing (the rewrite drops its row): it takes no
-    # window slot either
-    prefix_ops, suffix = (
-        [op for op in ops if op[0] != "u"
-         or op_rewrite.classify(op[1]) != "identity"]
-        for ops in (prefix_ops, suffix))
-    specs = [vg.spec for vg in virt.vgates]
-    n = prog.num_sim_qubits
+    return _build(prefix_ops, suffix, prog.num_sim_qubits, window, pinned,
+                  OpTable(prog, [vg.spec for vg in virt.vgates]))
+
+
+def plan_prefix(ops, n: int, window: int = DEFAULT_WINDOW,
+                pinned: int = DEFAULT_PINNED) -> BlockedPlan:
+    """The prefix half of :func:`build_plan`, for any fixed gate chain
+    ``ops`` (``[("u", complex mat, qubit axes)]`` over ``n`` qubits in
+    the canonical layout): a plan whose segments are all prefix, with no
+    suffix and no slot."""
+    return _build(ops, [], n, window, pinned, OpTable(None, []))
+
+
+def _without_identities(ops) -> list:
+    """An identity does nothing (the rewrite drops its row): it takes no
+    window slot either."""
+    return [op for op in ops if op[0] != "u"
+            or op_rewrite.classify(op[1]) != "identity"]
+
+
+def _build(prefix_ops, suffix, n: int, window: int, pinned: int,
+           table: OpTable) -> BlockedPlan:
+    """:func:`build_plan`'s tables for a prefix and a suffix over ``n``
+    qubits; ``table`` is the suffix's empty :class:`OpTable`."""
+    prefix_ops, suffix = map(_without_identities, (prefix_ops, suffix))
     w = min(window, n - 1)
     c = max(0, min(pinned, w - 2))
     pre = plan_segments(prefix_ops, n, w, c)
     segs = plan_segments(suffix, n, w, c)
 
-    pre_table = OpTable(prog, specs)
+    pre_table = OpTable(None, [])   # fixed gates alone
     pre_ranges = _add_segments(pre_table, pre)
-    table = OpTable(prog, specs)
     ranges = _add_segments(table, segs)
     ops, fixed = table.ops_array(), table.fixed_array()
 
@@ -604,6 +625,28 @@ def prefix_state(dp: BlockedDevicePlan) -> torch.Tensor:
     for g in range(dp.plan.n_prefix):
         _launch(dp, g, st, st, 2 << dp.plan.n, ent, 1, 0)
     return st[0]
+
+
+def build_prefix(ops, n: int, device, window: int = DEFAULT_WINDOW,
+                 pinned: int = DEFAULT_PINNED) -> tuple[torch.Tensor, int]:
+    """``(state, launches)``: ``|0...0>`` through the fixed gate chain
+    ``ops`` (``[("u", complex mat, qubit axes)]``, qubit ``q`` on flat
+    bit ``n-1-q``), ``[2, 2^n]`` float32 on ``device``, and the segment
+    launches it took.  The chain is planned as :func:`plan_prefix` plans
+    it and run as :class:`BlockedDevicePlan` runs kernel 4's prefix: by
+    the kernel on a card (one launch a segment, counted in
+    ``blocked_rows.launches``), by :func:`plain_prefix_state` on the CPU
+    (no launch); an empty chain plans no segment.  A window holds at most
+    ``n - 1`` bits and a two-qubit gate needs 2, so a state of fewer than
+    3 qubits is run as the low amplitudes of a 3-qubit one, the qubits
+    added above it left in ``|0>``."""
+    pad = max(0, 3 - n)
+    ops = [(kind, mat, tuple(q + pad for q in axes))
+           for kind, mat, axes in ops]
+    dp = BlockedDevicePlan(plan_prefix(ops, n + pad, window, pinned),
+                           device)
+    launches = dp.plan.n_prefix if dp.device.type == "cuda" else 0
+    return dp.prefix[:, :1 << n].contiguous(), launches
 
 
 def _launch_segment(dp: BlockedDevicePlan, k: int, state, entries,

@@ -11,7 +11,9 @@ full ``|psi|^2`` rows.
 Three layers:
 
 * the host build (:func:`build_plan`): the same fused op stream the JAX
-  kernel runs, split at the first slot; the prefix runs once on the host;
+  kernel runs, split at the first slot; the prefix runs once, on the
+  plan's device, through kernel 4's segment launches
+  (``blocked_kernel.build_prefix``, when :class:`DevicePlan` is built);
   the suffix becomes an integer op table over flat bits plus a fixed-
   coefficient pool, grouped into one segment per slot (staged mode), and
   that table rewritten by ``ops/op_rewrite`` for the kernel (identities
@@ -50,7 +52,7 @@ from ..virt.virtual_circuit import VirtualCircuit
 from . import op_rewrite
 from .kernel_build import KernelLibrary, check_tensor
 from .op_rewrite import OP_GATE1, OP_GATE2, matvec_ops
-from .statevector import apply_matrix_host, apply_slices, marginalize_flat
+from .statevector import apply_slices, marginalize_flat
 from .variant_engine import _slot_tables, _fuse_slot_ops
 
 # Port's own width gate: up to 15 qubits the state is on chip, from 16 to
@@ -246,6 +248,11 @@ class SlotEntries:
 class VariantPlan:
     """Host build of one fragment's kernel (the JAX ``_build_call``).
 
+    ``prefix_ops`` are the fixed gates before the first slot, ``("u",
+    complex mat, qubit axes)`` in kernel 4's canonical layout (qubit
+    ``q`` on flat bit ``n-1-q``, relabelled so that each lands on the
+    flat bit this plan gives it): the prefix runs once, on the plan's
+    device, through kernel 4's segment launches (:class:`DevicePlan`).
     ``ops``, ``fixed`` and the entry tables are an :class:`OpTable`'s
     (the original table, which the plain version replays).
     ``segments`` are op ranges: one per slot when staged, else
@@ -256,7 +263,7 @@ class VariantPlan:
     ``fold`` is None (full rows) or ``(wbits, zmask, d)``."""
 
     n: int
-    prefix: np.ndarray             # [2, 2^n] float32, shared by all labels
+    prefix_ops: list               # [("u", mat, axes)] before the slots
     ops: np.ndarray                # [n_ops, 4] int32
     fixed: np.ndarray              # float32 coefficient pool
     segments: list                 # [(start, end)] op ranges
@@ -316,15 +323,10 @@ def build_plan(virt: VirtualCircuit, frag_name: str, fold=None,
         assert zmask & ((1 << d_keep) - 1) == 0
         fold_desc = (wbits, zmask, d_keep)
 
-    # host-shared prefix at full width (apply_matrix_host's qubit q' sits
-    # on flat bit n-1-q')
-    with span("port.build.prefix"):
-        st = np.zeros((2, 1 << n), np.float32)
-        st[0, 0] = 1.0
-        for op in prefix_ops:
-            st = apply_matrix_host(
-                st, op[1], tuple(n - 1 - flat_of_q[q] for q in op[2]), n
-            )
+    # the shared prefix in kernel 4's canonical layout, where qubit q'
+    # sits on flat bit n-1-q': q' = n-1-flat_of_q[q] puts q on its bit
+    prefix = [("u", mat, tuple(n - 1 - flat_of_q[q] for q in axes))
+              for _, mat, axes in prefix_ops]
 
     table = OpTable(prog, specs)
     for op in suffix:
@@ -336,7 +338,7 @@ def build_plan(virt: VirtualCircuit, frag_name: str, fold=None,
                 if r[0] in (OP_GATE1, OP_GATE2) and r[3] < 0]
     assert len(k_starts) == len(table.slot_rows)
     return VariantPlan(
-        n=n, prefix=st, ops=ops, fixed=fixed,
+        n=n, prefix_ops=prefix, ops=ops, fixed=fixed,
         segments=_segments(table.slot_rows, len(ops), staged),
         entry_tables=table.entry_tables,
         entry_gids=table.entry_gids, entry_stride=table.entry_stride,
@@ -360,12 +362,14 @@ class DevicePlan:
     """A :class:`VariantPlan` with its tables on one device: the kernel's
     rewritten rows, pool and segment starts, the entry tables and the
     fold's weight bits (the plain version reads the plan's original
-    table)."""
+    table), and the shared prefix state ``prefix`` (``[2, 2^n]``) built
+    there by ``blocked_kernel.build_prefix``: kernel 4's segment launches
+    on a card (``prefix_launches`` of them), its plain version on the
+    CPU (none)."""
 
     def __init__(self, plan: VariantPlan, device):
         self.plan = plan
         self.device = torch.device(device)
-        self.prefix = to_device(plan.prefix, device)
         self.rows = to_device(
             plan.table.rows if len(plan.table.rows)
             else np.zeros((1, op_rewrite.ROW), np.int32), device)
@@ -390,6 +394,11 @@ class DevicePlan:
             self.key_strides = to_device(np.asarray(
                 [math.prod(radix[i + 1:]) for i in range(len(radix))],
                 np.int64), device)
+        from .blocked_kernel import build_prefix  # it imports this module
+
+        with span("port.build.prefix"):
+            self.prefix, self.prefix_launches = build_prefix(
+                plan.prefix_ops, plan.n, self.device)
 
     def gather_entries(self, vidx_chunk: torch.Tensor) -> torch.Tensor:
         """``[C, entry_stride]`` per-label slot entries for a ``[C,
@@ -894,7 +903,7 @@ def work_counts(plan: VariantPlan, stage: np.ndarray, n_w: int,
     passes = int((k_rows - k_starts[stage]).sum())
     epi = (3 + len(plan.fold[0]) + 2 if plan.fold is not None else 3) * big
     nbytes = 4 * (
-        plan.prefix.size + plan.ops.size + plan.fixed.size
+        (2 << plan.n) + plan.ops.size + plan.fixed.size
         + c * max(1, plan.entry_stride) + c + c * n_w * 2
         + c * plan.out_width
     )

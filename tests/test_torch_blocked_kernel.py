@@ -332,6 +332,33 @@ def test_prefix_from_plain_segments_matches_host(config, window):
                                atol=0)
 
 
+@pytest.mark.parametrize("config,window", [("hwe16", 8), ("hwe16", 13),
+                                           ("sup12", 5)])
+def test_prefix_half_is_the_shared_routine(config, window):
+    """The prefix segments of a fragment's plan are ``plan_prefix``'s on
+    the same gates, row for row (rows, pool, copy tables, phases, folded
+    moves), and ``build_prefix`` gives the device plan's prefix, with no
+    launch on the CPU: kernel 1's prefix and kernel 4's are one path."""
+    _, tv, name = _hwe16() if config == "hwe16" else _sup12()
+    prefix_ops, _, prog = vk._plan_ops(tv, name)
+    n = prog.num_sim_qubits
+    plan = bk.build_plan(tv, name, window)
+    pre = bk.plan_prefix(prefix_ops, n, window)
+    g = pre.n_prefix
+    assert g == plan.n_prefix >= 1 and not pre.segments
+    assert pre.prefix_perms == plan.prefix_perms
+    assert pre.row_segments == plan.row_segments[:g]
+    assert pre.folded == plan.folded[:g]
+    r1, p1 = plan.row_segments[g - 1][1::2]
+    np.testing.assert_array_equal(pre.table.rows, plan.table.rows[:r1])
+    np.testing.assert_array_equal(pre.table.pool, plan.table.pool[:p1])
+    np.testing.assert_array_equal(pre.tables, plan.tables[:g])
+    np.testing.assert_array_equal(pre.phases, plan.phases[:g])
+    state, launches = bk.build_prefix(prefix_ops, n, "cpu", window)
+    assert launches == 0
+    assert torch.equal(state, bk.BlockedDevicePlan(plan, "cpu").prefix)
+
+
 def test_device_plan_is_cached_on_the_circuit(monkeypatch):
     """A second scan build on the same circuit builds no plan and gives
     the same values; another window builds new entries."""

@@ -402,6 +402,119 @@ def test_blocked_kernel_refuses_a_wrong_state(card):
     assert bk.blocked_rows.launches == before
 
 
+def _stored_cut(family: str, n: int, depth: int, cap: int, stored: str):
+    """genCirc(family, n, depth, seed=0) cut into 2 partitions of at most
+    ``cap`` qubits by the plan ``stored`` in the port's ``plans``."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch import (  # noqa: E501
+        plans,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.cutter.cutter import (  # noqa: E501
+        Cutter,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.models.zoo import (  # noqa: E501
+        genCirc,
+    )
+
+    cutter = Cutter(genCirc(family, n, depth, seed=0), maxNPartitions=2,
+                    maxNQubitsPerPartition=cap, maxNQpdCuts=5, maxNCuts=5,
+                    maxCutsPerPartitions=5)
+    cutter.use_plan(plans.load_plan(stored))
+    return VirtualCircuit(cutter.getResultCircs()[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 20])
+def test_variant_prefix_built_on_card(card, n):
+    """Kernel 1's shared prefix is built on the card by kernel 4's segment
+    launches: one a prefix segment, counted in ``blocked_rows.launches``
+    and in ``DevicePlan.prefix_launches``; the state within 1e-5 of the
+    plain version's, and kernel 1's rows from it within 1e-5 of
+    ``plain_variant_rows``.  n = 16: the deep chain's fragment; n = 20:
+    both fragments of syc-32 d3 (the stored P2 Q17 plan)."""
+    if n == 16:
+        virt = _deep_chain()
+        names = ["frag0"]
+    else:
+        virt = _stored_cut("syc", 32, 3, 17, "syc32_d3_p2_q17")
+        names = [reg.name for reg in virt.fragments]
+    for name in names:
+        before = bk.blocked_rows.launches
+        fn, _ = vk.make_folded_chunk_kernel(virt, name, 64, device=card)
+        torch.cuda.synchronize()
+        dp = fn.plan
+        assert dp.plan.n == n and dp.prefix.device.type == "cuda"
+        segments = bk.plan_prefix(dp.plan.prefix_ops, n).n_prefix
+        assert dp.prefix_launches == segments >= 1
+        assert bk.blocked_rows.launches == before + segments
+        plain, none = bk.build_prefix(dp.plan.prefix_ops, n, "cpu")
+        assert none == 0
+        assert (dp.prefix.cpu() - plain).abs().max().item() <= TOL
+        blk = _block(virt, 64, 5).to(card)
+        got = vk.label_rows(dp, blk, fn.weigh)
+        want = vk.plain_variant_rows(dp, dp.gather_entries(blk),
+                                     fn.weigh(blk))
+        assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2])
+def test_narrow_prefix_on_card(card, n):
+    """A chain on fewer than 3 qubits is run by the kernel as the low
+    amplitudes of a 3-qubit state (window 2): one launch a segment,
+    counted in ``blocked_rows.launches``, and the state within 1e-5 of
+    the plain version's on the CPU."""
+    rng = np.random.default_rng(n)
+
+    def unitary(k):
+        z = rng.normal(size=(k, k)) + 1j * rng.normal(size=(k, k))
+        return np.linalg.qr(z)[0]
+
+    ops = [("u", unitary(2), (q,)) for q in range(n)]
+    if n == 2:
+        ops += [("u", unitary(4), (0, 1)), ("u", unitary(2), (1,))]
+    before = bk.blocked_rows.launches
+    state, launches = bk.build_prefix(ops, n, card)
+    torch.cuda.synchronize()
+    assert state.shape == (2, 1 << n) and state.is_contiguous()
+    assert launches >= 1 and bk.blocked_rows.launches == before + launches
+    want, none = bk.build_prefix(ops, n, "cpu")
+    assert none == 0
+    assert (state.cpu() - want).abs().max().item() <= TOL
+    assert abs((want ** 2).sum().item() - 1) <= TOL
+
+
+@pytest.mark.cuda
+def test_blocked_prefix_through_the_shared_routine(card):
+    """Kernel 4's hwe-40 prefix (the stored P2 Q21 plan, 22-qubit
+    fragments) comes from the routine kernel 1's prefix uses: its plan's
+    prefix segments are ``plan_prefix``'s, row for row, and
+    ``build_prefix`` on the same gates launches as many segments and
+    gives the device plan's prefix bit for bit, within 1e-5 of the plain
+    version's."""
+    virt = _stored_cut("hwe", 40, 2, 21, "hwe40_d2_p2_q21")
+    for reg in virt.fragments:
+        dp = bk.device_plan(virt, reg.name, bk.DEFAULT_WINDOW,
+                            bk.DEFAULT_PINNED, card)
+        ops, _, prog = vk._plan_ops(virt, reg.name)
+        pre = bk.plan_prefix(ops, prog.num_sim_qubits)
+        g = pre.n_prefix
+        assert dp.plan.n_prefix == g
+        assert dp.plan.row_segments[:g] == pre.row_segments
+        r1, p1 = (dp.plan.row_segments[g - 1][1::2] if g else (0, 0))
+        assert np.array_equal(dp.plan.table.rows[:r1], pre.table.rows)
+        assert np.array_equal(dp.plan.table.pool[:p1], pre.table.pool)
+        assert np.array_equal(dp.plan.tables[:g], pre.tables)
+        assert np.array_equal(dp.plan.phases[:g], pre.phases)
+        before = bk.blocked_rows.launches
+        state, launches = bk.build_prefix(ops, prog.num_sim_qubits, card)
+        torch.cuda.synchronize()
+        assert launches == g
+        assert bk.blocked_rows.launches == before + g
+        assert torch.equal(state, dp.prefix)
+        assert (dp.prefix - bk.plain_prefix_state(dp)).abs().max().item() \
+            <= TOL
+
+
 # ---------------------------------------------------------------------------
 # The collapse kernel (csrc/collapse_kernel.cu)
 # ---------------------------------------------------------------------------

@@ -9,29 +9,58 @@ import numpy as np
 import pytest
 import torch
 
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.circuit.circuit import (  # noqa: E501
+    Circuit as JCircuit,
+    Instruction as JInstruction,
+    Register as JRegister,
+)
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.ops.pallas_variant import (  # noqa: E501
     make_chunk_kernel as j_make_chunk_kernel,
     make_folded_chunk_kernel as j_make_folded_chunk_kernel,
 )
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.virt.virtual_circuit import (  # noqa: E501
+    VirtualCircuit as JVirtualCircuit,
+)
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.virt.virtual_gates import (  # noqa: E501
+    VirtualGateOp as JVirtualGateOp,
+)
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
     variant_kernel as vk,
 )
-from torch_port_common import chain_cut_pair, cut_pair, label_table, shuffled
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.statevector import (  # noqa: E501
+    apply_matrix_host,
+)
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.virt.virtual_circuit import (  # noqa: E501
+    VirtualCircuit as TVirtualCircuit,
+)
+from torch_port_common import (
+    chain_cut_pair,
+    cut_pair,
+    label_table,
+    shuffled,
+    to_port,
+)
 
 ATOL = 2e-6
 
 
-def _rows_both(jvirt, tvirt, name, chunk, rows_of, **kw):
+def _rows_both(jvirt, tvirt, name, chunk, rows_of, full=False, **kw):
     """Rows of every chunk of the global label table from the JAX kernel
-    and the port, for ``rows_of(vidx) -> label order``."""
+    and the port, for ``rows_of(vidx) -> label order``: folded rows, or
+    with ``full`` the full rows of ``make_chunk_kernel``."""
     import jax.numpy as jnp
 
-    j_fn, j_pos = j_make_folded_chunk_kernel(
-        jvirt, name, chunk, interpret=True, staged=False, **kw
-    )
-    t_fn, t_pos = vk.make_folded_chunk_kernel(
-        tvirt, name, chunk, device="cpu", **kw
-    )
+    if full:
+        j_fn, j_pos = j_make_chunk_kernel(jvirt, name, chunk, interpret=True,
+                                          staged=False)
+        t_fn, t_pos = vk.make_chunk_kernel(tvirt, name, chunk, device="cpu")
+    else:
+        j_fn, j_pos = j_make_folded_chunk_kernel(
+            jvirt, name, chunk, interpret=True, staged=False, **kw
+        )
+        t_fn, t_pos = vk.make_folded_chunk_kernel(
+            tvirt, name, chunk, device="cpu", **kw
+        )
     assert t_pos == j_pos
     vidx, total, padded = label_table(tvirt, chunk)
     arr = rows_of(vidx, total)
@@ -319,3 +348,95 @@ def test_wrapper_counts_only_cuda_launches():
     vidx, _, _ = label_table(tvirt, 8)
     fn(torch.as_tensor(vidx[:8], dtype=torch.int64))
     assert vk.variant_rows.launches == before
+
+
+def _edge_pair():
+    """frag0 (8 qubits) opens with a cut, so its prefix is empty; frag1
+    is one data qubit whose gates all come before the cut, so its prefix
+    is a state narrower than any window of kernel 4's.  Returns
+    (jax_virt, port_virt)."""
+    cut = JCircuit([JRegister("frag0", 8), JRegister("frag1", 1)], 9)
+    cut.h(8)
+    cut.rx(0.3, 8)
+    cut.append(JInstruction("vgate", [7, 8], op=JVirtualGateOp("cz")))
+    cut.h(0)
+    for i in range(7):
+        cut.cx(i, i + 1)
+        cut.ry(0.2 + 0.1 * i, i)
+    cut.rz(0.4, 8)
+    for q in range(9):
+        cut.measure(q, q)
+    return JVirtualCircuit(cut), TVirtualCircuit(to_port(cut))
+
+
+_PAIRS = {
+    "hwe16": lambda: cut_pair("hwe", 16, 3, 10)[2:],
+    "sup12": lambda: cut_pair("sup", 12, 1, 10, seed=5)[2:],
+    "syc16": lambda: cut_pair("syc", 16, 2, 10)[2:],
+    "edge": _edge_pair,
+}
+_BUILT: dict = {}
+
+# (circuit, fragment, epilogue): full rows, the fold keeping every data
+# bit, some of them (their sources moved to the low flat bits), none (z)
+PREFIX_CASES = {
+    "hwe16-full": ("hwe16", "frag0", "full"),
+    "hwe16-fold": ("hwe16", "frag1", "fold"),
+    "sup12-keep": ("sup12", "frag0", "keep"),
+    "sup12-full": ("sup12", "frag1", "full"),
+    "syc16-z": ("syc16", "frag0", "z"),
+    "syc16-keep": ("syc16", "frag1", "keep"),
+    "empty-prefix": ("edge", "frag0", "keep"),
+    "narrow": ("edge", "frag1", "full"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREFIX_CASES))
+def test_device_prefix_matches_the_host_loop(case):
+    """DevicePlan.prefix, built on the plan's device by kernel 4's prefix
+    routine (its plain version here, no launch), equals the host loop
+    that built it before (``apply_matrix_host`` gate by gate, each qubit
+    on the flat bit the plan gives it) within 1e-6: unfolded and folded
+    plans, a fold whose kept clbits permute the flat bits, a fragment
+    whose prefix is empty (``|0...0>``) and one of a single data qubit
+    (run as the low amplitudes of a 3-qubit state); the rows of every
+    label match the JAX kernel's (its host prefix on the same gates),
+    but for the single qubit, a fragment the JAX kernel does not
+    serve."""
+    pair, name, epilogue = PREFIX_CASES[case]
+    if pair not in _BUILT:
+        _BUILT[pair] = _PAIRS[pair]()
+    jvirt, tvirt = _BUILT[pair]
+    prog = tvirt.programs[name]
+    n = prog.num_sim_qubits
+    data = [p for p in sorted(prog.clbit_sources) if p < tvirt.num_clbits]
+    kw = {"full": None, "fold": {}, "keep": {"keep_clbits": data[::-2]},
+          "z": {"z_clbits": data[:3]}}[epilogue]
+    if kw is None:
+        fn, _ = vk.make_chunk_kernel(tvirt, name, 8, device="cpu")
+        flat = {q: n - 1 - q for q in range(n)}
+    else:
+        fn, kept = vk.make_folded_chunk_kernel(tvirt, name, 8, device="cpu",
+                                               **kw)
+        order = [prog.clbit_sources[c] for c in kept]
+        order += [q for q in range(n) if q not in order]
+        flat = {q: j for j, q in enumerate(order)}
+    dp = fn.plan
+    prefix_ops, _, _ = vk._plan_ops(tvirt, name)
+    want = np.zeros((2, 1 << n), np.float32)
+    want[0, 0] = 1.0
+    for _, mat, axes in prefix_ops:
+        want = apply_matrix_host(want, mat, tuple(n - 1 - flat[q]
+                                                  for q in axes), n)
+    assert dp.prefix.shape == (2, 1 << n) and dp.prefix.dtype == torch.float32
+    np.testing.assert_allclose(dp.prefix.numpy(), want, atol=1e-6)
+    assert dp.prefix_launches == 0
+    assert len(dp.plan.prefix_ops) == len(prefix_ops)
+    if epilogue == "keep":  # the kept sources left the canonical bits
+        assert any(flat[q] != n - 1 - q for q in range(n))
+    if pair == "edge":
+        assert (n < 3) == (name == "frag1")
+        assert (not prefix_ops) == (name == "frag0")
+    if case != "narrow":
+        _rows_both(jvirt, tvirt, name, 8, lambda v, t: v, full=kw is None,
+                   **(kw or {}))
