@@ -708,6 +708,7 @@ def _reset_counts():
     _port("ops.blocked_kernel").blocked_rows.launches = 0
     _port("ops.variant_kernel").variant_rows.launches = 0
     _port("ops.collapse_kernel").collapse_rows.launches = 0
+    _port("ops.collapse_kernel").collapse_rows.rows = 0
     _port("ops.sv_kernel").sv_rows.launches = 0
     _PREFIX["launches"] = 0
 
@@ -1392,6 +1393,7 @@ def phase_main_qft16(circ, virt, report):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts = _counts()
+    rows = _port("ops.collapse_kernel").collapse_rows.rows
     cache = virt._scan_step_cache
     built = {k: list(map(id, v["row_fns"])) for k, v in cache.items()}
 
@@ -1487,7 +1489,8 @@ def phase_main_qft16(circ, virt, report):
         "collapse_flags": flags, "unique_labels": len(uniq),
         "expanded_labels": len(lab_all), "block": block,
         "n_blocks": n_blocks, "launches": counts,
-        "expected_launches": expect, "z_launches": z_counts,
+        "expected_launches": expect, "collapse_rows": rows,
+        "z_launches": z_counts,
         "first_call_s": first_s, "second_call_s": second_s,
         "expectation_z_s": z_s, "label_sampling_s": sample_s,
         "scan_build_s": build_s, "second_call_rebuilt_a_plan": rebuilt,
@@ -1537,6 +1540,8 @@ def phase_main_qft16(circ, virt, report):
          "marginal not finite or of the wrong shape")
     need(counts == _only(collapse=expect),
          f"launched {counts}, expected {expect} collapse launches only")
+    need(rows == len(lab_all) * len(virt.fragments),
+         f"kernel 3 counted {rows} rows, not {len(lab_all)} a fragment")
     need(z_counts["collapse"] > 0 and not z_counts["variant"],
          f"<Z> launched {z_counts}")
     need(plain_counts == _only(),

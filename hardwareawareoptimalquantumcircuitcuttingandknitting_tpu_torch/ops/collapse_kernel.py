@@ -545,17 +545,23 @@ def collapse_rows(dp: CollapseDevicePlan, entries, cscal):
     """``(rows [C, out_width], bits [C, n_sites] int32)`` for a block of
     labels.  CUDA tensors launch the hand-written kernel (counted in
     ``collapse_rows.launches``); CPU tensors run
-    :func:`plain_collapse_rows`.  ``entries [C, entry_stride]`` (from
-    :meth:`CollapseDevicePlan.gather_entries`), ``cscal [C, n_sites, 4]``
-    f32 (u, mflag, w0, w1 per site, in ``plan.site_meta`` order)."""
+    :func:`plain_collapse_rows`.  Either way ``collapse_rows.rows``
+    counts the C trajectory rows computed.  ``entries [C, entry_stride]``
+    (from :meth:`CollapseDevicePlan.gather_entries`), ``cscal [C,
+    n_sites, 4]`` f32 (u, mflag, w0, w1 per site, in ``plan.site_meta``
+    order)."""
     if entries.is_cuda:
-        return _launch(dp, entries, cscal)
-    if entries.device.type != "cpu":
+        out = _launch(dp, entries, cscal)
+    elif entries.device.type != "cpu":
         raise ValueError(f"unsupported device {entries.device}")
-    return plain_collapse_rows(dp, entries, cscal)
+    else:
+        out = plain_collapse_rows(dp, entries, cscal)
+    collapse_rows.rows += entries.shape[0]
+    return out
 
 
 collapse_rows.launches = 0
+collapse_rows.rows = 0
 collapse_rows.last_launch = None
 
 

@@ -69,6 +69,17 @@ routes above, kernels included.
 Refused: noise with a ``dtype``, with a collapse-mode fragment or with
 ``mesh`` with the JAX package's ValueError; a PEC model with ValueError
 naming the batched engine.
+
+Spans (``utils/profiling.span``: host-only records under a running
+``torch.profiler``, the shared null context otherwise; none waits for
+the card): ``port.sample.labels`` around drawing the labels and
+expanding the measuring ones (:func:`_draw`); ``port.sample.build``
+around :func:`_build_scan` on a cache miss (kernel 3's plans and tables,
+with their ``port.build.prefix``); ``port.sample.scan`` around the block
+loop of :func:`_scan_core`, inside it ``port.sample.rows`` (one
+fragment's rows of one block) and ``port.sample.knit`` (one block's
+weighted knit into the accumulators); ``port.sample.cv`` around the
+control-variate adjustment and the standard error (:func:`_stderr`).
 """
 from __future__ import annotations
 
@@ -77,6 +88,7 @@ import torch
 
 from ..convert import resolve_device, to_device
 from ..utils.logger import get_logger
+from ..utils.profiling import span
 from ..virt.virtual_circuit import VirtualCircuit
 from .bits import permute_bits_flat
 from .collapse_kernel import MAX_OUTCOMES, make_collapse_chunk_kernel
@@ -436,6 +448,27 @@ def _expand_measuring_counts(virt, uniq, counts, cap=None):
     return labels, fcounts
 
 
+def _draw(virt, num_samples, seed, method, cflags, collapse_reps,
+          threshold=None):
+    """``(labels [L, G], mass [L])`` of one estimate, inside the span
+    ``port.sample.labels``: ``num_samples`` draws (of the tail, rejected
+    above ``threshold``, where given), deduplicated, each sample of a
+    measuring label its own row where a fragment collapses
+    (:func:`_expand_measuring_counts`); ``mass`` = counts / samples."""
+    with span("port.sample.labels"):
+        if threshold is None:
+            uniq, counts = sample_label_counts(virt, num_samples, seed,
+                                               method=method)
+        else:
+            uniq, counts = _sample_tail_counts(virt, num_samples, threshold,
+                                               seed, method=method)
+        counts = counts.astype(np.float64)
+        if any(cflags):
+            uniq, counts = _expand_measuring_counts(virt, uniq, counts,
+                                                    cap=collapse_reps)
+        return uniq, counts / num_samples
+
+
 def _expand_measuring_mass(virt, rows, w, reps):
     """Head-path twin of :func:`_expand_measuring_counts`: exact-mass
     labels have no counts, so measuring labels get a fixed ``reps``
@@ -531,6 +564,22 @@ def _noise_models(virt: VirtualCircuit, noise):
         for m in models[: len(virt.fragments)]
     ]
     return None if all(m is None for m in models) else models
+
+
+def _stderr(values, m2, stats, y_expect, num_samples, head_var=None):
+    """``(values, per-outcome standard error)``, inside the span
+    ``port.sample.cv``: the control-variate adjustment where ``stats``
+    (:func:`_cv_adjust`, against ``y_expect``), else the sample's own
+    variance; ``head_var``: a collapse-fed head's variance, added."""
+    with span("port.sample.cv"):
+        if stats is not None:
+            values, var = _cv_adjust(values, m2, stats, y_expect)
+        else:
+            var = np.maximum(m2 - values**2, 0.0)
+        se2 = var / num_samples
+        if head_var is not None:
+            se2 = se2 + head_var
+        return values, np.sqrt(se2)
 
 
 def _cv_adjust(est_values, m2, stats, y_expect):
@@ -1103,6 +1152,7 @@ def _scan_core(
     noise=None,
     noise_seed: int = 0,
     device=None,
+    probe: dict | None = None,
 ):
     """The blocked estimate behind :func:`_estimate` / :func:`_estimate_z`:
     a loop over label blocks accumulates the weighted knit (and the
@@ -1121,7 +1171,10 @@ def _scan_core(
     the noise models.  A repeat estimate builds no plan again.
 
     ``mesh``: the label blocks split over its "dp" axis (module
-    docstring), on ``mesh.device`` unless ``device`` is given."""
+    docstring), on ``mesh.device`` unless ``device`` is given.
+    ``probe``: a dict with ``"size"``, filled by the first scan that
+    meets it with that many of its rows, evenly spaced over the scan
+    (:func:`_fill_probe`)."""
     dev = (mesh.device if mesh is not None and device is None
            else resolve_device(device))
     gamma_total = (
@@ -1146,9 +1199,10 @@ def _scan_core(
     cache = virt.__dict__.setdefault("_scan_step_cache", {})
     ent = cache.get(key)
     if ent is None:
-        ent = _build_scan(virt, flags, keep_clbits, z_sets, dev,
-                          pallas_variant=pallas_variant, dtype=dtype,
-                          noise=noise)
+        with span("port.sample.build"):
+            ent = _build_scan(virt, flags, keep_clbits, z_sets, dev,
+                              pallas_variant=pallas_variant, dtype=dtype,
+                              noise=noise)
         cache[key] = ent
     block = (_label_block(virt, flags, keep_clbits, z_sets, ent["states"])
              if block is None else max(1, int(block)))
@@ -1216,51 +1270,74 @@ def _scan_core(
     nb = -(-nb // dp) * dp
     per = nb // dp
     b0 = 0 if mesh is None else mesh.index("dp") * per
-    for s in range(min(L, b0 * block), min(L, (b0 + per) * block), block):
-        e = min(L, s + block)
-        lab_c, w_c, w2_c = lab_dev[s:e], w_dev[s:e], w2_dev[s:e]
-        rows_list = []
-        for fi, fn in enumerate(row_fns):
-            d = data[fi]
-            rows, pos = fn(lab_c, None if d is None else d[s:e])
-            if keep_set is not None:
-                rows, pos = _marginalize_rows(rows, pos, keep_set)
-            assert pos == pos_static[fi], (pos, pos_static[fi])
-            rows_list.append(rows)
-        if z_sets is None:
-            est += _comb(w_c, rows_list)
-            if stats:
-                m2 += _comb(w2_c, [r * r for r in rows_list])
-        else:
-            prodmat = None
-            for fi, (rows, pos) in enumerate(zip(rows_list, pos_static)):
-                # pre-reduced rows (in-kernel z) already carry the
-                # signed contributions; others go through the matrix
-                if z_pre[fi]:
-                    sc = rows[:, : len(z_sets)]
+    stride = (max(1, L // max(1, int(probe["size"])))
+              if probe is not None and "labels" not in probe else 0)
+    picked = []
+    with span("port.sample.scan"):
+        for s in range(min(L, b0 * block), min(L, (b0 + per) * block),
+                       block):
+            e = min(L, s + block)
+            lab_c, w_c, w2_c = lab_dev[s:e], w_dev[s:e], w2_dev[s:e]
+            rows_list = []
+            for fi, fn in enumerate(row_fns):
+                d = data[fi]
+                with span("port.sample.rows"):
+                    rows, pos = fn(lab_c, None if d is None else d[s:e])
+                    if keep_set is not None:
+                        rows, pos = _marginalize_rows(rows, pos, keep_set)
+                assert pos == pos_static[fi], (pos, pos_static[fi])
+                rows_list.append(rows)
+            if stride:
+                # rows j * stride of the scan, j < size: a strided slice
+                # of the block, kept on the card until the scan ends
+                j0, j1 = -(-s // stride), min(probe["size"], -(-e // stride))
+                if j1 > j0:
+                    sl = slice(j0 * stride - s, (j1 - 1) * stride - s + 1,
+                               stride)
+                    picked.append((
+                        [j * stride for j in range(j0, j1)], lab_c[sl],
+                        [None if d is None else d[s:e][sl] for d in data],
+                        [r[sl].clone() for r in rows_list]))
+            with span("port.sample.knit"):
+                if z_sets is None:
+                    est += _comb(w_c, rows_list)
+                    if stats:
+                        m2 += _comb(w2_c, [r * r for r in rows_list])
                 else:
-                    if fi not in sign_mats:
-                        sign_mats[fi] = _z_sign_matrix(pos, z_sets, dev)
-                    sc = rows @ sign_mats[fi]
-                prodmat = sc if prodmat is None else prodmat * sc
-            est += w_c @ prodmat
-            if stats:
-                m2 += w2_c @ (prodmat * prodmat)
-        if control_stats:
-            totals = None
-            for fi, r in enumerate(rows_list):
-                t = (
-                    r[:, len(z_sets)]
-                    if (z_sets is not None and z_pre[fi])
-                    else r.sum(dim=1)
-                )
-                totals = t if totals is None else totals * t
-            ym += torch.dot(w_c, totals)
-            y2 += torch.dot(w2_c, totals * totals)
-            if z_sets is None:
-                xy += _comb(w2_c * totals, rows_list)
-            else:
-                xy += (w2_c * totals) @ prodmat
+                    prodmat = None
+                    for fi, (rows, pos) in enumerate(zip(rows_list,
+                                                         pos_static)):
+                        # pre-reduced rows (in-kernel z) already carry
+                        # the signed contributions; others go through
+                        # the matrix
+                        if z_pre[fi]:
+                            sc = rows[:, : len(z_sets)]
+                        else:
+                            if fi not in sign_mats:
+                                sign_mats[fi] = _z_sign_matrix(pos, z_sets,
+                                                               dev)
+                            sc = rows @ sign_mats[fi]
+                        prodmat = sc if prodmat is None else prodmat * sc
+                    est += w_c @ prodmat
+                    if stats:
+                        m2 += w2_c @ (prodmat * prodmat)
+                if control_stats:
+                    totals = None
+                    for fi, r in enumerate(rows_list):
+                        t = (
+                            r[:, len(z_sets)]
+                            if (z_sets is not None and z_pre[fi])
+                            else r.sum(dim=1)
+                        )
+                        totals = t if totals is None else totals * t
+                    ym += torch.dot(w_c, totals)
+                    y2 += torch.dot(w2_c, totals * totals)
+                    if z_sets is None:
+                        xy += _comb(w2_c * totals, rows_list)
+                    else:
+                        xy += (w2_c * totals) @ prodmat
+    if picked:
+        _fill_probe(probe, virt, picked, pos_static, ent["collapse"])
     if mesh is not None:
         for acc in (est, m2, ym, y2, xy):
             mesh.all_reduce(acc, "dp")
@@ -1289,6 +1366,31 @@ def _scan_core(
     return tuple(out)
 
 
+def _fill_probe(probe, virt, picked, positions, collapse):
+    """The probe's trajectories, copied to the host from ``picked``
+    (per block: scan rows, labels, draws and rows of each fragment):
+    ``index`` (their rows in the scan), ``labels [k, G]`` (a variant
+    per vgate) and per fragment ``clbits`` (the data clbits it
+    measures), ``positions`` (its rows' clbits, the first the lowest
+    bit), ``draws [k, sites]`` (the collapse draws, None in ancilla
+    mode) and ``rows [k, width]`` (float32, folded as the knit takes
+    them)."""
+    probe["index"] = np.asarray([j for p in picked for j in p[0]])
+    probe["labels"] = torch.cat([p[1] for p in picked]).cpu().numpy()
+    probe["fragments"] = []
+    for fi, reg in enumerate(virt.fragments):
+        prog = virt.programs[reg.name]
+        probe["fragments"].append({
+            "clbits": sorted(c for c in prog.clbit_sources
+                             if c < virt.num_clbits),
+            "positions": list(positions[fi]),
+            "draws": (torch.cat([p[2][fi] for p in picked]).cpu().numpy()
+                      if collapse[fi] else None),
+            "rows": torch.cat([p[3][fi] for p in picked]).float().cpu()
+            .numpy(),
+        })
+
+
 def _estimate(
     virt: VirtualCircuit,
     labels: np.ndarray,
@@ -1305,6 +1407,7 @@ def _estimate(
     pallas_variant: bool = True,
     mesh=None,
     device=None,
+    probe: dict | None = None,
 ):
     """Core estimator: ``sum_l mass[l] * gamma_total * signed_knit(l)``.
 
@@ -1339,7 +1442,7 @@ def _estimate(
     through its calibrated readout; :func:`_noisy_row_builder`).
 
     Every estimate goes through the blocked scan (:func:`_scan_core`),
-    its block from :func:`_label_block`."""
+    its block from :func:`_label_block`; ``probe`` as there."""
     flags = list(collapse) if collapse is not None else \
         [False] * len(virt.fragments)
     return _scan_core(
@@ -1348,6 +1451,7 @@ def _estimate(
         gamma_override=gamma_override, dtype=dtype, flags=flags,
         collapse_seed=collapse_seed, pallas_variant=pallas_variant,
         mesh=mesh, noise=noise, noise_seed=noise_seed, device=device,
+        probe=probe,
     )
 
 
@@ -1438,6 +1542,7 @@ def sampled_knit(
     pallas_variant: bool = True,
     mesh=None,
     device=None,
+    probe: dict | None = None,
 ):
     """Unbiased Monte-Carlo estimate of the knitted distribution from
     ``num_samples`` QPD samples — only the sampled labels' instances are
@@ -1488,23 +1593,22 @@ def sampled_knit(
     and the stderr/stratified/LHS machinery compose unchanged.  Noise
     with a ``dtype``, with a collapse-mode fragment or with ``mesh``
     raises the JAX package's ValueError.  ``mesh``: the label blocks
-    split over its "dp" axis (:func:`_scan_core`)."""
+    split over its "dp" axis (:func:`_scan_core`).
+
+    ``probe``: a dict ``{"size": k}``, filled in the scan with ``k``
+    trajectories evenly spaced over it: their ``labels`` and per
+    fragment its ``draws`` and folded ``rows``, copied to the host once
+    the scan ends (:func:`_fill_probe`).  The estimate does not
+    change."""
     noise = _noise_models(virt, noise)
     cflags = _collapse_flags(virt, collapse)
     _check_noise_args(noise, dtype, cflags, mesh)
     ckw = dict(collapse=cflags, pallas_variant=pallas_variant, dtype=dtype,
-               noise=noise, device=device)
+               noise=noise, device=device, probe=probe)
     split = stratified_split(virt, head_labels) if head_labels else None
     if split is None:
-        uniq, counts = sample_label_counts(virt, num_samples, seed,
-                                           method=method)
-        if any(cflags):
-            uniq, fc = _expand_measuring_counts(
-                virt, uniq, counts.astype(np.float64), cap=collapse_reps
-            )
-            mass = fc / num_samples
-        else:
-            mass = counts.astype(np.float64) / num_samples
+        uniq, mass = _draw(virt, num_samples, seed, method, cflags,
+                           collapse_reps)
         if not (with_stderr or control_variate):
             return _estimate(virt, uniq, mass, keep_clbits,
                              noise_seed=noise_seed,
@@ -1515,15 +1619,12 @@ def sampled_knit(
             noise_seed=noise_seed, collapse_seed=seed * 31 + 17,
             **ckw,
         )
-        vals = np.asarray(est.values)
+        vals, se = _stderr(np.asarray(est.values), m2,
+                           rest[0] if control_variate else None, 1.0,
+                           num_samples)
         if control_variate:
-            vals, var = _cv_adjust(vals, m2, rest[0], 1.0)
             est = Distribution(vals, est.bit_positions, virt.num_clbits)
-        else:
-            var = np.maximum(m2 - vals**2, 0.0)
-        if not with_stderr:
-            return est
-        return est, np.sqrt(var / num_samples)
+        return (est, se) if with_stderr else est
 
     head_rows, head_w, thresh, gamma_head, gamma_tail = split
     head_var = None
@@ -1567,15 +1668,8 @@ def sampled_knit(
                 else np.zeros_like(np.asarray(head.values))
             return head, np.sqrt(hv)
         return head
-    uniq, counts = _sample_tail_counts(virt, num_samples, thresh, seed,
-                                       method=method)
-    if any(cflags):
-        uniq, fc = _expand_measuring_counts(
-            virt, uniq, counts.astype(np.float64), cap=collapse_reps
-        )
-        mass = fc / num_samples
-    else:
-        mass = counts.astype(np.float64) / num_samples
+    uniq, mass = _draw(virt, num_samples, seed, method, cflags,
+                       collapse_reps, threshold=thresh)
     if not (with_stderr or control_variate):
         tail = _estimate(virt, uniq, mass, keep_clbits,
                          gamma_override=gamma_tail,
@@ -1593,27 +1687,18 @@ def sampled_knit(
     )
     # the tail's sampling variance, plus the head's collapse-draw
     # variance when collapse mode fed it (head_var is None on the exact
-    # enumeration path)
-    tail_vals = np.asarray(tail.values)
-    if control_variate:
-        # the head's y_mean IS its exact mass (weights are exact, and
-        # collapse preserves row totals), so the tail total's exact
-        # expectation is 1 - head_mass
-        tail_vals, var = _cv_adjust(
-            tail_vals, m2, rest[0], 1.0 - head_stats["y_mean"],
-        )
-    else:
-        var = np.maximum(m2 - tail_vals**2, 0.0)
+    # enumeration path); the head's y_mean IS its exact mass (weights
+    # are exact, and collapse preserves row totals), so the tail total's
+    # exact expectation is 1 - head_mass
+    tail_vals, se = _stderr(
+        np.asarray(tail.values), m2, rest[0] if control_variate else None,
+        1.0 - head_stats["y_mean"] if control_variate else None,
+        num_samples, head_var)
     est = Distribution(
         np.asarray(head.values) + tail_vals,
         head.bit_positions, virt.num_clbits,
     )
-    if not with_stderr:
-        return est
-    se2 = var / num_samples
-    if head_var is not None:
-        se2 = se2 + head_var
-    return est, np.sqrt(se2)
+    return (est, se) if with_stderr else est
 
 
 def _z_sign_matrix(positions, z_sets, device):
@@ -1714,15 +1799,8 @@ def sampled_expectation_z(
                noise=noise, device=device)
     split = stratified_split(virt, head_labels) if head_labels else None
     if split is None:
-        uniq, counts = sample_label_counts(virt, num_samples, seed,
-                                           method=method)
-        if any(cflags):
-            uniq, fc = _expand_measuring_counts(
-                virt, uniq, counts.astype(np.float64), cap=collapse_reps
-            )
-            mass = fc / num_samples
-        else:
-            mass = counts.astype(np.float64) / num_samples
+        uniq, mass = _draw(virt, num_samples, seed, method, cflags,
+                           collapse_reps)
         if not (with_stderr or control_variate):
             return _estimate_z(virt, uniq, mass, z_sets,
                                noise_seed=noise_seed,
@@ -1733,13 +1811,9 @@ def sampled_expectation_z(
             noise_seed=noise_seed, collapse_seed=seed * 31 + 17,
             **ckw,
         )
-        if control_variate:
-            est, var = _cv_adjust(est, m2, rest[0], 1.0)
-        else:
-            var = np.maximum(m2 - est**2, 0.0)
-        if not with_stderr:
-            return est
-        return est, np.sqrt(var / num_samples)
+        est, se = _stderr(est, m2, rest[0] if control_variate else None,
+                          1.0, num_samples)
+        return (est, se) if with_stderr else est
 
     head_rows, head_w, thresh, gamma_head, gamma_tail = split
     head_var = None
@@ -1776,15 +1850,8 @@ def sampled_expectation_z(
             hv = head_var if head_var is not None else np.zeros_like(head)
             return head, np.sqrt(hv)
         return head
-    uniq, counts = _sample_tail_counts(virt, num_samples, thresh, seed,
-                                       method=method)
-    if any(cflags):
-        uniq, fc = _expand_measuring_counts(
-            virt, uniq, counts.astype(np.float64), cap=collapse_reps
-        )
-        mass = fc / num_samples
-    else:
-        mass = counts.astype(np.float64) / num_samples
+    uniq, mass = _draw(virt, num_samples, seed, method, cflags,
+                       collapse_reps, threshold=thresh)
     if not (with_stderr or control_variate):
         tail = _estimate_z(virt, uniq, mass, z_sets,
                            gamma_override=gamma_tail,
@@ -1799,18 +1866,11 @@ def sampled_expectation_z(
     )
     # tail sampling variance + the head's collapse-draw variance (None
     # on the exact enumeration path)
-    if control_variate:
-        tail, var = _cv_adjust(tail, m2, rest[0],
-                               1.0 - head_stats["y_mean"])
-    else:
-        var = np.maximum(m2 - tail**2, 0.0)
+    tail, se = _stderr(tail, m2, rest[0] if control_variate else None,
+                       1.0 - head_stats["y_mean"] if control_variate
+                       else None, num_samples, head_var)
     est = head + tail
-    if not with_stderr:
-        return est
-    se2 = var / num_samples
-    if head_var is not None:
-        se2 = se2 + head_var
-    return est, np.sqrt(se2)
+    return (est, se) if with_stderr else est
 
 
 def sampled_expectation_z_adaptive(

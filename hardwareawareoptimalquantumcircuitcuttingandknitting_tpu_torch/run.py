@@ -36,7 +36,13 @@ collapse-mode fragments run the collapse kernel (ops/collapse_kernel.py)
 and ancilla-mode fragments the variant kernel's full rows, up to 20
 qubits; every other fragment, and every fragment with
 ``sample_pallas=False`` or a bf16 ``dtype``, runs without a kernel
-(``variant_engine.make_sim_fn``).  Observables go through
+(``variant_engine.make_sim_fn``).  Where the engine computes the
+estimate's variance anyway (``sample_cv=True``, or ``sample_eps``),
+``RunTimeInfo.stderr`` returns the per-outcome standard error in the
+``Distribution``'s order; it is None on every other engine and call.
+``sample_probe=k`` returns ``k`` of the scan's trajectory rows, evenly
+spaced, with their labels and draws in ``RunTimeInfo.probe``, for a
+replay to hold them to.  Observables go through
 ``ops.qpd_sampling.sampled_expectation_z``, noise through
 ``ops.noise.run_noisy_virtual_circuit(engine="sampled")``.
 
@@ -70,6 +76,8 @@ import logging
 import time
 from dataclasses import dataclass
 
+import numpy as np
+
 from .ops.statevector import Distribution
 from .utils.logger import get_logger
 from .utils.profiling import NO_TRACER, span
@@ -84,15 +92,23 @@ AUTO_STREAM_LABELS = 16384
 
 @dataclass
 class RunTimeInfo:
-    """Phase timings (reference: qvm/run.py:17-20, extended)."""
+    """Phase timings (reference: qvm/run.py:17-20, extended).
+    ``stderr``: the sampled engine's per-outcome standard error of the
+    estimate (numpy, in the ``Distribution``'s order, of the values
+    before ``project``), where it computes the variance anyway; else
+    None.  ``probe``: with ``sample_probe``, the trajectory rows
+    ``ops.qpd_sampling.sampled_knit`` describes under ``probe``; else
+    None."""
 
     run_time: float
     knit_time: float
+    stderr: np.ndarray | None = None
+    probe: dict | None = None
 
 
 def _run_sampled(virt, shots, seed, project, head_labels, sample_method,
                  sample_eps, sample_cv, keep_clbits, device, dtype,
-                 sample_pallas, mesh, tracer):
+                 sample_pallas, mesh, tracer, sample_probe=0):
     """``engine="sampled"``: ``shots`` is the QPD sample budget (default:
     the plan's kappa / 0.05^2 Hoeffding budget, capped at 2M), or with
     ``sample_eps`` the cap of the adaptive budget."""
@@ -106,9 +122,12 @@ def _run_sampled(virt, shots, seed, project, head_labels, sample_method,
     log = get_logger(__name__)
     now = time.perf_counter()
     if sample_eps is not None:
+        if sample_probe:
+            raise ValueError("sample_probe takes a fixed budget, not "
+                             "sample_eps")
         cap = shots if shots is not None else 2_000_000
         with tracer.phase("qpd_sample_knit_adaptive", eps=sample_eps):
-            dist, _, used = sampled_knit_adaptive(
+            dist, se, used = sampled_knit_adaptive(
                 virt, sample_eps, seed=seed, head_labels=head_labels,
                 method=sample_method, keep_clbits=keep_clbits,
                 max_samples=cap, control_variate=sample_cv, dtype=dtype,
@@ -118,7 +137,7 @@ def _run_sampled(virt, shots, seed, project, head_labels, sample_method,
                      sample_eps, used, cap)
             if project:
                 dist = nearest_probability_distribution(dist)
-        return dist, RunTimeInfo(time.perf_counter() - now, 0.0)
+        return dist, RunTimeInfo(time.perf_counter() - now, 0.0, se)
     budget = shots
     if budget is None:
         over = sampling_overhead(virt, eps=0.05)
@@ -134,16 +153,21 @@ def _run_sampled(virt, shots, seed, project, head_labels, sample_method,
                 f"eps~{(over['kappa'] / budget) ** 0.5:.3g}); pass "
                 "shots= for a larger budget"
             )
+    probe = {"size": int(sample_probe)} if sample_probe else None
     with tracer.phase("qpd_sample_knit", samples=budget):
-        dist = sampled_knit(
+        # the control variate computes the variance: its standard error
+        # comes with no further work
+        out = sampled_knit(
             virt, budget, seed=seed, head_labels=head_labels,
             method=sample_method, keep_clbits=keep_clbits,
-            control_variate=sample_cv, dtype=dtype,
+            with_stderr=sample_cv, control_variate=sample_cv, dtype=dtype,
             pallas_variant=sample_pallas, mesh=mesh, device=device,
+            probe=probe,
         )
+        dist, se = out if sample_cv else (out, None)
         if project:
             dist = nearest_probability_distribution(dist)
-    return dist, RunTimeInfo(time.perf_counter() - now, 0.0)
+    return dist, RunTimeInfo(time.perf_counter() - now, 0.0, se, probe)
 
 
 def _is_f32(dtype) -> bool:
@@ -173,6 +197,7 @@ def run_virtual_circuit(
     keep_clbits=None,
     device=None,
     teleport: str = "qpd",
+    sample_probe: int = 0,
 ) -> tuple[Distribution, RunTimeInfo]:
     """Simulate the QPD labels of every fragment, knit and (``project``)
     project onto the simplex.  The JAX package's default engine is
@@ -209,14 +234,18 @@ def run_virtual_circuit(
     the heaviest labels enumerated, the budget spent on the tail);
     ``sample_method`` ("iid" or "lhs", balanced label sampling);
     ``sample_cv`` (control-variate regression against the signed total
-    mass); ``sample_eps`` (grow the budget until the worst per-outcome
-    empirical standard error is <= sample_eps; ``shots`` is then the
-    cap, default 2M); ``sample_pallas`` (True, this package's default: a
+    mass; it computes the variance, so ``RunTimeInfo.stderr`` then holds
+    the per-outcome standard error); ``sample_eps`` (grow the budget
+    until the worst per-outcome empirical standard error is <=
+    sample_eps; ``shots`` is then the cap, default 2M); ``sample_pallas`` (True, this package's default: a
     kernel's rows for every fragment one serves, the others without a
     kernel; False: every fragment without a kernel, the JAX default);
     ``dtype=torch.bfloat16`` (bf16 states without a kernel, float32 rows
     and knit); ``mesh`` (a ``parallel.mesh.Mesh`` with a "dp" axis: each
-    rank scans its own label blocks, the estimate summed over "dp").
+    rank scans its own label blocks, the estimate summed over "dp");
+    ``sample_probe`` (that many of the scan's trajectory rows, evenly
+    spaced, in ``RunTimeInfo.probe``, copied to the host once the scan
+    ends; a fixed budget only, not with ``sample_eps``).
 
     ``engine="sharded"``: every fragment's variants co-sharded over a
     ``(dp, amp)`` mesh (ops/sharded_fragment.py): ``mesh`` with those
@@ -232,6 +261,10 @@ def run_virtual_circuit(
     ``keep_clbits``: marginal knit (any engine).  ``device``: None =
     "cuda" (raises without a card); "cpu" runs the plain versions.
     ``run_time`` ends after the result reached the host.
+    ``RunTimeInfo.stderr``: the sampled engine's per-outcome standard
+    error with ``sample_cv=True`` or ``sample_eps`` (equal to
+    ``sampled_knit(..., with_stderr=True)``'s at the same arguments),
+    None otherwise.
 
     Refused as in the JAX package, with ValueError: ``trunc_eps`` on an
     engine but "auto" and "streamed", a ``dtype`` other than float32 on
@@ -296,11 +329,16 @@ def run_virtual_circuit(
             "sample_cv (control-variate estimation) is a sampled-engine "
             f"feature, not engine={engine!r}"
         )
+    if sample_probe and engine != "sampled":
+        raise ValueError(
+            "sample_probe (trajectory rows for a replay) is a "
+            f"sampled-engine feature, not engine={engine!r}"
+        )
     if engine == "sampled":
         return _run_sampled(virt, shots, seed, project, head_labels,
                             sample_method, sample_eps, sample_cv,
                             keep_clbits, device, dtype, sample_pallas, mesh,
-                            tracer)
+                            tracer, sample_probe)
     log = get_logger(__name__)
     if engine == "auto":
         labels = 1

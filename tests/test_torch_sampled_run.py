@@ -110,12 +110,16 @@ def test_run_virtual_circuit_sample_eps_and_default_budget(qft9, monkeypatch):
 
     def stub(virt, num_samples, **kw):
         seen.update(kw, num_samples=num_samples)
-        return want
+        # the control variate's variance comes back as the stderr
+        return (want, np.full(2, 0.25)) if kw["with_stderr"] else want
 
     monkeypatch.setattr(tq, "sampled_knit", stub)
-    t_run(tv, engine="sampled", seed=7, sample_cv=True, device="cpu")
+    _, info = t_run(tv, engine="sampled", seed=7, sample_cv=True,
+                    device="cpu")
     assert seen["num_samples"] == 28675 and seen["seed"] == 7
     assert seen["control_variate"] is True and seen["method"] == "iid"
+    assert seen["with_stderr"] is True
+    np.testing.assert_array_equal(info.stderr, [0.25, 0.25])
 
 
 @pytest.fixture
