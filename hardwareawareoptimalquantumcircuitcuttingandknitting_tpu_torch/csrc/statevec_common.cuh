@@ -3,20 +3,24 @@
 // the blocked kernel (blocked_kernel.cu, on one gathered tile).
 //
 // A state is planar [2, L] f32 (re then im) in one CTA's shared memory, in
-// a per-CTA slice of global memory, or split over a cluster of two CTAs on
+// a per-CTA slice of global memory, split over a cluster of two CTAs on
 // the top flat bit (rank r holds the amplitudes whose bit n-1 is r; View
-// says which).  The row kinds are those of ops/op_rewrite.py: dense 1q / 2q
-// gates (coefficients from the pool or the label's entry row), diagonal
-// runs, signed permutations, and the collapse kernel's sites.  Every
-// thread of a CTA runs every row; the barriers are the caller's, except in
-// apply_row, which brackets a row that crosses the split with cluster
-// barriers.  The row functions take kLocal: true for a state in the CTA's
-// own shared memory (`own`, which the caller passes as its __shared__
-// array) and a row below the split, so the loops address shared memory
-// with 32-bit offsets and no split test; false for any state (View's
-// generic pointers).  The arithmetic is the same either way.  Sums run in a fixed order (per-thread partial, warp shuffle
-// tree, warp partials in order, CTAs in rank order) with no float atomics.
-// f32, IEEE arithmetic (no fast-math), no tensor cores.
+// says which), or in a global slice that a cluster's CTAs share, each row
+// split over all their threads (View's t and T count the cluster's).  The
+// row kinds are those of ops/op_rewrite.py: dense 1q / 2q gates
+// (coefficients from the pool or the label's entry row), diagonal runs,
+// signed permutations, and the collapse kernel's sites.  Every thread of a
+// CTA runs every row; the barriers are the caller's, except in apply_row,
+// which brackets a row that crosses the split with cluster barriers and
+// ends every row of a shared global state with one.  The row functions
+// take kLocal: true for a state in the CTA's own shared memory (`own`,
+// which the caller passes as its __shared__ array) and a row below the
+// split, so the loops address shared memory with 32-bit offsets and no
+// split test; false for any state (View's generic pointers).  The
+// arithmetic is the same either way.  Sums run in a fixed order
+// (per-thread partial, warp shuffle tree, warp partials in order, CTAs in
+// rank order) with no float atomics.  f32, IEEE arithmetic (no
+// fast-math), no tensor cores.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -400,7 +404,10 @@ __device__ __forceinline__ bool touches_split(int kind, int ja, int jb,
 // split, and after it the CTA's barrier or, around a crossing row, the
 // cluster's.  kLocal: the state is in the CTA's own shared memory `own`,
 // so every row that does not cross the split runs the local loops.
-template <bool kLocal = false>
+// kShared: the state is in global memory, shared by the cluster's CTAs,
+// which split the row; the cluster's barrier ends it (its release and
+// acquire at cluster scope order the global writes).
+template <bool kLocal = false, bool kShared = false>
 __device__ void apply_row(const View& v, const int* row, const float* pool,
                           const float* erow, float* own = nullptr) {
   const int kind = row[0], ja = row[1], jb = row[2], a0 = row[3];
@@ -438,11 +445,11 @@ __device__ void apply_row(const View& v, const int* row, const float* pool,
   } else {
     apply_2q(v, ja, jb, nullptr, a0, true);
   }
-  row_barrier(cross);
+  row_barrier(cross || kShared);
 }
 
-// CTAs (csize 1) or clusters (csize 2) the card runs at once for a launch
-// of this kernel and shape; 0 when it cannot run at all.
+// CTAs (csize 1) or clusters of csize CTAs the card runs at once for a
+// launch of this kernel and shape; 0 when it cannot run at all.
 template <typename Kernel>
 int launch_capacity(Kernel kernel, int threads, int smem, int csize) {
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

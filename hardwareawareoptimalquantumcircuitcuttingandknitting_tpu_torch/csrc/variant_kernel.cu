@@ -36,12 +36,26 @@
 //    CTA's 227 KB) a cluster of two CTAs holds it, split on the top flat
 //    bit; a gate on that bit reads and writes the partner's half through
 //    distributed shared memory between two cluster barriers, every other
-//    row is local.  From n = 16 to 20 the state lives in a per-CTA slice of
-//    a global scratch (mostly L2-resident at n = 16, HBM-bound above).
+//    row is local.  From n = 16 to 20 the state lives in global scratch
+//    (mostly L2-resident at n = 16, HBM-bound above), where one CTA
+//    streams it at about 20 GB/s, bound by the latency of its loads and
+//    not by HBM.  A chunk there has few runs (a 64-label chunk at n = 20
+//    has 10-11), so a cluster of csize CTAs (up to 8, the wrapper's
+//    choice) owns a run and shares one state: View's t and T count the
+//    cluster's threads, and every step (the prefix copy, a checkpoint's
+//    save or restore, each row, the epilogue) is split over all of them.
+//    A cluster barrier ends each step where one CTA's barrier would: its
+//    release and acquire at cluster scope order the global writes of one
+//    CTA before another's reads.  Each pair update does the same
+//    arithmetic whichever CTA runs it, so full rows equal csize 1's bit
+//    for bit.
 //  * Checkpoints that cost a pass.  Each segment's start is kept in a
-//    per-CTA global slice (L2-resident: 66 clusters x 128 KB a CTA a
-//    segment at n = 15), written once when its segment starts and read
-//    once on resume, a copy of the CTA's share of the state either way.
+//    global slice (L2-resident: 66 clusters x 128 KB a CTA a segment at
+//    n = 15), written once when its segment starts and read once on
+//    resume, a copy of the CTA's share of the state either way.  The
+//    slices are per CTA on the shared-memory paths and per cluster on the
+//    global one (the working state in slot 0, then one slot a segment),
+//    so scratch shrinks with the cluster.
 //    A register checkpoint of the last segment's start (32 amplitudes a
 //    thread at 512 threads, as the collapse kernel keeps) made ptxas
 //    spill the gate loops (128 registers, 500 bytes) and was no faster
@@ -64,9 +78,10 @@
 //  * The epilogues.  Fold: out[k] = sum_h w(h) sign(h) |psi[h << d | k]|^2;
 //    the factor w(h) sign(h) is tabulated once a label (up to 1024 h).
 //    The split bit n - 1 is never a kept bit when d < n, so each CTA of a
-//    cluster sums its own half of the h range and the two partials are
-//    added in rank order through distributed shared memory.  Full rows:
-//    each CTA writes its own half of the row.
+//    cluster sums its own share of the h range (a 1/csize slice) and the
+//    partials are added in rank order through distributed shared memory,
+//    each CTA writing a 1/csize share of the outputs.  Full rows: each
+//    CTA writes its own share of the row.
 //  * Sums in a fixed order (per-thread partial in double, a shared-memory
 //    tree, the CTAs in rank order), no float atomics: a launch repeats bit
 //    for bit.  f32 state, IEEE arithmetic (no fast-math), no tensor cores,
@@ -85,6 +100,7 @@ namespace {
 constexpr int kMaxThreads = 512;
 constexpr int kMaxQubits = 20;
 constexpr int kMaxSmemQubits = 15;  // 15: two CTAs of 128 KB
+constexpr int kMaxCluster = 8;      // the portable cluster
 constexpr int kMaxW = 64;           // fold weights
 constexpr int kMaxEntry = 1024;     // entry floats a label stages on chip
 constexpr int kMaxFac = 1024;       // fold factors a label tabulates on chip
@@ -102,10 +118,12 @@ struct Params {
                            //   and out (null: the same row)
   const int* runs;         // [C, 2]: first label, length
   const int* count;        // [1]: runs in the table
-  float* scratch;          // [grid, n_slots, 2, L] per-CTA checkpoints
+  float* scratch;          // [owners, n_slots, 2, L] checkpoints: a CTA's
+                           //   (use_smem) or a cluster's
   float* out;              // [C, 2^d] (fold) or [C, N] (full rows)
   int n, d, fold, C, n_seg, entry_stride, n_w, n_wbits, zmask;
-  int csize;               // CTAs a state is split over: 1 or 2
+  int csize;               // CTAs a state is split over: 1, 2 at n = 15
+                           //   (use_smem), up to 8 in global memory
   int use_smem;            // state in shared memory (n <= 15)
   int n_slots;             // global [2, L] slots a CTA owns
   int n_rows, pool_len;    // staged in shared memory after the state when
@@ -173,20 +191,26 @@ __device__ __forceinline__ float fold_fac(int f, const float* ws,
 }
 
 // out[k] = sum_h w(h) * sign(h) * |psi[h << d | k]|^2 over this CTA's
-// amplitudes, then (a cluster) the two CTAs' partials in rank order.  The
+// share of h, then (a cluster) the CTAs' partials in rank order.  The
 // outputs go in tiles of min(K, T), G = T / tile threads each.  A factor
 // depends on h alone, so up to kMaxFac of this CTA's h values have theirs
 // computed once a label, into fac.  Every thread of the cluster calls it.
 __device__ void epilogue_fold(const Params& p, const View& v, const float* ws,
                               const int* wb, float* orow, float* red,
                               float* fac) {
-  const int n = p.n, d = p.d, K = 1 << d, T = v.T, t = v.t;
+  const int n = p.n, d = p.d, K = 1 << d, cs = p.csize;
+  const int T = blockDim.x, t = threadIdx.x;  // the CTA's own threads
   const int H = (1 << n) >> d;
   const bool pair = v.split >= 0;
-  // a cluster splits h (d < n: the split bit is an h bit) or, with every
-  // bit kept, the outputs themselves (each CTA owns the k on its side)
-  const int Hc = pair && d < n ? H >> 1 : H;
-  const int hbase = pair && d < n ? v.rank * Hc : 0;
+  // a cluster splits h (a pair with d < n: the split bit is an h bit) or,
+  // a pair with every bit kept, the outputs themselves (each CTA owns the
+  // k on its side); one CTA takes every h with no division (a label's
+  // epilogue is short at narrow widths)
+  int hbase = 0, Hc = H;
+  if (cs > 1 && !(pair && d == n)) {
+    hbase = H * v.rank / cs;
+    Hc = H * (v.rank + 1) / cs - hbase;
+  }
   const bool table = Hc <= kMaxFac;
   if (table) {
     for (int hh = t; hh < Hc; hh += T)
@@ -214,18 +238,20 @@ __device__ void epilogue_fold(const Params& p, const View& v, const float* ws,
       if (g < s) red[t] += red[t + s * KT];
       __syncthreads();
     }
-    if (!pair) {
+    if (cs == 1) {
       if (t < KT) orow[k0 + t] = red[t];
     } else {
       cg::cluster_group cluster = cg::this_cluster();
       cluster.sync();
-      const float* r0 = cluster.map_shared_rank(red, 0);
-      const float* r1 = cluster.map_shared_rank(red, 1);
-      // each CTA writes half the tile (rank 0 all of a one-output tile)
-      const int half = KT > 1 ? KT >> 1 : 1;
-      const int o = v.rank * half + t;
-      if (t < half && o < KT) orow[k0 + o] = r0[o] + r1[o];
-      cluster.sync();  // the partner has read red
+      // each CTA writes its share of the tile, the partials in rank order
+      const int lo = KT * v.rank / cs, hi = KT * (v.rank + 1) / cs;
+      if (t < hi - lo) {
+        float* r = red + lo + t;
+        float s = *cluster.map_shared_rank(r, 0);
+        for (int q = 1; q < cs; ++q) s += *cluster.map_shared_rank(r, q);
+        orow[k0 + lo + t] = s;
+      }
+      cluster.sync();  // the others have read red
     }
     __syncthreads();
   }
@@ -236,6 +262,15 @@ __device__ void epilogue_rows(const Params& p, const View& v, float* orow) {
   const int L = v.L, top = v.split >= 0 ? v.rank << v.split : 0;
   for (int x = v.t; x < L; x += v.T)
     orow[top + x] = st[x] * st[x] + st[L + x] * st[L + x];
+}
+
+// The barrier that ends a step on the state: the cluster's where its CTAs
+// share a global state (wide), else the CTA's.
+__device__ __forceinline__ void state_sync(bool wide) {
+  if (wide)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
 }
 
 // 512 threads and one CTA an SM: 128 registers a thread for the
@@ -251,25 +286,30 @@ variant_rows_kernel(Params p) {
 
   const int N = 1 << p.n;
   const int T = blockDim.x, t = threadIdx.x;
-  View v;
-  v.L = N / p.csize;
-  v.T = T;
-  v.t = t;
-  v.split = p.csize == 2 ? p.n - 1 : -1;
-  const int L = v.L;
-  float* slots =
-      p.n_slots ? p.scratch + (size_t)blockIdx.x * p.n_slots * 2 * L : nullptr;
+  // a cluster on the global path shares one state, split over its threads
+  const bool wide = !p.use_smem && p.csize > 1;
   int cluster_id = blockIdx.x, n_clusters = gridDim.x;
-  if (p.csize == 2) {
+  View v;
+  v.rank = 0;
+  if (p.csize > 1) {
+    v.rank = (int)cg::this_cluster().block_rank();
+    cluster_id = blockIdx.x / p.csize;
+    n_clusters = gridDim.x / p.csize;
+  }
+  v.L = wide ? N : N / p.csize;
+  v.t = wide ? v.rank * T + t : t;
+  v.T = wide ? p.csize * T : T;
+  v.split = p.use_smem && p.csize == 2 ? p.n - 1 : -1;
+  const int L = v.L;
+  // the checkpoint slots: a cluster's on the global path, else a CTA's
+  const size_t owner = wide ? cluster_id : blockIdx.x;
+  float* slots = p.n_slots ? p.scratch + owner * p.n_slots * 2 * L : nullptr;
+  if (v.split >= 0) {
     cg::cluster_group cluster = cg::this_cluster();
-    v.rank = (int)cluster.block_rank();
     v.base[0] = cluster.map_shared_rank(smem_state, 0);
     v.base[1] = cluster.map_shared_rank(smem_state, 1);
     v.own = smem_state;
-    cluster_id = blockIdx.x / 2;
-    n_clusters = gridDim.x / 2;
   } else {
-    v.rank = 0;
     v.base[0] = v.base[1] = p.use_smem ? smem_state : slots;
     v.own = v.base[0];
   }
@@ -288,7 +328,7 @@ variant_rows_kernel(Params p) {
     pool = tab;
   }
   const bool stage_entries = p.entry_stride <= kMaxEntry;
-  if (p.csize == 2) cg::this_cluster().sync();  // both CTAs have started
+  if (p.csize > 1) cg::this_cluster().sync();  // every CTA has started
   __syncthreads();
 
   const int R = *p.count;
@@ -309,22 +349,24 @@ variant_rows_kernel(Params p) {
         }
         // the state at the start of segment s
         if (s == 0) {
-          copy_planes(st, p.prefix + top, p.prefix + N + top, L, t, T);
+          copy_planes(st, p.prefix + top, p.prefix + N + top, L, v.t, v.T);
         } else {
           const float* src = slots + (size_t)slot_of(p, s) * 2 * L;
-          copy_planes(st, src, src + L, L, t, T);
+          copy_planes(st, src, src + L, L, v.t, v.T);
         }
-        __syncthreads();
+        state_sync(wide);
         for (int i = s; i < p.n_seg; ++i) {
           if (i > s) {
             // segment i starts: keep its state for the labels after
             float* dst = slots + (size_t)slot_of(p, i) * 2 * L;
-            copy_planes(dst, st, st + L, L, t, T);
-            __syncthreads();  // saved before the next row rewrites it
+            copy_planes(dst, st, st + L, L, v.t, v.T);
+            state_sync(wide);  // saved before the next row rewrites it
           }
           for (int o = p.seg_start[i]; o < p.seg_start[i + 1]; ++o) {
             if (p.use_smem)  // the local loops address smem_state directly
               apply_row<true>(v, rows + kRow * o, pool, erow, smem_state);
+            else if (wide)
+              apply_row<false, true>(v, rows + kRow * o, pool, erow);
             else
               apply_row(v, rows + kRow * o, pool, erow);
           }
@@ -338,7 +380,7 @@ variant_rows_kernel(Params p) {
                       s_fac);
       } else {
         epilogue_rows(p, v, p.out + (size_t)row * N);
-        __syncthreads();  // read before the next label rewrites the state
+        state_sync(wide);  // read before the next label rewrites the state
       }
     }
   }
@@ -500,17 +542,19 @@ extern "C" int variant_schedule_launch(const long long* key,
                                smem, 1, stream);
 }
 
-// CTAs (csize 1) or clusters (csize 2) the card runs at once for a launch
-// of this shape; 0 when it cannot run at all.
+// CTAs (csize 1) or clusters of csize CTAs the card runs at once for a
+// launch of this shape; 0 when it cannot run at all.
 extern "C" int variant_kernel_capacity(int threads, int smem, int csize) {
   return launch_capacity(variant_rows_kernel, threads, smem, csize);
 }
 
 // Returns a cudaError_t: 0 on success.  Refused with cudaErrorInvalidValue:
 // a width outside [0, 20], a block size that is not a power of two in
-// [32, 512], a cluster other than 1 or 2 (2 only at n = 15), a
-// shared-memory state past n = 15, a global one without scratch, more than 64 fold weights, or fewer scratch
-// slots than the checkpoints need.  Dynamic shared memory: the state
+// [32, 512], a grid that is not a multiple of the cluster, a cluster
+// outside [1, 8] in global memory or other than 2 at n = 15 and 1 below
+// it in shared memory, a shared-memory state past n = 15, a global one
+// without scratch, more than 64 fold weights, or fewer scratch slots than
+// the checkpoints need.  Dynamic shared memory: the state
 // (when use_smem), then the pool and the row table (when stage_tables).
 extern "C" int variant_rows_launch(
     const float* prefix, const int* rows, const float* pool,
@@ -525,10 +569,10 @@ extern "C" int variant_rows_launch(
       d < 0 || d > n || n_wbits < 0 || n_wbits > kMaxW || n_wbits > n_w ||
       n_rows < 0 || pool_len < 0)
     return (int)cudaErrorInvalidValue;
-  if (csize != 1 && csize != 2) return (int)cudaErrorInvalidValue;
-  if (csize == 2 && (n != kMaxSmemQubits || !use_smem || grid % 2))
+  if (csize < 1 || csize > kMaxCluster || grid % csize)
     return (int)cudaErrorInvalidValue;
-  if (use_smem && (n > kMaxSmemQubits || (n == kMaxSmemQubits && csize != 2)))
+  if (use_smem &&
+      (n > kMaxSmemQubits || csize != (n == kMaxSmemQubits ? 2 : 1)))
     return (int)cudaErrorInvalidValue;
   const int need = use_smem ? (n_seg > 1 ? n_seg - 1 : 0)
                              : (n_seg > 1 ? n_seg : 1);

@@ -56,11 +56,12 @@ from .statevector import apply_slices, marginalize_flat
 from .variant_engine import _slot_tables, _fuse_slot_ops
 
 # Port's own width gate: up to 15 qubits the state is on chip, from 16 to
-# 20 it lives in a per-CTA global scratch ([CTAs, segments, 2, 2^n] f32
-# with the checkpoints).  Wider fragments need the segmented blocked
-# kernel.
+# 20 it lives in a global scratch that a cluster of CTAs shares ([clusters,
+# segments, 2, 2^n] f32 with the checkpoints).  Wider fragments need the
+# segmented blocked kernel.
 MAX_QUBITS = 20
 CLUSTER_QUBITS = 15  # the width a cluster of two CTAs holds on chip
+MAX_CLUSTER = 8      # CTAs a portable cluster holds
 _BLOCKED_ITEM = (
     "the segmented blocked kernel serves 21..24 qubits "
     "(ops/blocked_kernel.make_blocked_chunk_kernel; ROADMAP H100 port, "
@@ -561,7 +562,9 @@ LIBRARY = KernelLibrary("variant_kernel", _bind,
 def launch_geometry(n: int) -> tuple[int, int, bool]:
     """``(threads, csize, use_smem)`` of a launch of the variant or the
     collapse kernel: the state is split over ``csize`` CTAs (2 at n = 15,
-    else 1), held in shared memory up to n = 15 (``use_smem``); a CTA has
+    else 1; past n = 15 the variant kernel's cluster is
+    :func:`cluster_size`'s), held in shared memory up to n = 15
+    (``use_smem``); a CTA has
     8 amplitudes of its share a thread (at least 32 threads, at most 512:
     32 amplitudes a thread at n = 14 and 15, all in the collapse kernel's
     register checkpoint), so narrow states leave registers for more CTAs
@@ -569,6 +572,26 @@ def launch_geometry(n: int) -> tuple[int, int, bool]:
     csize = 2 if n == CLUSTER_QUBITS else 1
     threads = min(512, max(32, ((1 << n) // csize) // 8))
     return threads, csize, n <= CLUSTER_QUBITS
+
+
+def cluster_size(n: int, c: int, cap: int, capacity) -> int:
+    """CTAs that share a run's state in a rows launch of ``c`` labels at
+    width ``n``, runs at most ``cap`` labels long.  Up to
+    ``CLUSTER_QUBITS`` the state is on chip: :func:`launch_geometry`'s.
+    On the global-memory path a cluster of ``g`` CTAs splits every step
+    of a run, so a run takes about ``1 / g`` of one CTA's time, and the
+    chunk's ``ceil(c / cap)`` runs go through the card in ``ceil(runs /
+    capacity(g))`` rounds: the ``g`` up to ``MAX_CLUSTER`` with the
+    fewest rounds per CTA of a cluster, the smallest on a tie (runs that
+    fill the card keep one CTA each).  ``capacity(g)``: the clusters of
+    ``g`` CTAs the card runs at once (``capacity(1)``: its CTAs; 0 where
+    it runs none)."""
+    if n <= CLUSTER_QUBITS:
+        return launch_geometry(n)[1]
+    runs = -(-c // cap)
+    rounds = {g: -(-runs // capacity(g)) / g
+              for g in range(1, MAX_CLUSTER + 1) if capacity(g) > 0}
+    return min(rounds, key=lambda g: (rounds[g], g), default=1)
 
 
 def run_heads(stage: torch.Tensor, n_seg: int, cap: int) -> torch.Tensor:
@@ -621,7 +644,8 @@ def _capacity(lib, threads: int, smem: int, csize: int) -> int:
     return _CAPACITY[key]
 
 
-def _launch(dp: DevicePlan, entries, wstack, stage, cap, key=None):
+def _launch(dp: DevicePlan, entries, wstack, stage, cap, key=None,
+            csize=None):
     lib = LIBRARY.load()
     plan = dp.plan
     dev = entries.device
@@ -648,17 +672,22 @@ def _launch(dp: DevicePlan, entries, wstack, stage, cap, key=None):
         return torch.cat([
             _launch(dp, entries[a:a + most], wstack[a:a + most],
                     None if stage is None else stage[a:a + most], cap,
-                    None if key is None else key[a:a + most])
+                    None if key is None else key[a:a + most], csize)
             for a in range(0, c, most)])
-    threads, csize, use_smem = launch_geometry(plan.n)
+    threads, on_chip, use_smem = launch_geometry(plan.n)
+    if csize is not None and csize != on_chip and (
+            use_smem or not 1 <= csize <= MAX_CLUSTER):
+        raise ValueError(f"a cluster of {csize} CTAs at n = {plan.n}: the "
+                         f"global-memory path takes 1 to {MAX_CLUSTER}, "
+                         "shared memory its own")
     big = 1 << plan.n
-    smem = (8 * big) // csize if use_smem else 0
+    smem = (8 * big) // on_chip if use_smem else 0
     # the row table and the pool beside the state, where they fit
     n_rows, pool_len = len(plan.table.rows), plan.table.pool.size
     tables = 4 * (pool_len + op_rewrite.ROW * n_rows)
     stage_tables = smem + tables <= _SMEM_TABLES
     smem += tables if stage_tables else 0
-    capacity = _capacity(lib, threads, smem, csize)
+    capacity = _capacity(lib, threads, smem, on_chip)
     if capacity < 1:
         raise RuntimeError(f"the variant kernel cannot run at n = {plan.n} "
                            f"({threads} threads, {smem} B of shared memory)")
@@ -668,6 +697,13 @@ def _launch(dp: DevicePlan, entries, wstack, stage, cap, key=None):
     # slot's variants): a cut inside a group costs a full replay
     group = len(plan.entry_tables[-1]) if plan.entry_tables else 1
     cap = cap or max(group, -(-c // capacity))
+    if csize is None:
+        csize = cluster_size(plan.n, c, cap, lambda g: _capacity(
+            lib, threads, smem, g))
+    clusters = _capacity(lib, threads, smem, csize)
+    if clusters < 1:
+        raise RuntimeError(f"the card holds no cluster of {csize} CTAs of "
+                           f"the variant kernel at n = {plan.n}")
     # order, stage, runs [C, 2] and count in one buffer
     sched = torch.empty((4 * c + 1,), dtype=torch.int32, device=dev)
     order, runs, count = sched[:c], sched[2 * c:4 * c], sched[4 * c:]
@@ -682,11 +718,14 @@ def _launch(dp: DevicePlan, entries, wstack, stage, cap, key=None):
     if rc != 0:
         raise RuntimeError(
             "variant schedule launch failed: " + LIBRARY.error_text(rc))
-    grid = min(c, capacity) * csize
+    grid = min(c, clusters) * csize
     # every segment's start but the first (the prefix), and on the
-    # global path the working state
+    # global path the working state: a CTA's share of the state on chip,
+    # a cluster's whole state in global memory
     n_slots = max(0, n_seg - 1) if use_smem else max(1, n_seg)
-    scratch = torch.empty((max(1, grid * n_slots * 2 * (big // csize)),),
+    owners, share = (grid, big // csize) if use_smem else (grid // csize,
+                                                           big)
+    scratch = torch.empty((max(1, owners * n_slots * 2 * share),),
                           dtype=torch.float32, device=dev)
     out = torch.empty((c, plan.out_width), dtype=torch.float32, device=dev)
     wbits, zmask, d = plan.fold if plan.fold is not None else ([], 0, 0)
@@ -706,9 +745,10 @@ def _launch(dp: DevicePlan, entries, wstack, stage, cap, key=None):
             "variant kernel launch failed: " + LIBRARY.error_text(rc)
         )
     variant_rows.launches += 1
+    variant_rows.clustered += int(not use_smem and csize > 1)
     variant_rows.last_launch = {
         "runs": count, "cap": cap, "grid": grid, "threads": threads,
-        "cluster": csize, "scratch_bytes": 4 * scratch.numel(),
+        "smem": smem, "cluster": csize, "scratch_bytes": 4 * scratch.numel(),
         "tables_on_chip": stage_tables,
         "order": order if key is not None else None, "stage": stage,
         "table": runs.view(c, 2),
@@ -717,31 +757,37 @@ def _launch(dp: DevicePlan, entries, wstack, stage, cap, key=None):
 
 
 def variant_rows(dp: DevicePlan, entries, wstack, stage,
-                 cap: int | None = None) -> torch.Tensor:
+                 cap: int | None = None,
+                 csize: int | None = None) -> torch.Tensor:
     """Rows ``[C, out_width]`` for a chunk of labels, in the order given.
     CUDA tensors launch the hand-written kernel: its schedule launch cuts
     the runs (:func:`run_table` is its plain version), its rows launch
-    computes the rows (counted in ``variant_rows.launches``;
-    ``variant_rows.last_launch`` says runs, cap, grid, cluster, scratch
-    bytes and holds the schedule's tensors); CPU tensors run
-    :func:`plain_variant_rows`.  ``entries [C, entry_stride]`` (from
-    :meth:`DevicePlan.gather_entries`), ``wstack [C, n_w, 2]`` f32,
-    ``stage [C]`` int32 (:meth:`DevicePlan.stages` of the same order: the
-    kernel's resume schedule).  ``cap`` overrides the longest run in
-    labels (default: the chunk spread over the CTAs the card holds, at
-    least the last slot's variants)."""
+    computes the rows (counted in ``variant_rows.launches``, and in
+    ``variant_rows.clustered`` where a cluster of CTAs shares each
+    global-memory state; ``variant_rows.last_launch`` says runs, cap,
+    grid, cluster, scratch bytes and holds the schedule's tensors); CPU
+    tensors run :func:`plain_variant_rows`.  ``entries [C,
+    entry_stride]`` (from :meth:`DevicePlan.gather_entries`), ``wstack
+    [C, n_w, 2]`` f32, ``stage [C]`` int32 (:meth:`DevicePlan.stages` of
+    the same order: the kernel's resume schedule).  ``cap`` overrides the
+    longest run in labels (default: the chunk spread over the CTAs the
+    card holds, at least the last slot's variants); ``csize``, for tests,
+    the CTAs that share a global-memory state (default
+    :func:`cluster_size`)."""
     if entries.is_cuda:
-        return _launch(dp, entries, wstack, stage, cap)
+        return _launch(dp, entries, wstack, stage, cap, csize=csize)
     if entries.device.type != "cpu":
         raise ValueError(f"unsupported device {entries.device}")
     return plain_variant_rows(dp, entries, wstack)
 
 
 variant_rows.launches = 0
+variant_rows.clustered = 0
 variant_rows.last_launch = None
 
 
-def label_rows(dp: DevicePlan, vidx_chunk, weigh) -> torch.Tensor:
+def label_rows(dp: DevicePlan, vidx_chunk, weigh,
+               csize: int | None = None) -> torch.Tensor:
     """Rows ``[C, out_width]`` of a ``[C, num_vgates]`` chunk of labels in
     the chunk's order, the call the row functions make.  The labels run
     sorted by their slot digits in chain order (:meth:`DevicePlan.order`),
@@ -751,12 +797,13 @@ def label_rows(dp: DevicePlan, vidx_chunk, weigh) -> torch.Tensor:
     and the rows kernel reads each label's entries and weights
     (``weigh(vidx) -> wstack [C, n_w, 2]``) and writes its row where the
     label sits; on CPU tensors the plain version runs on the chunk as
-    given."""
+    given.  ``csize``: as :func:`variant_rows` takes it."""
     entries, wstack = dp.gather_entries(vidx_chunk), weigh(vidx_chunk)
     key = dp.sort_key(vidx_chunk)
     if entries.is_cuda and key is not None:
-        return _launch(dp, entries, wstack, None, None, key)
-    return variant_rows(dp, entries, wstack, dp.stages(vidx_chunk))
+        return _launch(dp, entries, wstack, None, None, key, csize)
+    return variant_rows(dp, entries, wstack, dp.stages(vidx_chunk),
+                        csize=csize)
 
 
 # ---------------------------------------------------------------------------

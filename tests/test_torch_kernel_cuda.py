@@ -75,15 +75,41 @@ EPILOGUES = {"full": None, "fold": {}, "keep1": {"keep_clbits": [0]},
              "z": {"z_clbits": [0, 3, 7]}}
 
 
+# folded rows of a cluster that shares a global-memory state against one
+# CTA's: only the order of the CTAs' partial sums differs
+CLUSTER_TOL = 1e-6
+
+
+def _check_cluster_sizes(rows, folded):
+    """``rows(csize)`` at every cluster size the global-memory path takes:
+    each launch reports its size and counts in ``variant_rows.clustered``
+    past one CTA; full rows equal one CTA's bit for bit, folded rows
+    within ``CLUSTER_TOL``; a second launch equal bit for bit."""
+    one = rows(1)
+    for g in range(1, vk.MAX_CLUSTER + 1):
+        before = vk.variant_rows.clustered
+        got = rows(g)
+        torch.cuda.synchronize()
+        assert vk.variant_rows.last_launch["cluster"] == g
+        assert vk.variant_rows.clustered == before + (g > 1)
+        assert torch.equal(rows(g), got)
+        if folded:
+            assert (got - one).abs().max().item() <= CLUSTER_TOL
+        else:
+            assert torch.equal(got, one)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("epilogue", sorted(EPILOGUES))
 @pytest.mark.parametrize("staged", [True, False])
 @pytest.mark.parametrize("cap", [1, 3, 36])
-def test_kernel_matches_plain_on_card(card, epilogue, staged, cap):
+@pytest.mark.parametrize("n", [11, 16, 18, 20])
+def test_kernel_matches_plain_on_card(card, n, epilogue, staged, cap):
     """Random labels in the order given, runs of at most ``cap`` rows:
     one launch, rows within 1e-5 of the plain version, a second launch
-    equal bit for bit."""
-    virt = _chain()
+    equal bit for bit.  From n = 16 (global memory) every cluster size
+    too (:func:`_check_cluster_sizes`)."""
+    virt = _chain(n - 2)
     blk = _block(virt, 36, 1).to(card)
     kw = EPILOGUES[epilogue]
     folded = kw is not None
@@ -106,6 +132,9 @@ def test_kernel_matches_plain_on_card(card, epilogue, staged, cap):
     assert vk.variant_rows.launches == before + 2
     assert (got - want).abs().max().item() <= TOL
     assert torch.equal(got, again)
+    if n > vk.CLUSTER_QUBITS:
+        _check_cluster_sizes(
+            lambda g: vk.variant_rows(dp, ent, ws, st, cap, csize=g), folded)
 
 
 def _wide_chain(nbig: int):
@@ -144,14 +173,16 @@ _WIDE_CHAINS: dict = {}
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["fold", "full"])
 @pytest.mark.parametrize("order", ["natural", "shuffled"])
-@pytest.mark.parametrize("n", [13, 15, 18])
+@pytest.mark.parametrize("n", [13, 15, 16, 18, 20])
 def test_kernel_width_classes_on_card(card, n, order, mode):
     """Every width class of the kernel: one CTA's shared memory (13), a
-    two-CTA cluster (15), global scratch (18); all 216 labels through the
-    row function's call (sorted by slot digits, rows put back), in
-    natural and shuffled order, fold and full rows.  One launch a call,
-    rows within 1e-5 of the plain version on the order given, a second
-    call equal bit for bit."""
+    two-CTA cluster (15), global scratch that a cluster shares (16, 18,
+    20); all 216 labels through the row function's call (sorted by slot
+    digits, rows put back), in natural and shuffled order, fold and full
+    rows.  One launch a call, rows within 1e-5 of the plain version on
+    the order given, a second call equal bit for bit; in global memory
+    the cluster :func:`vk.cluster_size` chose, and every size
+    (:func:`_check_cluster_sizes`)."""
     if n not in _WIDE_CHAINS:
         _WIDE_CHAINS[n] = _wide_chain(n - 3)
     virt = _WIDE_CHAINS[n]
@@ -170,10 +201,22 @@ def test_kernel_width_classes_on_card(card, n, order, mode):
     want = vk.plain_variant_rows(dp, dp.gather_entries(blk), fn.weigh(blk))
     torch.cuda.synchronize()
     assert vk.variant_rows.launches == before + 2
-    assert launch["cluster"] == (2 if n == 15 else 1)
+    if n > vk.CLUSTER_QUBITS:
+        def caps(g):
+            return vk._capacity(vk.LIBRARY.lib, launch["threads"],
+                                launch["smem"], g)
+
+        assert launch["cluster"] == vk.cluster_size(n, 216, launch["cap"],
+                                                    caps)
+    else:
+        assert launch["cluster"] == (2 if n == 15 else 1)
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL
     assert torch.equal(got, again)
+    if n > vk.CLUSTER_QUBITS:
+        _check_cluster_sizes(
+            lambda g: vk.label_rows(dp, blk, fn.weigh, csize=g),
+            mode == "fold")
     # the schedule launch against its plain version: order, stages, runs
     order = dp.order(blk)
     stage = dp.stages(blk[order])
@@ -183,6 +226,35 @@ def test_kernel_width_classes_on_card(card, n, order, mode):
     assert torch.equal(launch["stage"], stage)
     assert int(launch["runs"]) == r
     assert torch.equal(launch["table"][:r], table[:r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [13, 20])
+def test_kernel_clusters_engage_on_card(card, n):
+    """The scan's chunk as the cell ``syc32-rcs`` sends it: 64 labels of
+    syc-32 d3 (the stored P2 Q17 plan, two 20-qubit fragments) in natural
+    order take a cluster of CTAs on the global-memory path and count in
+    ``variant_rows.clustered``; a 13-qubit chunk does neither."""
+    if n == 20:
+        virt = _stored_cut("syc", 32, 3, 17, "syc32_d3_p2_q17")
+    else:
+        if 13 not in _WIDE_CHAINS:
+            _WIDE_CHAINS[13] = _wide_chain(10)
+        virt = _WIDE_CHAINS[13]
+    blk = _block(virt, 64, None).to(card)
+    for name in (reg.name for reg in virt.fragments):
+        fn, _ = vk.make_folded_chunk_kernel(virt, name, 64, device=card)
+        if fn.plan.plan.n != n:
+            continue
+        before = vk.variant_rows.clustered
+        got = vk.label_rows(fn.plan, blk, fn.weigh)
+        torch.cuda.synchronize()
+        launch = vk.variant_rows.last_launch
+        want = vk.plain_variant_rows(fn.plan, fn.plan.gather_entries(blk),
+                                     fn.weigh(blk))
+        assert (got - want).abs().max().item() <= TOL
+        assert (launch["cluster"] > 1) == (n == 20)
+        assert vk.variant_rows.clustered == before + (n == 20)
 
 
 @pytest.mark.cuda

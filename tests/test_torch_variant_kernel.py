@@ -225,6 +225,40 @@ def test_run_table_matches_a_plain_walk(cap):
         assert (at_group | into).all()
 
 
+# clusters of g = 1..8 CTAs of the rows launch at 16-20 qubits (512
+# threads, one CTA an SM) that an H100 80GB HBM3 runs at once, as
+# cudaOccupancyMaxActiveClusters gives them: the SMs sit in GPCs, so
+# large clusters leave some idle
+H100_CLUSTERS = dict(zip(range(1, 9), [132, 66, 39, 30, 22, 17, 15, 15]))
+
+
+@pytest.mark.parametrize("n,c,cap,want", [
+    (20, 64, 6, 8),      # syc32-rcs: 11 runs, one CTA each kept 11 SMs busy
+    (18, 256, 6, 8),     # sup25-full: 43 runs
+    (17, 256, 6, 8),
+    (20, 1, 6, 8),       # one label
+    (18, 128, 6, 5),     # 22 runs: 5 CTAs each fill the card in one round
+    (16, 1024, 6, 2),    # 171 runs: two rounds of one CTA, 3 of two
+    (18, 792, 6, 1),     # 132 runs fill the card
+    (18, 1584, 6, 1),
+    (13, 64, 6, 1),      # shared memory: one CTA
+    (15, 64, 6, 2),      # shared memory: the two-CTA cluster
+])
+def test_cluster_size_spreads_few_runs_over_the_card(n, c, cap, want):
+    """The rows launch's cluster on the global-memory path: the size with
+    the fewest rounds of the card per CTA for the chunk's runs; the
+    shared-memory widths keep their geometry."""
+    assert vk.cluster_size(n, c, cap, H100_CLUSTERS.get) == want
+
+
+def test_cluster_size_skips_clusters_the_card_cannot_hold():
+    """A size the card runs no cluster of is never chosen, and a card
+    that runs none past one CTA keeps one."""
+    caps = {**H100_CLUSTERS, 8: 0}
+    assert vk.cluster_size(20, 64, 6, caps.get) == 7
+    assert vk.cluster_size(20, 64, 6, lambda g: 132 if g == 1 else 0) == 1
+
+
 CASES = {
     "fold": {}, "z": {"z_clbits": [0, 3, 7]}, "full": None,
 }
