@@ -686,15 +686,22 @@ def _kernel_row(report, name):
     return next(r for r in report["kernels"] if r["name"] == name)
 
 
-# the prefix_launches of the kernel-1 plans built since _reset_counts
+# the prefix_launches of the kernel 1, 3 and 5 plans built since
+# _reset_counts
 _PREFIX = {"launches": 0}
 
 
 def _count_prefixes():
-    """From here on every kernel-1 ``DevicePlan`` built adds its own
-    ``prefix_launches`` (the blocked kernel's launches that built its
-    shared prefix) to the ``prefix`` count of :func:`_counts`."""
-    plan = _port("ops.variant_kernel").DevicePlan
+    """From here on every device plan of kernels 1, 3 and 5 built adds
+    its own ``prefix_launches`` (the blocked kernel's launches that built
+    its shared prefix) to the ``prefix`` count of :func:`_counts`."""
+    for module, name in (("variant_kernel", "DevicePlan"),
+                         ("collapse_kernel", "CollapseDevicePlan"),
+                         ("sv_kernel", "SvDevicePlan")):
+        _count_plan_prefixes(getattr(_port(f"ops.{module}"), name))
+
+
+def _count_plan_prefixes(plan):
     init = plan.__init__
 
     def counted(self, *args, **kw):
@@ -715,7 +722,8 @@ def _reset_counts():
 
 def _counts():
     """Each kernel's launches, counted where they launch, and ``prefix``:
-    what the kernel-1 plans built meanwhile say their prefixes took."""
+    what the kernel 1, 3 and 5 plans built meanwhile say their prefixes
+    took."""
     return {"blocked": _port("ops.blocked_kernel").blocked_rows.launches,
             "variant": _port("ops.variant_kernel").variant_rows.launches,
             "collapse": _port("ops.collapse_kernel").collapse_rows.launches,
@@ -726,7 +734,8 @@ def _counts():
 def _only(prefix=0, **launched):
     """The launch counts of a path that ran these kernels and no other,
     besides ``prefix`` blocked launches: the shared prefixes of the
-    kernel-1 plans it built, each a plan's ``prefix_launches``."""
+    kernel 1, 3 and 5 plans it built, each a plan's
+    ``prefix_launches``."""
     out = {"blocked": 0, "variant": 0, "collapse": 0, "sv": 0, **launched,
            "prefix": prefix}
     out["blocked"] += prefix
@@ -734,9 +743,9 @@ def _only(prefix=0, **launched):
 
 
 def _prefix_err(dp):
-    """How far a kernel-1 plan's shared prefix, built on the card by the
-    blocked kernel, lies from the same chain's plain version on the
-    CPU."""
+    """How far a kernel 1, 3 or 5 plan's shared prefix, built on the card
+    by the blocked kernel, lies from the same chain's plain version on
+    the CPU."""
     want, _ = _port("ops.blocked_kernel").build_prefix(
         dp.plan.prefix_ops, dp.plan.n, "cpu")
     return (dp.prefix.cpu() - want).abs().max().item()
@@ -1011,7 +1020,8 @@ def phase_wide(label, virt, report, analytic, kernel_row=None,
              f"fragment widths {widths} are within the variant kernel's "
              "gate")
     else:
-        need(all(vk.CLUSTER_QUBITS < w <= vk.MAX_QUBITS for w in widths),
+        need(all(_port("ops.kernel_build").CLUSTER_QUBITS < w <= vk.MAX_QUBITS
+                 for w in widths),
              f"fragment widths {widths} are not the variant kernel's "
              "global-memory path")
     need(np.isfinite(values).all() and values.shape == (1 << len(keep),),
@@ -1476,6 +1486,8 @@ def phase_main_qft16(circ, virt, report):
                   for a, b in zip(k_bits, p_bits))
     prof = _profile(lambda: tq.sampled_knit(virt, QFT_SAMPLES,
                                             with_stderr=True, **knit_kw))
+    # kernel 3's shared prefixes, built on the card by the blocked kernel
+    prefix_err = max(_prefix_err(fn.rows_fn.plan) for fn in row_fns)
 
     n_blocks = -(-len(lab_all) // block)
     expect = n_blocks * len(virt.fragments)
@@ -1503,6 +1515,7 @@ def phase_main_qft16(circ, virt, report):
         "plain_block_labels": head, "plain_knit_max_abs_err": plain_err,
         "plain_block_picks_flipped": flipped,
         "replica_runs_per_block": runs_per_block,
+        "prefix_max_abs_err": prefix_err,
     }
     out.update(prof)
     report["qft16"] = out
@@ -1518,7 +1531,8 @@ def phase_main_qft16(circ, virt, report):
           f"marginal worst {m_dev.max():.2f} stderrs (max stderr "
           f"{se.max():.2e}), z worst {z_dev.max():.2f} stderrs (max stderr "
           f"{z_se.max():.2e}) plain_knit_err={plain_err:.3e} "
-          f"picks_flipped={flipped} device_busy_ms={out['device_busy_ms']} "
+          f"picks_flipped={flipped} prefix_max_abs_err={prefix_err:.3e} "
+          f"device_busy_ms={out['device_busy_ms']} "
           f"idle_share={out['device_idle_share']}", flush=True)
     print(f"  replica runs per block of {block} label rows (fragments "
           f"{[r.name for r in virt.fragments]}): {runs_per_block}",
@@ -1538,10 +1552,13 @@ def phase_main_qft16(circ, virt, report):
     need(np.isfinite(est_v).all() and est_v.shape == (1 << len(QFT_KEEP),)
          and dist.bit_positions == QFT_KEEP,
          "marginal not finite or of the wrong shape")
-    need(counts == _only(collapse=expect),
-         f"launched {counts}, expected {expect} collapse launches only")
+    need(counts == _only(collapse=expect, prefix=counts["prefix"])
+         and counts["prefix"] > 0,
+         f"launched {counts}, expected {expect} collapse launches and "
+         "kernel 3's prefixes only")
     need(rows == len(lab_all) * len(virt.fragments),
          f"kernel 3 counted {rows} rows, not {len(lab_all)} a fragment")
+    need(prefix_err <= TOL, f"kernel 3's prefix vs plain {prefix_err:.3e}")
     need(z_counts["collapse"] > 0 and not z_counts["variant"],
          f"<Z> launched {z_counts}")
     need(plain_counts == _only(),
@@ -1842,7 +1859,7 @@ def phase_sv(label, virt, report, names=None, lanes=None):
             "n": dp.plan.n, "k": dp.plan.k, "m": len(dp.plan.meas_vgates),
             "lanes": count, "ops_1q": kinds.count(1),
             "ops_2q": kinds.count(2), "slots": kinds.count(3),
-            "prefix_ops": dp.plan.prefix_ops,
+            "prefix_ops": len(dp.plan.prefix_ops),
             "rows_after_rewrite": len(dp.plan.table.rows),
             "row_kinds": {k: dp.plan.table.kinds.count(k)
                           for k in sorted(set(dp.plan.table.kinds))},
@@ -2017,9 +2034,10 @@ def phase_main_sv(label, circ, virt, report, kernel_row):
     for row in out["device_ms_by_kernel"][:5]:
         print(f"  device {row['ms']:.3f} ms x{row['calls']}: "
               f"{row['kernel']}", flush=True)
-    if counts != _only(sv=len(virt.fragments)):
+    if counts != _only(sv=len(virt.fragments), prefix=counts["prefix"]):
         raise RuntimeError(f"{label}: launched {counts}, expected one sv "
-                           "launch per fragment and nothing else")
+                           "launch per fragment and kernel 5's prefixes "
+                           "only")
     if stage["lane_table_calls"]:
         raise RuntimeError(f"{label}: the route built a host lane table")
     if not (fid > FID_MIN and warm_fid > FID_MIN):

@@ -26,10 +26,11 @@ SEGMENTS:
 * the shared prefix runs through the same kernel, one state from
   ``|0...0>``, when the device plan is built, and the device plan is
   cached on the ``VirtualCircuit`` (:func:`device_plan`);
-* the prefix routine serves kernel 1 too: :func:`build_prefix` plans any
-  fixed gate chain as :func:`plan_prefix` (the prefix half of
-  :func:`build_plan`) and runs it the same way, so the variant kernel's
-  shared prefix state is built on its plan's device as well.
+* the prefix routine serves kernels 1, 3 and 5 too: :func:`build_prefix`
+  plans any fixed gate chain as :func:`plan_prefix` (the prefix half of
+  :func:`build_plan`) and runs it the same way, so the variant, collapse
+  and whole-fragment kernels' shared prefix states are built on their
+  plans' device as well.
 
 Layers, as in ``variant_kernel.py``: the host build (:func:`build_plan`,
 :func:`plan_prefix`), the wrappers (:func:`apply_segment` for one
@@ -53,19 +54,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..convert import resolve_device, to_device
+from ..convert import resolve_device
 from ..virt.virtual_circuit import VirtualCircuit
 from . import op_rewrite
-from .kernel_build import KernelLibrary, check_tensor
+from .kernel_build import MAX_QUBITS, KernelLibrary, check_tensor, upload
+from .op_rewrite import OpTable, SlotEntries, _plan_ops, generic_ops, op_costs
 from .statevector import marginalize_flat
-from .variant_kernel import (
-    MAX_QUBITS,
-    OpTable,
-    SlotEntries,
-    _plan_ops,
-    generic_ops,
-    op_costs,
-)
 
 MAX_WINDOW = 14          # 8 * 2^14 B = 128 KB of a CTA's 227 KB
 DEFAULT_WINDOW = 13      # 64 KB a tile: two CTAs an SM (fastest measured)
@@ -276,7 +270,7 @@ class BlockedPlan:
     shared prefix (fixed gates, run once from ``|0...0>``), then one per
     entry of ``segments``, the suffix.  ``perms`` / ``prefix_perms`` map
     qubit -> tile layout bit for each.  ``ops``, ``fixed`` and the entry
-    tables are the suffix's :class:`~.variant_kernel.OpTable` over
+    tables are the suffix's :class:`~.op_rewrite.OpTable` over
     tile-local bits (all below ``w``), ``segments[k]`` suffix segment
     ``k``'s row range in it (the work counts' yardstick).  ``table`` is
     what the kernel interprets: every segment's rows rewritten by
@@ -413,25 +407,15 @@ class BlockedDevicePlan:
     def __init__(self, plan: BlockedPlan, device):
         self.plan = plan
         self.device = torch.device(device)
-        self.rows = to_device(
-            plan.table.rows if len(plan.table.rows)
-            else np.zeros((1, op_rewrite.ROW), np.int32), device)
-        self.pool = to_device(
-            plan.table.pool if plan.table.pool.size
-            else np.zeros(1, np.float32), device)
-        self.tables = to_device(
-            plan.tables if len(plan.tables)
-            else np.zeros((1, 2, DEP_SIZE), np.int32), device)
+        self.rows = upload(plan.table.rows, device)
+        self.pool = upload(plan.table.pool, device)
+        self.tables = upload(plan.tables, device)
         self.phases = torch.as_tensor(plan.phases, device=self.device)
-        self._entries = SlotEntries(plan.entry_tables, plan.entry_gids,
-                                    device)
+        # [C, entry_stride] slot entries of a [C, num_vgates] label block
+        self.gather_entries = SlotEntries(plan.entry_tables,
+                                          plan.entry_gids, device)
         self.prefix = (prefix_state(self) if self.device.type == "cuda"
                        else plain_prefix_state(self))
-
-    def gather_entries(self, vidx_chunk: torch.Tensor) -> torch.Tensor:
-        """``[C, entry_stride]`` per-label slot entries for a ``[C,
-        num_vgates]`` block of variant indices (global vgate columns)."""
-        return self._entries(vidx_chunk)
 
     def tile_index(self, g: int, side: int) -> torch.Tensor:
         """Segment ``g``'s :func:`tile_index` on the plan's device, built
@@ -683,7 +667,7 @@ def apply_segment(dp: BlockedDevicePlan, k: int, state,
     the hand-written kernel, which updates per-label states IN PLACE
     (counted in ``blocked_rows.launches``); CPU tensors run
     :func:`plain_segment`.  ``entries [C, entry_stride]`` from
-    :meth:`BlockedDevicePlan.gather_entries`."""
+    ``BlockedDevicePlan.gather_entries``."""
     if entries.is_cuda:
         return _launch_segment(dp, k, state, entries)
     if entries.device.type != "cpu":
@@ -766,7 +750,7 @@ def work_counts(plan: BlockedPlan, k: int, labels: int,
     last segment's ``|psi|^2`` rows; the segment's rewritten rows, its
     pool, copy tables and phases, the entry rows it uses).
     ``flops``: f32 operations, each gate what its matrix needs
-    (``variant_kernel.op_costs``: a slot gate from each label's row of
+    (``op_rewrite.op_costs``: a slot gate from each label's row of
     ``entries [labels, entry_stride]``, dense without it)."""
     big = 1 << plan.n
     start, end = plan.segments[k]

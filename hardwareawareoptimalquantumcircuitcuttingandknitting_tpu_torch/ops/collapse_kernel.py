@@ -14,8 +14,10 @@ ancillas never appear).
 Three layers, as in ``ops/variant_kernel.py``:
 
 * the host build (:func:`build_plan`): the collapse stream of
-  ``variant_engine.collapse_stream`` at full width, the prefix run once on
-  the host, the suffix as an op table (``variant_kernel.OpTable`` rows,
+  ``variant_engine.collapse_stream`` at full width, the prefix run once
+  on the plan's device by kernel 4's segment launches
+  (``blocked_kernel.build_prefix``, when :class:`CollapseDevicePlan` is
+  built), the suffix as an op table (``op_rewrite.OpTable`` rows,
   one extra row kind for a collapse site), that table rewritten by
   ``ops/op_rewrite`` for the kernel (identities dropped, diagonal runs
   merged, each site fused with its slot gates) and the epilogue's bit
@@ -50,22 +52,28 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..convert import resolve_device, to_device
+from ..convert import resolve_device
 from ..utils.profiling import span
 from ..virt.virtual_circuit import VirtualCircuit
 from . import op_rewrite
-from .kernel_build import KernelLibrary, check_tensor
-from .op_rewrite import OP_SITE_A, OP_SITE_B
-from .statevector import apply_matrix_host, marginalize_flat
-from .variant_engine import collapse_stream, splice_zero_bits
-from .variant_kernel import (
+from .blocked_kernel import build_prefix
+from .kernel_build import (
+    KernelLibrary,
+    check_tensor,
+    launch_geometry,
+    run_starts,
+    upload,
+)
+from .op_rewrite import (
+    OP_SITE_A,
+    OP_SITE_B,
     OpTable,
     SlotEntries,
-    apply_op_plain,
     generic_ops,
-    launch_geometry,
     op_costs,
 )
+from .statevector import marginalize_flat
+from .variant_engine import collapse_stream, splice_zero_bits
 
 MAX_QUBITS = 20      # per-block state in global scratch: 8 MB at n = 20
 MAX_OUTCOMES = 128   # in-kernel marginal outcomes / z columns (the contract)
@@ -77,8 +85,12 @@ _MODES = {"rows": 0, "marginal": 1, "z": 2}
 class CollapsePlan:
     """Host build of one fragment's collapse kernel.
 
-    ``ops`` / ``fixed`` / the entry tables are an :class:`OpTable`'s
-    (collapse rows: ``(0, flat bit, site index, 0)``).  ``site_meta`` lists
+    ``prefix_ops`` are the fixed gates before the first slot, ``("u",
+    complex mat, active axes)`` in kernel 4's canonical layout (active
+    qubit ``i`` on flat bit ``n-1-i``), run once by
+    :class:`CollapseDevicePlan`.  ``ops`` / ``fixed`` / the entry tables
+    are an :class:`OpTable`'s (collapse rows: ``(0, flat bit, site
+    index, 0)``).  ``site_meta`` lists
     ``(slot id, global vgate id)`` per collapse site in op order: the
     order of the per-label scalar block ``[C, n_sites, 4]`` (u, mflag, w0,
     w1) and of the picked bits.  ``active``: the fragment qubits that occur
@@ -92,7 +104,7 @@ class CollapsePlan:
     ``site_rows[s]``: the row of its ``OP_SITE_B`` for site ``s``."""
 
     n: int
-    prefix: np.ndarray
+    prefix_ops: list
     ops: np.ndarray
     fixed: np.ndarray
     entry_tables: list
@@ -171,13 +183,6 @@ def build_plan(virt: VirtualCircuit, frag_name: str, keep_clbits=None,
                     mask |= 1 << fb
             z_masks.append(mask)
 
-    with span("port.build.prefix"):
-        st = np.zeros((2, 1 << n), np.float32)
-        st[0, 0] = 1.0
-        for _, mat, axes in prefix_ops:
-            st = apply_matrix_host(st, mat, tuple(index[q] for q in axes),
-                                   n)
-
     table = OpTable(prog, [vg.spec for vg in virt.vgates])
     for op in suffix:
         table.add(op, [n - 1 - index[q] for q in op[2]])
@@ -189,7 +194,9 @@ def build_plan(virt: VirtualCircuit, frag_name: str, keep_clbits=None,
         if row[0] == OP_SITE_B:
             site_rows[row[2]] = i
     return CollapsePlan(
-        n=n, prefix=st, ops=ops, fixed=fixed,
+        n=n, ops=ops, fixed=fixed,
+        prefix_ops=[("u", mat, tuple(index[q] for q in axes))
+                    for _, mat, axes in prefix_ops],
         entry_tables=table.entry_tables, entry_gids=table.entry_gids,
         entry_stride=table.entry_stride, site_meta=site_meta,
         active=list(active), positions=list(positions),
@@ -200,34 +207,27 @@ def build_plan(virt: VirtualCircuit, frag_name: str, keep_clbits=None,
 
 
 class CollapseDevicePlan:
-    """A :class:`CollapsePlan` with its tables on one device."""
+    """A :class:`CollapsePlan` with its tables on one device and the
+    shared prefix state ``prefix`` (``[2, 2^n]``) built there by
+    ``blocked_kernel.build_prefix``: kernel 4's segment launches on a card
+    (``prefix_launches`` of them), its plain version on the CPU
+    (none)."""
 
     def __init__(self, plan: CollapsePlan, device):
         self.plan = plan
         self.device = torch.device(device)
-        self.prefix = to_device(plan.prefix, device)
-        self.ops = to_device(
-            plan.ops if len(plan.ops) else np.zeros((1, 4), np.int32), device
-        )
-        self.fixed = to_device(
-            plan.fixed if plan.fixed.size else np.zeros(1, np.float32),
-            device,
-        )
-        self._entries = SlotEntries(plan.entry_tables, plan.entry_gids,
-                                    device)
-        self.rows = to_device(
-            plan.table.rows if len(plan.table.rows)
-            else np.zeros((1, op_rewrite.ROW), np.int32), device)
-        self.pool = to_device(
-            plan.table.pool if plan.table.pool.size
-            else np.zeros(1, np.float32), device)
+        # [C, entry_stride] slot entries of a [C, num_vgates] label block
+        self.gather_entries = SlotEntries(plan.entry_tables,
+                                          plan.entry_gids, device)
+        self.rows = upload(plan.table.rows, device)
+        self.pool = upload(plan.table.pool, device)
         # the resume row of a run: its first measuring site's OP_SITE_B,
         # or past the table when it measures nowhere (first site index
         # n_sites, which is 1 for the dummy column of a siteless plan)
         end = [len(plan.table.rows)] * (plan.n_sites + 1
                                         - len(plan.site_rows))
-        self.site_rows = to_device(
-            np.asarray(plan.site_rows + end, np.int64), device)
+        self.site_rows = upload(np.asarray(plan.site_rows + end, np.int64),
+                                device)
         if plan.mode == "marginal":
             real = plan.real_bits
             epi = real + [b for b in range(plan.n) if b not in real]
@@ -235,12 +235,10 @@ class CollapseDevicePlan:
             epi = list(plan.z_masks)
         else:
             epi = []
-        self.epi = to_device(np.asarray(epi or [0], np.int32), device)
-
-    def gather_entries(self, lab_chunk: torch.Tensor) -> torch.Tensor:
-        """``[C, entry_stride]`` per-label slot entries for a ``[C,
-        num_vgates]`` label block (global vgate columns)."""
-        return self._entries(lab_chunk)
+        self.epi = upload(np.asarray(epi, np.int32), device)
+        with span("port.build.prefix"):
+            self.prefix, self.prefix_launches = build_prefix(
+                plan.prefix_ops, plan.n, self.device)
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +305,7 @@ def plain_collapse_rows(dp: CollapseDevicePlan, entries, cscal,
     for row in plan.ops:
         nq, ja, jb, _ = (int(v) for v in row)
         if nq != 0:
-            st = apply_op_plain(st, row, n, plan.fixed, entries)
+            st = op_rewrite.apply_row(st, row, n, plan.fixed, entries)
             continue
         sq = (st * st).sum(dim=1)
         tot = sq.sum(dim=1)
@@ -451,21 +449,13 @@ def run_table(dp: CollapseDevicePlan, entries, cscal, cap: int = RUN_CAP):
     measuring site (past the table where none measures).  The rest are
     empty runs."""
     c = cscal.shape[0]
-    dev = entries.device
-    new = _run_heads(entries, cscal, cap)
-    rid = torch.cumsum(new, dim=0) - 1
-    idx = torch.arange(c, device=dev)
-    # run r's first row at starts[r]; rows that open no run land past the
-    # end, and starts[R] keeps its fill c, the end of the last run
-    starts = torch.full((c + 2,), c, dtype=torch.int64, device=dev)
-    starts.scatter_(0, torch.where(new, rid, c + 1), idx)
-    starts = starts[:c + 1]
+    starts, count = run_starts(_run_heads(entries, cscal, cap))
     lens = starts[1:] - starts[:-1]                 # 0 past the last run
     first = _first_sites(cscal, starts[:-1].clamp(max=c - 1))
     order = torch.argsort(lens, descending=True, stable=True)
     table = torch.stack([starts[:-1][order], lens[order],
                          dp.site_rows[first[order]]], dim=1)
-    return table.to(torch.int32).contiguous(), (rid[-1:] + 1).to(torch.int32)
+    return table.to(torch.int32).contiguous(), count
 
 
 # ---------------------------------------------------------------------------
@@ -547,7 +537,7 @@ def collapse_rows(dp: CollapseDevicePlan, entries, cscal):
     ``collapse_rows.launches``); CPU tensors run
     :func:`plain_collapse_rows`.  Either way ``collapse_rows.rows``
     counts the C trajectory rows computed.  ``entries [C, entry_stride]``
-    (from :meth:`CollapseDevicePlan.gather_entries`), ``cscal [C,
+    (from ``CollapseDevicePlan.gather_entries``), ``cscal [C,
     n_sites, 4]`` f32 (u, mflag, w0, w1 per site, in ``plan.site_meta``
     order)."""
     if entries.is_cuda:
@@ -625,7 +615,7 @@ def work_counts(plan: CollapsePlan, entries, cscal) -> dict:
     ``bytes``/``flops`` define the roofline bound: the bytes the function
     must move (each input read once, each output written once) and the
     f32 operations these labels need.  Each gate costs what its matrix
-    needs (``variant_kernel.op_costs``: nothing for an identity or a
+    needs (``op_rewrite.op_costs``: nothing for an identity or a
     permutation, one complex entry for a ``cp``; slot gates from each
     label's own entries).  Rows that differ only in ``u`` share every op
     before their first measuring site: a replica run (:func:`find_runs`,
@@ -688,7 +678,7 @@ def work_counts(plan: CollapsePlan, entries, cscal) -> dict:
         passes += int(k_tail[span, resume].sum()) + length * epi_cols
     n_epi = {"rows": 0, "marginal": plan.n, "z": epi_cols - 1}[plan.mode]
     nbytes = 4 * (
-        plan.prefix.size + plan.ops.size + plan.fixed.size + n_epi
+        (2 << plan.n) + plan.ops.size + plan.fixed.size + n_epi
         + c * (max(1, plan.entry_stride) + 5 * plan.n_sites
                + plan.out_width)
     )

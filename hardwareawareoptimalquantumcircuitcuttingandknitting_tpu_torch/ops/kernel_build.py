@@ -1,10 +1,15 @@
-"""Build and bind the package's hand-written CUDA kernels.
+"""Build, bind and feed the package's hand-written CUDA kernels.
 
 Every kernel source in ``csrc/`` has a plain C interface.  It is compiled
 at first use with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/`` (named by the hash of the source and of the headers in
 ``csrc/`` it may include, so an edit of either rebuilds) and loaded with
 ``ctypes``.  Nothing here runs when a module is imported.
+
+The launch side the wrappers share sits here too: the width gates and
+:func:`launch_geometry` of the variant and collapse kernels,
+:func:`upload` for a plan's tables and :func:`run_starts` for a run
+table built on the device.
 """
 from __future__ import annotations
 
@@ -15,6 +20,17 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+
+import numpy as np
+import torch
+
+from ..convert import to_device
+
+# The variant kernel's width gate: up to 15 qubits the state is on chip,
+# from 16 to 20 it lives in a global scratch that a cluster of CTAs
+# shares.  Wider fragments need the segmented blocked kernel.
+MAX_QUBITS = 20
+CLUSTER_QUBITS = 15  # the width a cluster of two CTAs holds on chip
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent.parent.parent / "build"
@@ -118,3 +134,42 @@ def check_tensor(t, name: str, dtype, shape, device) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def upload(table, device) -> torch.Tensor:
+    """A plan's numpy table on ``device``; an empty one as one zero row
+    of its shape, so a kernel is always handed a valid pointer."""
+    table = np.asarray(table)
+    if table.size == 0:
+        table = np.zeros((1,) + table.shape[1:], table.dtype)
+    return to_device(table, device)
+
+
+def launch_geometry(n: int) -> tuple[int, int, bool]:
+    """``(threads, csize, use_smem)`` of a launch of the variant or the
+    collapse kernel: the state is split over ``csize`` CTAs (2 at n = 15,
+    else 1; past n = 15 the variant kernel's cluster is
+    ``variant_kernel.cluster_size``'s), held in shared memory up to
+    n = 15 (``use_smem``); a CTA has 8 amplitudes of its share a thread
+    (at least 32 threads, at most 512: 32 amplitudes a thread at n = 14
+    and 15, all in the collapse kernel's register checkpoint), so narrow
+    states leave registers for more CTAs an SM."""
+    csize = 2 if n == CLUSTER_QUBITS else 1
+    threads = min(512, max(32, ((1 << n) // csize) // 8))
+    return threads, csize, n <= CLUSTER_QUBITS
+
+
+def run_starts(heads: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(starts [C + 1] int64, count [1] int32)`` of the runs that the
+    ``[C]`` bool ``heads`` open, on their device with no wait for them:
+    run ``r`` starts at row ``starts[r]``, and ``starts[count:]`` are all
+    ``C``, so ``starts[1:] - starts[:-1]`` is each run's length (0 past
+    the last run)."""
+    c = heads.shape[0]
+    rid = torch.cumsum(heads, dim=0) - 1
+    # rows that open no run land past the end, and starts[R] keeps its
+    # fill c, the end of the last run
+    starts = torch.full((c + 2,), c, dtype=torch.int64, device=heads.device)
+    starts.scatter_(0, torch.where(heads, rid, c + 1),
+                    torch.arange(c, device=heads.device))
+    return starts[:c + 1], (rid[-1:] + 1).to(torch.int32)

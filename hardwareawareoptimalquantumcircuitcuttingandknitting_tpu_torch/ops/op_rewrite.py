@@ -1,4 +1,15 @@
-"""Host rewrite of a kernel's op table: the same function in fewer passes.
+"""The kernels' op tables, built on the host, and their rewrite: the same
+function in fewer passes.
+
+The variant, collapse and blocked kernels' wrappers turn a fragment's
+fused op stream (:func:`_plan_ops`, split at the first slot) into an op
+table over flat bits, an :class:`OpTable`: rows ``(nq, ja, jb, coef)``, the
+fixed-coefficient pool and the per-slot entry tables, which
+:class:`SlotEntries` gathers into each label's entry row on the device.
+:func:`generic_ops` hands such a table to :func:`rewrite`,
+:func:`op_costs` counts what each row needs, and :func:`apply_row`
+replays a row of either table (an original row's ``nq`` is the code of
+``OP_GATE1`` or ``OP_GATE2``).
 
 The collapse kernel (``csrc/collapse_kernel.cu``) and the whole-fragment
 kernel (``csrc/sv_kernel.cu``) interpret an op table, one pass over the
@@ -52,7 +63,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..convert import to_device
+from .fusion import fused_stream
 from .statevector import apply_slices
+from .variant_engine import _fuse_slot_ops, _slot_tables
 
 OP_GATE1, OP_GATE2, OP_DIAG, OP_PERM1, OP_PERM2 = 1, 2, 3, 4, 5
 OP_SITE_A, OP_SITE_B, OP_SLOT = 6, 7, 8
@@ -233,7 +247,9 @@ def _diag_phase(pool: np.ndarray, start: int, count: int, n: int, device):
 
 def apply_row(st, row, n: int, pool: np.ndarray, entries=None):
     """One row of kinds ``OP_GATE*``, ``OP_DIAG`` or ``OP_PERM*`` applied
-    to ``st [B, 2, 2^n]``."""
+    to ``st [B, 2, 2^n]``; an :class:`OpTable` gate row ``(nq, ja, jb,
+    coef)`` is an ``OP_GATE*`` row of the same meaning, read from the
+    ``fixed`` pool given as ``pool``."""
     kind, ja, jb, a0 = (int(v) for v in row[:4])
     if kind in (OP_GATE1, OP_GATE2):
         m = 1 << kind
@@ -268,3 +284,181 @@ def replay(st, table: Table, n: int, entries=None, special=None):
             st = apply_row(st, row, n, table.pool, entries)
     return st
 
+
+
+# ---------------------------------------------------------------------------
+# The op table every kernel wrapper builds
+# ---------------------------------------------------------------------------
+
+def _plan_ops(virt, frag_name: str):
+    """(prefix_ops, suffix_steps, prog) — the fused-slot op stream the JAX
+    engines execute, split at the first slot.  Suffix steps:
+    ("u", complex mat, axes) | ("slot", slot_id, axes)."""
+    prog = virt.programs[frag_name]
+    skeleton, mats = fused_stream(_fuse_slot_ops(prog.ops), max_qubits=2)
+    ops = []
+    bi = 0
+    for op in skeleton:
+        if op[0] == "u":
+            ops.append(("u", np.asarray(mats[bi], complex), op[1]))
+            bi += 1
+        else:  # ("slot", sid, axes)
+            ops.append(op)
+    first = next((i for i, op in enumerate(ops) if op[0] != "u"), len(ops))
+    return ops[:first], ops[first:], prog
+
+
+def _to_complex(block: np.ndarray) -> np.ndarray:
+    """Real (2, m, 2, m) block -> complex (m, m)."""
+    return block[0, :, 0, :] + 1j * block[1, :, 0, :]
+
+
+class OpTable:
+    """Accumulates a kernel's op table: rows ``(nq, ja, jb, coef)`` over
+    flat bits (``ja`` = the gate-index MSB), the fixed-coefficient pool
+    and the per-slot entry tables.  ``coef >= 0`` is an offset into the
+    pool (re ``[m*m]`` then im ``[m*m]``), ``coef < 0`` is ``-1 -
+    offset`` into the label's entry row (the concatenated per-slot ``[2,
+    m, m]`` entries).  A row with ``nq == 0`` is a collapse site on flat
+    bit ``ja`` whose per-label scalars sit at site index ``jb`` (the
+    collapse kernel alone reads such rows; ``sites`` lists their slot
+    ids in row order).  One table format serves every circuit, so one
+    build of a kernel does too."""
+
+    def __init__(self, prog, specs):
+        self._prog = prog
+        self._specs = specs
+        self._tabs: dict = {}          # fused? -> _slot_tables(...)
+        self.sites: list = []          # slot id per collapse row
+        self.ops: list = []
+        self.fixed: list = []
+        self.entry_tables: list = []   # per slot [nI, 2*m*m] float32
+        self.entry_gids: list = []     # per slot: global vgate id
+        self.entry_stride = 0          # floats per label entry row
+        self.slot_rows: list = []      # op rows that are slots
+
+    def _slot_table(self, sid: int, kind: str) -> np.ndarray:
+        """``[nI, 2, m, 2, m]`` real blocks of one slot op: the composed
+        block (``"slot"``) or the unfused pre / post endpoint gate."""
+        fused = kind == "slot"
+        if fused not in self._tabs:
+            self._tabs[fused] = _slot_tables(self._prog, self._specs,
+                                             fused=fused)
+        return self._tabs[fused][sid][{"slot": 0, "slot_pre": 0,
+                                       "slot_post": 2}[kind]]
+
+    def add(self, op, js) -> None:
+        """Append ``("u", complex mat, axes)``, ``("slot" | "slot_pre" |
+        "slot_post", slot_id, axes)`` or ``("collapse", slot_id, axes)``
+        acting on flat bits ``js``."""
+        if op[0] == "collapse":
+            self.ops.append((0, js[0], len(self.sites), 0))
+            self.sites.append(op[1])
+            return
+        if len(js) not in (1, 2):
+            raise NotImplementedError(
+                f"{len(js)}-qubit op in the fused suffix: the kernels "
+                "apply 1q and 2q gates only"
+            )
+        ja, jb = js[0], (js[1] if len(js) == 2 else 0)
+        if op[0] == "u":
+            mat = np.asarray(op[1], complex)
+            coef = len(self.fixed)
+            self.fixed.extend(mat.real.astype(np.float32).ravel())
+            self.fixed.extend(mat.imag.astype(np.float32).ravel())
+        else:
+            self.slot_rows.append(len(self.ops))
+            tab = self._slot_table(op[1], op[0])
+            cx = np.stack([_to_complex(t) for t in tab])  # [nI, m, m]
+            ent = np.stack([cx.real, cx.imag], axis=1).astype(np.float32)
+            self.entry_tables.append(ent.reshape(ent.shape[0], -1))
+            self.entry_gids.append(self._prog.slots[op[1]].vgate_idx)
+            coef = -1 - self.entry_stride
+            self.entry_stride += self.entry_tables[-1].shape[1]
+        self.ops.append((len(js), ja, jb, coef))
+
+    def ops_array(self) -> np.ndarray:
+        return np.asarray(self.ops, np.int32).reshape(-1, 4)
+
+    def fixed_array(self) -> np.ndarray:
+        return np.asarray(self.fixed, np.float32)
+
+
+def generic_ops(ops: np.ndarray, fixed: np.ndarray) -> list:
+    """An :class:`OpTable`'s rows as :func:`rewrite` takes them: fixed
+    gates from their f32 pool entries, slot gates by their entry offset,
+    collapse rows as sites."""
+    out = []
+    for nq, ja, jb, coef in ops.tolist():
+        if nq == 0:
+            out.append(("site", ja, jb))
+            continue
+        js = [ja, jb][:nq]
+        if coef < 0:
+            out.append(("e", js, -1 - coef))
+            continue
+        m = 1 << nq
+        blk = fixed[coef:coef + 2 * m * m].astype(np.float64)
+        out.append(("u", (blk[:m * m] + 1j * blk[m * m:]).reshape(m, m),
+                    js))
+    return out
+
+
+def op_costs(ops: np.ndarray, fixed: np.ndarray, n: int,
+             entries=None) -> np.ndarray:
+    """f32 operations of each :class:`OpTable` row on a ``2^n`` state,
+    ``[C, n_ops]`` for the labels' entry rows ``entries [C, stride]``
+    (numpy), else ``[1, n_ops]``: a gate what its matrix needs
+    (:func:`matvec_ops`: nothing for an identity or a permutation), a
+    slot gate from each label's own entries (as dense without them), a
+    collapse row nothing."""
+    big = 1 << n
+    c = 1 if entries is None else len(entries)
+    cost = np.zeros((c, len(ops)), np.int64)
+    for i, (nq, _, _, coef) in enumerate(np.asarray(ops).tolist()):
+        if nq == 0:
+            continue
+        m = 1 << nq
+        if coef >= 0:
+            blk = fixed[coef:coef + 2 * m * m].reshape(2, m, m)
+        elif entries is None:
+            blk = np.ones((2, m, m), np.float32)   # dense complex
+        else:
+            off = -1 - coef
+            blk = np.moveaxis(np.asarray(entries)[:, off:off + 2 * m * m]
+                              .reshape(c, 2, m, m), 1, 0)
+        cost[:, i] = matvec_ops(blk[0], blk[1]) * (big // m)
+    return cost
+
+
+class SlotEntries:
+    """Per-slot tables (``tables[s]`` ``[nI_s, w_s]`` float32, slot ``s``
+    reading label column ``gids[s]``) on one device, gathered into a
+    per-label row ``[C, sum w_s]`` (the slots' rows side by side) by one
+    index into their concatenation: a handful of device ops, however many
+    slots.  Without a slot, rows of one zero."""
+
+    def __init__(self, tables, gids, device):
+        dev = torch.device(device)
+        self.flat = None
+        if tables:
+            self.flat = to_device(np.concatenate(
+                [np.asarray(t, np.float32).ravel() for t in tables]), dev)
+            base, col, stride, at = [], [], [], 0
+            for tab, g in zip(tables, gids):
+                w = tab.shape[1]
+                base.extend(at + np.arange(w))
+                col.extend([g] * w)
+                stride.extend([w] * w)
+                at += tab.size
+            self.base, self.col, self.stride = (
+                torch.as_tensor(np.asarray(a, np.int64), device=dev)
+                for a in (base, col, stride))
+
+    def __call__(self, vidx_chunk: torch.Tensor) -> torch.Tensor:
+        """``[C, width]`` rows for a ``[C, num_vgates]`` block of variant
+        indices (global vgate columns)."""
+        if self.flat is None:
+            return torch.zeros((vidx_chunk.shape[0], 1), dtype=torch.float32,
+                               device=vidx_chunk.device)
+        return self.flat[vidx_chunk[:, self.col] * self.stride + self.base]

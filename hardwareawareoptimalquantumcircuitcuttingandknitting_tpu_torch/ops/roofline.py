@@ -19,7 +19,7 @@ are an H100's data-sheet numbers (:data:`H100_HBM_BYTES_PER_S`,
 :data:`H100_NVLINK_BYTES_PER_S`), the ``seconds()`` defaults.  Where the
 JAX package models a sampled kernel row as VMEM-resident at every width,
 this package's kernels keep the state on chip only up to
-:data:`~.variant_kernel.CLUSTER_QUBITS` simulated qubits (one CTA, or a
+:data:`~.kernel_build.CLUSTER_QUBITS` simulated qubits (one CTA, or a
 two-CTA cluster);
 wider states live in global memory and their passes count.
 
@@ -31,7 +31,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from ..virt.virtual_circuit import VirtualCircuit
-from .variant_kernel import CLUSTER_QUBITS
+from .kernel_build import CLUSTER_QUBITS
 
 # H100 SXM5 80GB HBM3 memory bandwidth, bytes/s (NVIDIA data sheet:
 # 3.35 TB/s).

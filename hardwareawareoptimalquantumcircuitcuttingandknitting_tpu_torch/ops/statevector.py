@@ -366,7 +366,9 @@ def _kq_operands(b, axes, n: int, state):
 def apply_matrix_host(state: np.ndarray, u, axes, n: int) -> np.ndarray:
     """Host (numpy) gate application on ``[2, 2^n]`` real-rep states (the
     JAX package's ``apply_matrix_host``: same einsum contractions, same
-    bit conventions).  Builds the kernel's shared prefix state."""
+    bit conventions).  Builds ``variant_engine.make_sim_fn``'s shared
+    prefix state; the kernels' prefixes are kernel 4's
+    (``blocked_kernel.build_prefix``)."""
     b = to_real_block(u) if np.iscomplexobj(u) or u.ndim == 2 else u
     if len(axes) == 1:
         q = axes[0]

@@ -22,8 +22,10 @@ Layers, as in the other kernel modules:
 * the host build: :func:`_plan` and :func:`_slot_lane_params` (numpy, the
   JAX package's, with its refusals) and :func:`build_plan`: the original
   op table over flat bits, and what the kernel reads instead of a lane
-  table: the fixed gates before the first slot run once on the host (the
-  ``prefix`` state every lane starts from), the rest rewritten by
+  table: the fixed gates before the first slot run once on the plan's
+  device by kernel 4's segment launches (``blocked_kernel.build_prefix``,
+  when :class:`SvDevicePlan` is built: the ``prefix`` state every lane
+  starts from), the rest rewritten by
   ``ops/op_rewrite`` (identities dropped, diagonal runs merged, signed
   permutations as moves), and per slot a small table of the 18 floats
   for each (variant digit, branch bit) (:func:`_slot_tables`);
@@ -59,15 +61,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..convert import resolve_device, to_device
+from ..convert import resolve_device
 from ..utils.profiling import span
 from ..virt.virtual_circuit import VirtualCircuit
 from . import op_rewrite
-from .kernel_build import KernelLibrary, check_tensor
+from .blocked_kernel import build_prefix
+from .kernel_build import KernelLibrary, check_tensor, upload
 from .op_rewrite import matvec_ops as _matvec_ops
-from .statevector import apply_matrix_host, apply_slices
+from .statevector import apply_slices
 from .variant_engine import FragmentResult, label_strides
-from .variant_kernel import apply_op_plain
 
 MAX_KERNEL_QUBITS = 13   # one lane's complex64 state: 64 KB of shared memory
 SLOT_PARAMS = 18         # pre[8], mask[2], post[8] floats per lane and slot
@@ -200,19 +202,8 @@ def _slot_lane_params(virt, prog, meas_vgates, slots):
                 m0 = np.where(dead, 0.0, m0)
                 m1 = np.where(dead, 0.0, m1)
 
-        def c8(mats):
-            return np.stack(
-                [
-                    mats[:, 0, 0].real, mats[:, 0, 0].imag,
-                    mats[:, 0, 1].real, mats[:, 0, 1].imag,
-                    mats[:, 1, 0].real, mats[:, 1, 0].imag,
-                    mats[:, 1, 1].real, mats[:, 1, 1].imag,
-                ],
-                axis=1,
-            )
-
         out.append(np.concatenate(
-            [c8(pres), np.stack([m0, m1], axis=1), c8(posts)], axis=1
+            [_c8(pres), np.stack([m0, m1], axis=1), _c8(posts)], axis=1
         ).astype(np.float32))
 
     if not out:
@@ -332,9 +323,12 @@ class SvPlan:
     ``positions``: the result's clbits (data clbits ascending, then
     ``num_clbits + g`` per measuring vgate: the branch-code bits).
 
-    What the kernel reads: ``prefix [2, 2^n]`` (the fixed gates before
-    the first slot, applied once on the host), ``table`` (the rest,
-    rewritten by ``ops/op_rewrite``), ``slot_tab`` / ``slot_meta`` (see
+    ``prefix_ops``: the fixed gates before the first slot (the first
+    ``len(prefix_ops)`` rows of ``ops``), ``("u", complex mat, qubit
+    axes)`` in kernel 4's canonical layout (flat bit ``j`` is qubit
+    ``n-1-j``).  What the kernel reads: the state they make, ``prefix
+    [2, 2^n]`` of :class:`SvDevicePlan`, ``table`` (the rest, rewritten
+    by ``ops/op_rewrite``), ``slot_tab`` / ``slot_meta`` (see
     :func:`_slot_tables`)."""
 
     name: str
@@ -349,8 +343,7 @@ class SvPlan:
     terminal_sources: dict
     positions: list
     touching: list
-    prefix: np.ndarray       # [2, 2^n] float32
-    prefix_ops: int          # rows of ``ops`` the prefix covers
+    prefix_ops: list         # [("u", mat, axes)] before the first slot
     table: op_rewrite.Table
     slot_tab: np.ndarray     # [rows, 18] float32
     slot_meta: np.ndarray    # [n_slots, 4] int32
@@ -407,15 +400,9 @@ def build_plan(virt: VirtualCircuit, frag_name: str) -> SvPlan | None:
         fixed.extend(mat.imag.astype(np.float32).ravel())
 
     # the fixed gates before the first slot act on |0..0> alike in every
-    # lane: once, on the host (apply_matrix_host's qubit q' is flat bit
-    # n-1-q')
+    # lane: once a plan, in kernel 4's layout (qubit q' on flat bit n-1-q')
     first = next((i for i, g in enumerate(generic) if g[0] == "slot"),
                  len(generic))
-    with span("port.build.prefix"):
-        st = np.zeros((2, 1 << n), np.float32)
-        st[0, 0] = 1.0
-        for _, mat, js in generic[:first]:
-            st = apply_matrix_host(st, mat, tuple(n - 1 - j for j in js), n)
     slot_tab, slot_meta, v_count, total = _slot_tables(
         virt, prog, meas_vgates, slots)
     return SvPlan(
@@ -428,32 +415,32 @@ def build_plan(virt: VirtualCircuit, frag_name: str) -> SvPlan | None:
         positions=list(data_positions) + [
             virt.num_clbits + g for g in meas_vgates
         ],
-        touching=list(prog.touching), prefix=st.astype(np.float32),
-        prefix_ops=first, table=op_rewrite.rewrite(generic[first:]),
+        touching=list(prog.touching),
+        prefix_ops=[("u", mat, tuple(n - 1 - j for j in js))
+                    for _, mat, js in generic[:first]],
+        table=op_rewrite.rewrite(generic[first:]),
         slot_tab=slot_tab, slot_meta=slot_meta, v_count=v_count,
         total=total,
     )
 
 
 class SvDevicePlan:
-    """An :class:`SvPlan` with its tables on one device: the original op
-    table for the plain version, the kernel's tables beside it."""
+    """An :class:`SvPlan`'s kernel tables on one device, and the shared
+    prefix state ``prefix`` (``[2, 2^n]``) built there by
+    ``blocked_kernel.build_prefix``: kernel 4's segment launches on a card
+    (``prefix_launches`` of them), its plain version on the CPU (none).
+    The plain version reads the plan's original op table."""
 
     def __init__(self, plan: SvPlan, device):
         self.plan = plan
-
-        def put(arr, empty_shape, dtype):
-            return to_device(arr if arr.size else np.zeros(empty_shape,
-                                                           dtype), device)
-
-        self.ops = put(plan.ops, (1, 4), np.int32)
-        self.fixed = put(plan.fixed, 1, np.float32)
-        self.rows = put(plan.table.rows, (1, op_rewrite.ROW), np.int32)
-        self.pool = put(plan.table.pool, 1, np.float32)
-        self.prefix = to_device(plan.prefix, device)
-        self.slot_tab = put(plan.slot_tab, (1, SLOT_PARAMS), np.float32)
-        self.slot_meta = put(plan.slot_meta, (1, 4), np.int32)
-        self.device = self.prefix.device   # with its index: cuda:0
+        self.rows = upload(plan.table.rows, device)
+        self.pool = upload(plan.table.pool, device)
+        self.slot_tab = upload(plan.slot_tab, device)
+        self.slot_meta = upload(plan.slot_meta, device)
+        self.device = self.rows.device   # with its index: cuda:0
+        with span("port.build.prefix"):
+            self.prefix, self.prefix_launches = build_prefix(
+                plan.prefix_ops, plan.n, self.device)
 
 
 # ---------------------------------------------------------------------------
@@ -500,7 +487,7 @@ def plain_sv_rows(dp: SvDevicePlan, params: torch.Tensor) -> torch.Tensor:
                 st = _slot_plain(st, n, int(row[1]),
                                  par[:, off:off + SLOT_PARAMS])
             else:
-                st = apply_op_plain(st, row, n, plan.fixed, None)
+                st = op_rewrite.apply_row(st, row, n, plan.fixed)
         sq = (st * st).sum(dim=1)
         out[l0:l0 + step] = sq.reshape(c, 1 << (n - k), 1 << k).sum(dim=1)
     return out
@@ -671,9 +658,10 @@ def run_fragment_kernel(
     version).  Returns None where the fragment is outside the kernel
     (:func:`build_plan`); it never runs another engine itself.  No lane
     table is built on the card.  A ``timings`` dict gets the host seconds
-    of the two stages added to its ``plan_s`` (the op tables, the prefix
-    and the per-slot tables in numpy) and ``upload_and_kernel_s`` (their
-    upload and the launch, ended by a device synchronize)."""
+    of the two stages added to its ``plan_s`` (the op tables and the
+    per-slot tables in numpy) and ``upload_and_kernel_s`` (their upload,
+    the prefix's launches and the launch, ended by a device
+    synchronize)."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     plan = build_plan(virt, frag_name)
@@ -723,7 +711,7 @@ def work_counts(plan: SvPlan, lanes=None) -> dict:
         d = 1 << kind
         mat = plan.fixed[off:off + 2 * d * d].reshape(2, d, d)
         cost = int(_matvec_ops(mat[0], mat[1])) * (big // d)
-        if i < plan.prefix_ops:
+        if i < len(plan.prefix_ops):
             shared += cost
         else:
             per_lane += cost
@@ -741,7 +729,7 @@ def work_counts(plan: SvPlan, lanes=None) -> dict:
     epilogue = 3 * big + (big - plan.width)
     flops = shared + slot_ops + count * (per_lane + epilogue)
     nbytes = 4 * (plan.table.rows.size + plan.table.pool.size
-                  + plan.prefix.size + plan.slot_tab.size
+                  + (2 << plan.n) + plan.slot_tab.size
                   + plan.slot_meta.size + count * plan.width)
     passes = count * (16 * len(plan.table.rows) + 8 + 8 + 8) * big
     return {"bytes": int(nbytes), "flops": int(flops),

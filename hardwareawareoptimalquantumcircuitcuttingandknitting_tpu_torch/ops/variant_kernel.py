@@ -46,203 +46,37 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..convert import resolve_device, to_device
+from ..convert import resolve_device
 from ..utils.profiling import span
 from ..virt.virtual_circuit import VirtualCircuit
 from . import op_rewrite
-from .kernel_build import KernelLibrary, check_tensor
-from .op_rewrite import OP_GATE1, OP_GATE2, matvec_ops
-from .statevector import apply_slices, marginalize_flat
-from .variant_engine import _slot_tables, _fuse_slot_ops
+from .blocked_kernel import build_prefix
+from .kernel_build import (
+    CLUSTER_QUBITS,
+    MAX_QUBITS,
+    KernelLibrary,
+    check_tensor,
+    launch_geometry,
+    run_starts,
+    upload,
+)
+from .op_rewrite import (
+    OP_GATE1,
+    OP_GATE2,
+    OpTable,
+    SlotEntries,
+    _plan_ops,
+    generic_ops,
+    op_costs,
+)
+from .statevector import marginalize_flat
 
-# Port's own width gate: up to 15 qubits the state is on chip, from 16 to
-# 20 it lives in a global scratch that a cluster of CTAs shares ([clusters,
-# segments, 2, 2^n] f32 with the checkpoints).  Wider fragments need the
-# segmented blocked kernel.
-MAX_QUBITS = 20
-CLUSTER_QUBITS = 15  # the width a cluster of two CTAs holds on chip
 MAX_CLUSTER = 8      # CTAs a portable cluster holds
 _BLOCKED_ITEM = (
     "the segmented blocked kernel serves 21..24 qubits "
     "(ops/blocked_kernel.make_blocked_chunk_kernel; ROADMAP H100 port, "
     "queue B, kernel 4)"
 )
-
-
-def _to_complex(block: np.ndarray) -> np.ndarray:
-    """Real (2, m, 2, m) block -> complex (m, m)."""
-    return block[0, :, 0, :] + 1j * block[1, :, 0, :]
-
-
-def _plan_ops(virt: VirtualCircuit, frag_name: str):
-    """(prefix_ops, suffix_steps, prog) — the fused-slot op stream the JAX
-    engines execute, split at the first slot.  Suffix steps:
-    ("u", complex mat, axes) | ("slot", slot_id, axes)."""
-    from .fusion import fused_stream
-
-    prog = virt.programs[frag_name]
-    skeleton, mats = fused_stream(_fuse_slot_ops(prog.ops), max_qubits=2)
-    ops = []
-    bi = 0
-    for op in skeleton:
-        if op[0] == "u":
-            ops.append(("u", np.asarray(mats[bi], complex), op[1]))
-            bi += 1
-        else:  # ("slot", sid, axes)
-            ops.append(op)
-    first = next((i for i, op in enumerate(ops) if op[0] != "u"), len(ops))
-    return ops[:first], ops[first:], prog
-
-
-class OpTable:
-    """Accumulates a kernel's op table: rows ``(nq, ja, jb, coef)`` over
-    flat bits (``ja`` = the gate-index MSB), the fixed-coefficient pool
-    and the per-slot entry tables.  ``coef >= 0`` is an offset into the
-    pool (re ``[m*m]`` then im ``[m*m]``), ``coef < 0`` is ``-1 -
-    offset`` into the label's entry row (the concatenated per-slot ``[2,
-    m, m]`` entries).  A row with ``nq == 0`` is a collapse site on flat
-    bit ``ja`` whose per-label scalars sit at site index ``jb`` (the
-    collapse kernel alone reads such rows; ``sites`` lists their slot
-    ids in row order).  One table format serves every circuit, so one
-    build of a kernel does too."""
-
-    def __init__(self, prog, specs):
-        self._prog = prog
-        self._specs = specs
-        self._tabs: dict = {}          # fused? -> _slot_tables(...)
-        self.sites: list = []          # slot id per collapse row
-        self.ops: list = []
-        self.fixed: list = []
-        self.entry_tables: list = []   # per slot [nI, 2*m*m] float32
-        self.entry_gids: list = []     # per slot: global vgate id
-        self.entry_stride = 0          # floats per label entry row
-        self.slot_rows: list = []      # op rows that are slots
-
-    def _slot_table(self, sid: int, kind: str) -> np.ndarray:
-        """``[nI, 2, m, 2, m]`` real blocks of one slot op: the composed
-        block (``"slot"``) or the unfused pre / post endpoint gate."""
-        fused = kind == "slot"
-        if fused not in self._tabs:
-            self._tabs[fused] = _slot_tables(self._prog, self._specs,
-                                             fused=fused)
-        return self._tabs[fused][sid][{"slot": 0, "slot_pre": 0,
-                                       "slot_post": 2}[kind]]
-
-    def add(self, op, js) -> None:
-        """Append ``("u", complex mat, axes)``, ``("slot" | "slot_pre" |
-        "slot_post", slot_id, axes)`` or ``("collapse", slot_id, axes)``
-        acting on flat bits ``js``."""
-        if op[0] == "collapse":
-            self.ops.append((0, js[0], len(self.sites), 0))
-            self.sites.append(op[1])
-            return
-        if len(js) not in (1, 2):
-            raise NotImplementedError(
-                f"{len(js)}-qubit op in the fused suffix: the kernels "
-                "apply 1q and 2q gates only"
-            )
-        ja, jb = js[0], (js[1] if len(js) == 2 else 0)
-        if op[0] == "u":
-            mat = np.asarray(op[1], complex)
-            coef = len(self.fixed)
-            self.fixed.extend(mat.real.astype(np.float32).ravel())
-            self.fixed.extend(mat.imag.astype(np.float32).ravel())
-        else:
-            self.slot_rows.append(len(self.ops))
-            tab = self._slot_table(op[1], op[0])
-            cx = np.stack([_to_complex(t) for t in tab])  # [nI, m, m]
-            ent = np.stack([cx.real, cx.imag], axis=1).astype(np.float32)
-            self.entry_tables.append(ent.reshape(ent.shape[0], -1))
-            self.entry_gids.append(self._prog.slots[op[1]].vgate_idx)
-            coef = -1 - self.entry_stride
-            self.entry_stride += self.entry_tables[-1].shape[1]
-        self.ops.append((len(js), ja, jb, coef))
-
-    def ops_array(self) -> np.ndarray:
-        return np.asarray(self.ops, np.int32).reshape(-1, 4)
-
-    def fixed_array(self) -> np.ndarray:
-        return np.asarray(self.fixed, np.float32)
-
-
-def generic_ops(ops: np.ndarray, fixed: np.ndarray) -> list:
-    """An :class:`OpTable`'s rows as ``op_rewrite.rewrite`` takes them:
-    fixed gates from their f32 pool entries, slot gates by their entry
-    offset, collapse rows as sites."""
-    out = []
-    for nq, ja, jb, coef in ops.tolist():
-        if nq == 0:
-            out.append(("site", ja, jb))
-            continue
-        js = [ja, jb][:nq]
-        if coef < 0:
-            out.append(("e", js, -1 - coef))
-            continue
-        m = 1 << nq
-        blk = fixed[coef:coef + 2 * m * m].astype(np.float64)
-        out.append(("u", (blk[:m * m] + 1j * blk[m * m:]).reshape(m, m),
-                    js))
-    return out
-
-
-def op_costs(ops: np.ndarray, fixed: np.ndarray, n: int,
-             entries=None) -> np.ndarray:
-    """f32 operations of each :class:`OpTable` row on a ``2^n`` state,
-    ``[C, n_ops]`` for the labels' entry rows ``entries [C, stride]``
-    (numpy), else ``[1, n_ops]``: a gate what its matrix needs
-    (``op_rewrite.matvec_ops``: nothing for an identity or a permutation),
-    a slot gate from each label's own entries (as dense without them), a
-    collapse row nothing."""
-    big = 1 << n
-    c = 1 if entries is None else len(entries)
-    cost = np.zeros((c, len(ops)), np.int64)
-    for i, (nq, _, _, coef) in enumerate(np.asarray(ops).tolist()):
-        if nq == 0:
-            continue
-        m = 1 << nq
-        if coef >= 0:
-            blk = fixed[coef:coef + 2 * m * m].reshape(2, m, m)
-        elif entries is None:
-            blk = np.ones((2, m, m), np.float32)   # dense complex
-        else:
-            off = -1 - coef
-            blk = np.moveaxis(np.asarray(entries)[:, off:off + 2 * m * m]
-                              .reshape(c, 2, m, m), 1, 0)
-        cost[:, i] = matvec_ops(blk[0], blk[1]) * (big // m)
-    return cost
-
-
-class SlotEntries:
-    """Per-slot tables (``tables[s]`` ``[nI_s, w_s]`` float32, slot ``s``
-    reading label column ``gids[s]``) on one device, gathered into a
-    per-label row ``[C, sum w_s]`` (the slots' rows side by side) by one
-    index into their concatenation: a handful of device ops, however many
-    slots.  Without a slot, rows of one zero."""
-
-    def __init__(self, tables, gids, device):
-        dev = torch.device(device)
-        self.flat = None
-        if tables:
-            self.flat = to_device(np.concatenate(
-                [np.asarray(t, np.float32).ravel() for t in tables]), dev)
-            base, col, stride, at = [], [], [], 0
-            for tab, g in zip(tables, gids):
-                w = tab.shape[1]
-                base.extend(at + np.arange(w))
-                col.extend([g] * w)
-                stride.extend([w] * w)
-                at += tab.size
-            self.base, self.col, self.stride = (
-                torch.as_tensor(np.asarray(a, np.int64), device=dev)
-                for a in (base, col, stride))
-
-    def __call__(self, vidx_chunk: torch.Tensor) -> torch.Tensor:
-        """``[C, width]`` rows for a ``[C, num_vgates]`` block of variant
-        indices (global vgate columns)."""
-        if self.flat is None:
-            return torch.zeros((vidx_chunk.shape[0], 1), dtype=torch.float32,
-                               device=vidx_chunk.device)
-        return self.flat[vidx_chunk[:, self.col] * self.stride + self.base]
 
 
 @dataclass
@@ -371,40 +205,28 @@ class DevicePlan:
     def __init__(self, plan: VariantPlan, device):
         self.plan = plan
         self.device = torch.device(device)
-        self.rows = to_device(
-            plan.table.rows if len(plan.table.rows)
-            else np.zeros((1, op_rewrite.ROW), np.int32), device)
-        self.pool = to_device(
-            plan.table.pool if plan.table.pool.size
-            else np.zeros(1, np.float32), device)
+        self.rows = upload(plan.table.rows, device)
+        self.pool = upload(plan.table.pool, device)
         bounds = [s for s, _ in plan.row_segments] + (
             [plan.row_segments[-1][1]] if plan.row_segments else [0]
         )
-        self.seg_start = to_device(np.asarray(bounds, np.int32), device)
-        self._entries = SlotEntries(plan.entry_tables, plan.entry_gids,
-                                    device)
+        self.seg_start = upload(np.asarray(bounds, np.int32), device)
+        # [C, entry_stride] slot entries of a [C, num_vgates] label block
+        self.gather_entries = SlotEntries(plan.entry_tables,
+                                          plan.entry_gids, device)
         wbits = plan.fold[0] if plan.fold is not None else []
-        self.wbits = to_device(
-            np.asarray(wbits or [0], np.int32), device
-        )
+        self.wbits = upload(np.asarray(wbits, np.int32), device)
         # the slots' digits as one mixed-radix key, chain order most
         # significant (None where it would not fit an int64: no sort)
         radix = [len(t) for t in plan.entry_tables]
         self.key_strides = None
         if plan.staged and radix and math.prod(radix) < 2 ** 62:
-            self.key_strides = to_device(np.asarray(
+            self.key_strides = upload(np.asarray(
                 [math.prod(radix[i + 1:]) for i in range(len(radix))],
                 np.int64), device)
-        from .blocked_kernel import build_prefix  # it imports this module
-
         with span("port.build.prefix"):
             self.prefix, self.prefix_launches = build_prefix(
                 plan.prefix_ops, plan.n, self.device)
-
-    def gather_entries(self, vidx_chunk: torch.Tensor) -> torch.Tensor:
-        """``[C, entry_stride]`` per-label slot entries for a ``[C,
-        num_vgates]`` block of variant indices (global vgate columns)."""
-        return self._entries(vidx_chunk)
 
     def stages(self, vidx_chunk: torch.Tensor) -> torch.Tensor:
         """Per-label resume stage: the first chain-order slot whose variant
@@ -448,24 +270,6 @@ class DevicePlan:
 # The plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def apply_op_plain(state, row, n: int, fixed: np.ndarray, entries):
-    """One op-table row applied to ``state [B, 2, 2^n]`` with
-    ``apply_slices`` (flat bit j is qubit n-1-j)."""
-    nq, ja, jb, coef = (int(v) for v in row)
-    m = 1 << nq
-    js = (ja, jb)[:nq]
-    axes = tuple(n - 1 - j for j in js)  # flat bit j <-> qubit n-1-j
-    if coef >= 0:
-        blk = fixed[coef:coef + 2 * m * m]
-        ur = lambda r, c: float(blk[r * m + c])  # noqa: E731
-        ui = lambda r, c: float(blk[m * m + r * m + c])  # noqa: E731
-    else:
-        off = -1 - coef
-        ur = lambda r, c: entries[:, off + r * m + c]  # noqa: E731
-        ui = lambda r, c: entries[:, off + m * m + r * m + c]  # noqa: E731
-    return apply_slices(state, ur, ui, axes, n)
-
-
 def _epilogue_plain(st, ws, dp: DevicePlan):
     sq = (st * st).sum(dim=1)  # [B, 2^n]
     plan = dp.plan
@@ -503,7 +307,7 @@ def plain_variant_rows(dp: DevicePlan, entries, wstack) -> torch.Tensor:
     c = entries.shape[0]
     st = dp.prefix.to(entries.device).expand(c, 2, 1 << plan.n)
     for row in plan.ops:
-        st = apply_op_plain(st, row, plan.n, plan.fixed, entries)
+        st = op_rewrite.apply_row(st, row, plan.n, plan.fixed, entries)
     return _epilogue_plain(st, wstack, dp)
 
 
@@ -559,21 +363,6 @@ LIBRARY = KernelLibrary("variant_kernel", _bind,
                         "variant_kernel_error_string")
 
 
-def launch_geometry(n: int) -> tuple[int, int, bool]:
-    """``(threads, csize, use_smem)`` of a launch of the variant or the
-    collapse kernel: the state is split over ``csize`` CTAs (2 at n = 15,
-    else 1; past n = 15 the variant kernel's cluster is
-    :func:`cluster_size`'s), held in shared memory up to n = 15
-    (``use_smem``); a CTA has
-    8 amplitudes of its share a thread (at least 32 threads, at most 512:
-    32 amplitudes a thread at n = 14 and 15, all in the collapse kernel's
-    register checkpoint), so narrow states leave registers for more CTAs
-    an SM."""
-    csize = 2 if n == CLUSTER_QUBITS else 1
-    threads = min(512, max(32, ((1 << n) // csize) // 8))
-    return threads, csize, n <= CLUSTER_QUBITS
-
-
 def cluster_size(n: int, c: int, cap: int, capacity) -> int:
     """CTAs that share a run's state in a rows launch of ``c`` labels at
     width ``n``, runs at most ``cap`` labels long.  Up to
@@ -618,18 +407,9 @@ def run_table(stage: torch.Tensor, n_seg: int, cap: int):
     ``(table [C, 2] int32, count [1] int32)``.  The first ``count`` rows
     hold the runs of :func:`run_heads` in order, first label and length;
     the rest are empty runs."""
-    c = stage.shape[0]
-    dev = stage.device
-    new = run_heads(stage, n_seg, cap)
-    rid = torch.cumsum(new, dim=0) - 1
-    idx = torch.arange(c, device=dev)
-    # run r's first row at starts[r]; rows that open no run land past the
-    # end, and starts[R] keeps its fill c, the end of the last run
-    starts = torch.full((c + 2,), c, dtype=torch.int64, device=dev)
-    starts.scatter_(0, torch.where(new, rid, c + 1), idx)
-    starts = starts[:c + 1]
+    starts, count = run_starts(run_heads(stage, n_seg, cap))
     table = torch.stack([starts[:-1], starts[1:] - starts[:-1]], dim=1)
-    return table.to(torch.int32).contiguous(), (rid[-1:] + 1).to(torch.int32)
+    return table.to(torch.int32).contiguous(), count
 
 
 _CAPACITY: dict = {}
@@ -767,7 +547,7 @@ def variant_rows(dp: DevicePlan, entries, wstack, stage,
     global-memory state; ``variant_rows.last_launch`` says runs, cap,
     grid, cluster, scratch bytes and holds the schedule's tensors); CPU
     tensors run :func:`plain_variant_rows`.  ``entries [C,
-    entry_stride]`` (from :meth:`DevicePlan.gather_entries`), ``wstack
+    entry_stride]`` (from ``DevicePlan.gather_entries``), ``wstack
     [C, n_w, 2]`` f32, ``stage [C]`` int32 (:meth:`DevicePlan.stages` of
     the same order: the kernel's resume schedule).  ``cap`` overrides the
     longest run in labels (default: the chunk spread over the CTAs the

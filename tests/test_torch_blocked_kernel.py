@@ -89,7 +89,7 @@ def test_plan_segments_equals_jax(config, window):
     window."""
     jv, tv, name = _hwe16() if config == "hwe16" else _sup12()
     _, j_suffix, j_prog = j_plan_ops(jv, name)
-    _, t_suffix, t_prog = vk._plan_ops(tv, name)
+    _, t_suffix, t_prog = op_rewrite._plan_ops(tv, name)
     n = t_prog.num_sim_qubits
     assert n == j_prog.num_sim_qubits
     assert [_op_key(o) for o in t_suffix] == [_op_key(o) for o in j_suffix]
@@ -289,7 +289,7 @@ def test_pinned_planner_brute_force(config, window, pinned):
     layout bits below ``w`` in ascending storage order, the pinned
     storage bits first."""
     _, tv, name = _hwe16() if config == "hwe16" else _sup12()
-    _, suffix, prog = vk._plan_ops(tv, name)
+    _, suffix, prog = op_rewrite._plan_ops(tv, name)
     n = prog.num_sim_qubits
     segs = bk.plan_segments(suffix, n, window, pinned)
     assert [o for _, ops in segs for o in ops] == list(suffix)
@@ -317,7 +317,7 @@ def test_prefix_from_plain_segments_matches_host(config, window):
     """The prefix built by the plain prefix segments (gathered tiles,
     rewritten rows) equals the host's gate-by-gate prefix."""
     _, tv, name = _hwe16() if config == "hwe16" else _sup12()
-    prefix_ops, _, prog = vk._plan_ops(tv, name)
+    prefix_ops, _, prog = op_rewrite._plan_ops(tv, name)
     n = prog.num_sim_qubits
     want = np.zeros((2, 1 << n), np.float32)
     want[0, 0] = 1.0
@@ -340,7 +340,7 @@ def test_prefix_half_is_the_shared_routine(config, window):
     moves), and ``build_prefix`` gives the device plan's prefix, with no
     launch on the CPU: kernel 1's prefix and kernel 4's are one path."""
     _, tv, name = _hwe16() if config == "hwe16" else _sup12()
-    prefix_ops, _, prog = vk._plan_ops(tv, name)
+    prefix_ops, _, prog = op_rewrite._plan_ops(tv, name)
     n = prog.num_sim_qubits
     plan = bk.build_plan(tv, name, window)
     pre = bk.plan_prefix(prefix_ops, n, window)

@@ -199,7 +199,8 @@ def test_collapse_plan_matches_jax_plan(qft9):
     for t_tab, j_tab in zip(plan.entry_tables, j_tabs):
         np.testing.assert_array_equal(
             t_tab, np.asarray(j_tab).reshape(len(j_tab), -1))
-    np.testing.assert_allclose(plan.prefix.reshape(-1),
+    prefix = ck.CollapseDevicePlan(plan, "cpu").prefix   # build_prefix's
+    np.testing.assert_allclose(prefix.numpy().reshape(-1),
                                np.asarray(j_prefix).reshape(-1), atol=1e-6)
     # the JAX steps at final width (kind, payload, axes = active indices)
     from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.ops.variant_engine import (  # noqa: E501

@@ -22,6 +22,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.convert impo
     circuit_from_instructions,
     circuit_to_instructions,
 )
+import torch_threads  # noqa: F401 (torch's threads: a share of the cores)
 
 
 def _refs(circ):

@@ -5,6 +5,10 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
+import torch_threads  # noqa: F401 (torch's threads: a share of the cores)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = "hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch"
 JAX_PKG = "hardwareawareoptimalquantumcircuitcuttingandknitting_tpu"
@@ -145,6 +149,57 @@ def test_stored_plans_load_without_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# The kernel layer, each module with its level: the wrappers of kernels
+# 1-2, 3 and 5 over kernel 4's (the shared prefix) over the host tables
+# and the launch side.  A module imports only modules of a lower level.
+KERNEL_LAYER = {"variant_kernel": 2, "collapse_kernel": 2, "sv_kernel": 2,
+                "blocked_kernel": 1, "op_rewrite": 0, "kernel_build": 0}
+
+
+def _ops_imports(path):
+    """``(module, in_function)`` for every import in ``path`` of a module
+    of the port's ``ops`` package, by its name there."""
+    out = []
+
+    def visit(node, in_fn):
+        for child in ast.iter_child_nodes(node):
+            names = []
+            if isinstance(child, ast.ImportFrom):
+                mod = child.module or ""
+                if child.level == 1:
+                    names = ([mod.split(".")[0]] if mod
+                             else [a.name for a in child.names])
+                elif mod == f"{PORT}.ops":
+                    names = [a.name for a in child.names]
+                elif mod.startswith(f"{PORT}.ops."):
+                    names = [mod.split(".")[2]]
+            elif isinstance(child, ast.Import):
+                names = [a.name.split(".")[2] for a in child.names
+                         if a.name.startswith(f"{PORT}.ops.")]
+            out.extend((name, in_fn) for name in names)
+            visit(child, in_fn or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)))
+
+    visit(ast.parse(path.read_text()), False)
+    return out
+
+
+@pytest.mark.parametrize("module", sorted(KERNEL_LAYER))
+def test_kernel_layer_imports_point_one_way(module):
+    """The kernel layer's arrows point one way: {variant, collapse, sv}
+    -> blocked_kernel (the shared prefix) -> {op_rewrite, kernel_build}.
+    No module of the layer imports one of its own level or above, and
+    none imports another inside a function (a lazy import that hides a
+    cycle)."""
+    found = _ops_imports(ROOT / PORT / "ops" / f"{module}.py")
+    layer = [(name, in_fn) for name, in_fn in found if name in KERNEL_LAYER]
+    assert layer or KERNEL_LAYER[module] == 0   # the parse sees imports
+    for name, in_fn in layer:
+        assert KERNEL_LAYER[name] < KERNEL_LAYER[module], \
+            f"{module} imports {name}"
+        assert not in_fn, f"{module} imports {name} inside a function"
 
 
 def test_kernel_libraries_build_nothing_at_import():

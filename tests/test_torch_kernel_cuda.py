@@ -15,6 +15,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.circuit.circ
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
     blocked_kernel as bk,
+    kernel_build,
     op_rewrite,
     sv_kernel as sv,
     variant_kernel as vk,
@@ -29,6 +30,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.virt.virtual
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.virt.virtual_gates import (  # noqa: E501
     VirtualGateOp,
 )
+import torch_threads  # noqa: F401 (torch's threads: a share of the cores)
 
 TOL = 1e-5
 
@@ -132,7 +134,7 @@ def test_kernel_matches_plain_on_card(card, n, epilogue, staged, cap):
     assert vk.variant_rows.launches == before + 2
     assert (got - want).abs().max().item() <= TOL
     assert torch.equal(got, again)
-    if n > vk.CLUSTER_QUBITS:
+    if n > kernel_build.CLUSTER_QUBITS:
         _check_cluster_sizes(
             lambda g: vk.variant_rows(dp, ent, ws, st, cap, csize=g), folded)
 
@@ -201,7 +203,7 @@ def test_kernel_width_classes_on_card(card, n, order, mode):
     want = vk.plain_variant_rows(dp, dp.gather_entries(blk), fn.weigh(blk))
     torch.cuda.synchronize()
     assert vk.variant_rows.launches == before + 2
-    if n > vk.CLUSTER_QUBITS:
+    if n > kernel_build.CLUSTER_QUBITS:
         def caps(g):
             return vk._capacity(vk.LIBRARY.lib, launch["threads"],
                                 launch["smem"], g)
@@ -213,7 +215,7 @@ def test_kernel_width_classes_on_card(card, n, order, mode):
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL
     assert torch.equal(got, again)
-    if n > vk.CLUSTER_QUBITS:
+    if n > kernel_build.CLUSTER_QUBITS:
         _check_cluster_sizes(
             lambda g: vk.label_rows(dp, blk, fn.weigh, csize=g),
             mode == "fold")
@@ -567,7 +569,7 @@ def test_blocked_prefix_through_the_shared_routine(card):
     for reg in virt.fragments:
         dp = bk.device_plan(virt, reg.name, bk.DEFAULT_WINDOW,
                             bk.DEFAULT_PINNED, card)
-        ops, _, prog = vk._plan_ops(virt, reg.name)
+        ops, _, prog = op_rewrite._plan_ops(virt, reg.name)
         pre = bk.plan_prefix(ops, prog.num_sim_qubits)
         g = pre.n_prefix
         assert dp.plan.n_prefix == g
@@ -945,6 +947,39 @@ def test_sv_kernel_reads_no_lane_table_on_card(card, case, monkeypatch):
         got = got.values.reshape(want.shape)
         err = (got - want).abs().max().item()
         assert err <= TOL and err <= TOL * want.abs().max().item() + 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,n", [("collapse", 1), ("collapse", 8),
+                                      ("collapse", 15), ("sv", 1),
+                                      ("sv", 8), ("sv", 13)])
+def test_collapse_and_sv_prefix_built_on_card(card, kernel, n):
+    """Kernels 3 and 5 build their shared prefix as kernel 1 does, by
+    kernel 4's segment launches on the card (``build_prefix``): one a
+    prefix segment, none for an empty chain (qft-9's 1-qubit fragment),
+    counted in ``blocked_rows.launches`` and in the device plan's
+    ``prefix_launches``; the state within 1e-5 of the plain version's
+    (``plain_prefix_state``, through ``build_prefix`` on the CPU).
+    n = 15: qft-16's wide fragment, the ``qft16-sampled`` cell's; n = 1:
+    a chain run as the low amplitudes of a 3-qubit state."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+        collapse_kernel as ck,
+    )
+
+    before = bk.blocked_rows.launches
+    if kernel == "collapse":
+        virt, frag = _collapse_case(n)
+        dp = ck.CollapseDevicePlan(ck.build_plan(virt, frag), card)
+    else:
+        dp = sv.SvDevicePlan(sv.build_plan(_sv_case(n, "cz"), "frag0"),
+                             card)
+    torch.cuda.synchronize()
+    assert dp.plan.n == n and dp.prefix.device.type == "cuda"
+    assert (dp.prefix_launches >= 1) == bool(dp.plan.prefix_ops)
+    assert bk.blocked_rows.launches == before + dp.prefix_launches
+    plain, none = bk.build_prefix(dp.plan.prefix_ops, n, "cpu")
+    assert none == 0 and dp.prefix.shape == plain.shape == (2, 1 << n)
+    assert (dp.prefix.cpu() - plain).abs().max().item() <= TOL
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.virt.virtual
     VirtualGateOp,
 )
 from test_torch_op_rewrite import cut
+import torch_threads  # noqa: F401 (torch's threads: a share of the cores)
 
 
 def _wide13():

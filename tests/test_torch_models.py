@@ -31,6 +31,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.models impor
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.models import (  # noqa: E501
     zoo as t_zoo,
 )
+import torch_threads  # noqa: F401 (torch's threads: a share of the cores)
 
 GEN_CIRC_NAMES = ["ran", "sup", "su", "ghz", "syc", "hwe", "bv", "qft",
                   "aqft", "add", "erd", "reg"]

@@ -14,6 +14,7 @@ import pytest
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.models import (  # noqa: E501
     graphs,
 )
+import torch_threads  # noqa: F401 (torch's threads: a share of the cores)
 
 
 def _random_dag(seed, n=14, p=0.25):

@@ -46,6 +46,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.virt.virtual
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.virt.virtual_gates import (  # noqa: E501
     VirtualGateOp,
 )
+import torch_threads  # noqa: F401 (torch's threads: a share of the cores)
 
 TOL = 1e-6
 
@@ -177,7 +178,7 @@ def test_sv_table_replays_the_original(name):
             else cut("sup", 20, 10, 1))
     for reg in virt.fragments:
         plan = sv.build_plan(virt, reg.name)
-        assert len(plan.table.rows) < len(plan.ops) - plan.prefix_ops
+        assert len(plan.table.rows) < len(plan.ops) - len(plan.prefix_ops)
         dp = sv.SvDevicePlan(plan, "cpu")
         lanes = np.random.default_rng(3).integers(0, plan.total, 64)
         want = sv.plain_sv_rows(dp, torch.as_tensor(
@@ -242,7 +243,7 @@ def test_variant_table_replays_the_original(case):
         want, got = st, st
         for (a, b), (ka, kb) in zip(plan.segments, plan.row_segments):
             for row in plan.ops[a:b]:
-                want = vk.apply_op_plain(want, row, plan.n, plan.fixed, ent)
+                want = rw.apply_row(want, row, plan.n, plan.fixed, ent)
             seg = rw.Table(plan.table.rows[ka:kb], plan.table.pool)
             got = rw.replay(got, seg, plan.n, entries=ent)
             np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL)
@@ -268,12 +269,12 @@ def test_an_identity_chain_costs_nothing_and_a_cp_its_one_entry():
     n = 6
     ops, fixed = _table([(np.eye(2), [j]) for j in range(n)]
                         + [(np.eye(4), [0, 3])], n)
-    assert vk.op_costs(ops, fixed, n).sum() == 0
+    assert rw.op_costs(ops, fixed, n).sum() == 0
     assert rw.rewrite([("u", np.eye(2), [j]) for j in range(n)]).rows.size == 0
     cp = np.diag([1, 1, 1, np.exp(0.7j)])
     ops, fixed = _table([(cp, [1, 4])], n)
     # one complex entry (6 operations) on each of the 2^n / 4 quads
-    assert vk.op_costs(ops, fixed, n).tolist() == [[6 * (1 << n) // 4]]
+    assert rw.op_costs(ops, fixed, n).tolist() == [[6 * (1 << n) // 4]]
     table = rw.rewrite([("u", cp, [1, 4]), ("u", cp, [2, 5])])
     assert table.kinds == [rw.OP_DIAG] and table.rows[0, 1] == 2
 
@@ -306,7 +307,7 @@ def test_a_replica_run_counts_its_shared_prefix_once(reps):
     cscal[:, 0, 0] = torch.linspace(0.1, 0.9, reps)
     work = ck.work_counts(plan, ent, cscal)
     assert work["runs"] == 1
-    cost = vk.op_costs(plan.ops, plan.fixed, plan.n, ent.numpy())[0]
+    cost = rw.op_costs(plan.ops, plan.fixed, plan.n, ent.numpy())[0]
     at = plan.ops[:, 0].tolist().index(0)          # the collapse site
     shared = int(cost[:at].sum()) + 5 * big         # and its Born sums
     per_row = int(cost[at + 1:].sum()) + 2 * big + (3 + 1) * big

@@ -29,6 +29,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.utils import (  # noqa: E402,E501
     profiling,
 )
+import torch_threads  # noqa: E402,F401 (torch's threads: a share of the cores)
 
 N = 10
 KEEP = [0, 1, 2, 3]

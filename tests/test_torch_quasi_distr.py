@@ -10,6 +10,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.virt.quasi_distr i
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.virt.quasi_distr import (  # noqa: E501
     QuasiDistr as TQ,
 )
+import torch_threads  # noqa: F401 (torch's threads: a share of the cores)
 
 
 def _pairs(rng, bits, n, lo=0):

@@ -14,6 +14,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (
     qpd_sampling as tq,
 )
 from test_torch_op_rewrite import qft16
+import torch_threads  # noqa: F401 (torch's threads: a share of the cores)
 
 SAMPLES = 4000
 

@@ -162,8 +162,7 @@ def _kolkata(traj=2):
     (dict(mesh="one"), "mesh"),
     (dict(sample_pallas=False), "rows without a kernel"),
 ], ids=["noise", "dtype", "mesh", "sample_pallas"])
-def test_sampled_engine_refusals_name_their_roadmap_item(qft9, jax_scan, kw,
-                                                         match):
+def test_sampled_engine_knobs_match_jax(qft9, jax_scan, kw, match):
     """Every knob runs and gives the JAX package's result from the same
     arguments: ``mesh`` (a mesh of one in each package: the dp-sharded
     scan on one device, within the kernel-route tolerance), noise through
@@ -215,7 +214,7 @@ def test_sampled_engine_refusals_name_their_roadmap_item(qft9, jax_scan, kw,
     (dict(mesh="one"), "mesh"),
     (dict(pallas_variant=False), "rows without a kernel"),
 ], ids=["noise", "dtype", "mesh", "pallas_variant"])
-def test_sampled_estimators_refuse_unported_knobs(qft9, jax_scan, kw, match):
+def test_sampled_estimators_knobs_match_jax(qft9, jax_scan, kw, match):
     """``mesh`` (a mesh of one in each package), noise, bf16 states and
     ``pallas_variant=False`` run in both estimators and give the JAX
     package's estimates from the same seeds."""
@@ -265,7 +264,7 @@ def test_sampled_engine_needs_a_card_by_default(qft9, monkeypatch):
         tq.sampled_expectation_z(tv, [{0}], 10)
 
 
-def test_wide_fragments_are_refused_by_name(qft9):
+def test_wide_fragments_take_the_route_without_a_kernel(qft9):
     """Past a kernel's gate the scan takes the route without a kernel
     (JAX's XLA builder), and says so: qft-16's 15-qubit fragment in
     ancilla mode simulates 30 qubits, past the variant kernel's 20, while

@@ -342,13 +342,13 @@ def test_plan_layout_and_work_counts():
     slot_row = plan.ops[kinds.index(3)]
     assert slot_row[1] == 2 and slot_row[3] == 0   # qubit 2 is clbit 2: bit 2
     at = kinds.index(3)
-    assert plan.prefix_ops == at
+    assert len(plan.prefix_ops) == at
     assert plan.table.kinds[0] == op_rewrite.OP_SLOT   # the rest after it
     lanes = 6 << len(plan.meas_vgates)
     assert plan.total == lanes
     work = sv.work_counts(plan)
     assert work["bytes"] == 4 * (plan.table.rows.size + plan.table.pool.size
-                                 + plan.prefix.size + plan.slot_tab.size
+                                 + (2 << plan.n) + plan.slot_tab.size
                                  + plan.slot_meta.size + lanes * 8)
     assert work["pass_bytes"] == lanes * (16 * len(plan.table.rows)
                                           + 24) * 16
@@ -379,7 +379,7 @@ def test_plan_layout_and_work_counts():
     # rx after it (12 a pair), 2 qubits, all 4 amplitudes kept
     plan = sv.build_plan(_pair("gate_cut_cz")[1], "frag0")
     assert plan.ops[:, 0].tolist() == [1, 2, 3, 1] and plan.n == plan.k == 2
-    assert plan.prefix_ops == 2
+    assert len(plan.prefix_ops) == 2
     assert plan.table.kinds == [op_rewrite.OP_SLOT, op_rewrite.OP_GATE1]
     par = sv.lane_params(plan)
     pre, post = (par[:, a:a + 8].reshape(-1, 2, 2, 2) for a in (0, 10))

@@ -25,6 +25,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu.virt.virtual_gates
     VirtualGateOp as JVirtualGateOp,
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+    op_rewrite,
     variant_kernel as vk,
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.statevector import (  # noqa: E501
@@ -456,7 +457,7 @@ def test_device_prefix_matches_the_host_loop(case):
         order += [q for q in range(n) if q not in order]
         flat = {q: j for j, q in enumerate(order)}
     dp = fn.plan
-    prefix_ops, _, _ = vk._plan_ops(tvirt, name)
+    prefix_ops, _, _ = op_rewrite._plan_ops(tvirt, name)
     want = np.zeros((2, 1 << n), np.float32)
     want[0, 0] = 1.0
     for _, mat, axes in prefix_ops:

@@ -36,6 +36,7 @@ from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.convert impo
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.virt.virtual_circuit import (  # noqa: E501
     VirtualCircuit as TVirtualCircuit,
 )
+import torch_threads  # noqa: F401 (torch's threads: a share of the cores)
 
 CUT_KW = dict(maxNQpdCuts=5, maxNCuts=5, maxCutsPerPartitions=5)
 
