@@ -398,7 +398,8 @@ def _variant_chunk(label, virt, blk, folded, staged, on_main_path=False):
 
     vk = _port("ops.variant_kernel")
     calls, err, prefix_err, frags = [], 0.0, 0.0, {}
-    keys = ("bytes", "flops", "passes", "passes_before", "pass_bytes")
+    keys = ("bytes", "flops", "passes", "passes_before", "pass_bytes",
+            "tile_passes", "tile_bytes")
     work, kwork = dict.fromkeys(keys, 0), dict.fromkeys(keys, 0)
     for name in (r.name for r in virt.fragments):
         if folded:
@@ -441,6 +442,9 @@ def _variant_chunk(label, virt, blk, folded, staged, on_main_path=False):
                        "cap": launch["cap"], "grid": launch["grid"],
                        "threads": launch["threads"],
                        "cluster": launch["cluster"],
+                       "tiled": launch["tiled"],
+                       "window": launch["window"],
+                       "tile_passes": launch["tile_passes"],
                        "scratch_bytes": launch["scratch_bytes"],
                        "stages": [int(x) for x in
                                   np.bincount(st, minlength=n_seg + 1)]}
@@ -484,7 +488,10 @@ def _variant_chunk(label, virt, blk, folded, staged, on_main_path=False):
           f"sorted); the kernel's runs replay "
           f"{kwork['flops'] / 1e9:.4f} GFLOP, {kwork['passes']} passes "
           f"(the function's stages: {work['passes']}; on the original "
-          f"table: {kwork['passes_before']})", flush=True)
+          f"table: {kwork['passes_before']}); tile passes "
+          f"{kwork['tile_passes']}, {kwork['tile_bytes'] / 1e9:.4f} GB of "
+          f"state traffic (a pass a row: {kwork['pass_bytes'] / 1e9:.4f})",
+          flush=True)
     if not err <= TOL:
         raise RuntimeError(f"{label}: kernel vs plain {err:.3e} > {TOL}")
     if not prefix_err <= TOL:

@@ -2,17 +2,16 @@
 // (collapse_kernel.cu), the whole-variant kernel (variant_kernel.cu) and
 // the blocked kernel (blocked_kernel.cu, on one gathered tile).
 //
-// A state is planar [2, L] f32 (re then im) in one CTA's shared memory, in
-// a per-CTA slice of global memory, split over a cluster of two CTAs on
-// the top flat bit (rank r holds the amplitudes whose bit n-1 is r; View
-// says which), or in a global slice that a cluster's CTAs share, each row
-// split over all their threads (View's t and T count the cluster's).  The
+// A state is planar [2, L] f32 (re then im) in one CTA's shared memory
+// (or a tile of a state in global memory there), in a per-CTA slice of
+// global memory, or split over a cluster of two CTAs on the top flat bit
+// (rank r holds the amplitudes whose bit n-1 is r; View says which).  The
 // row kinds are those of ops/op_rewrite.py: dense 1q / 2q gates
 // (coefficients from the pool or the label's entry row), diagonal runs,
 // signed permutations, and the collapse kernel's sites.  Every thread of a
 // CTA runs every row; the barriers are the caller's, except in apply_row,
 // which brackets a row that crosses the split with cluster barriers and
-// ends every row of a shared global state with one.  The row functions
+// ends every other row with the CTA's.  The row functions
 // take kLocal: true for a state in the CTA's own shared memory (`own`,
 // which the caller passes as its __shared__ array) and a row below the
 // split, so the loops address shared memory with 32-bit offsets and no
@@ -404,10 +403,7 @@ __device__ __forceinline__ bool touches_split(int kind, int ja, int jb,
 // split, and after it the CTA's barrier or, around a crossing row, the
 // cluster's.  kLocal: the state is in the CTA's own shared memory `own`,
 // so every row that does not cross the split runs the local loops.
-// kShared: the state is in global memory, shared by the cluster's CTAs,
-// which split the row; the cluster's barrier ends it (its release and
-// acquire at cluster scope order the global writes).
-template <bool kLocal = false, bool kShared = false>
+template <bool kLocal = false>
 __device__ void apply_row(const View& v, const int* row, const float* pool,
                           const float* erow, float* own = nullptr) {
   const int kind = row[0], ja = row[1], jb = row[2], a0 = row[3];
@@ -445,7 +441,7 @@ __device__ void apply_row(const View& v, const int* row, const float* pool,
   } else {
     apply_2q(v, ja, jb, nullptr, a0, true);
   }
-  row_barrier(cross || kShared);
+  row_barrier(cross);
 }
 
 // CTAs (csize 1) or clusters of csize CTAs the card runs at once for a

@@ -31,61 +31,95 @@
 //    every other label resumes at its stage.  One launch of each, no host
 //    wait and no torch op between them: the host, not the card, set the
 //    pace of the main path when the sort and runs were torch ops.
-//  * The state on chip.  A complex64 state is 8 * 2^n bytes.  Up to n = 14
-//    (128 KB) one CTA holds it in shared memory.  At n = 15 (256 KB, past a
-//    CTA's 227 KB) a cluster of two CTAs holds it, split on the top flat
-//    bit; a gate on that bit reads and writes the partner's half through
-//    distributed shared memory between two cluster barriers, every other
-//    row is local.  From n = 16 to 20 the state lives in global scratch
-//    (mostly L2-resident at n = 16, HBM-bound above), where one CTA
-//    streams it at about 20 GB/s, bound by the latency of its loads and
-//    not by HBM.  A chunk there has few runs (a 64-label chunk at n = 20
-//    has 10-11), so a cluster of csize CTAs (up to 8, the wrapper's
-//    choice) owns a run and shares one state: View's t and T count the
-//    cluster's threads, and every step (the prefix copy, a checkpoint's
-//    save or restore, each row, the epilogue) is split over all of them.
-//    A cluster barrier ends each step where one CTA's barrier would: its
-//    release and acquire at cluster scope order the global writes of one
-//    CTA before another's reads.  Each pair update does the same
-//    arithmetic whichever CTA runs it, so full rows equal csize 1's bit
-//    for bit.
-//  * Checkpoints that cost a pass.  Each segment's start is kept in a
-//    global slice (L2-resident: 66 clusters x 128 KB a CTA a segment at
-//    n = 15), written once when its segment starts and read once on
-//    resume, a copy of the CTA's share of the state either way.  The
-//    slices are per CTA on the shared-memory paths and per cluster on the
-//    global one (the working state in slot 0, then one slot a segment),
-//    so scratch shrinks with the cluster.
-//    A register checkpoint of the last segment's start (32 amplitudes a
-//    thread at 512 threads, as the collapse kernel keeps) made ptxas
-//    spill the gate loops (128 registers, 500 bytes) and was no faster
-//    on the card, so every start goes to the slice.
-//  * Every row is one pass over the state and one barrier, so the
-//    rewritten table cuts passes: identities go, a run of diagonal gates
-//    (cz, rz, cp) is one pass, a signed permutation (x, cx) a move.  The
-//    rows take most of the time and are bound by the instructions issued
-//    for each amplitude, not by shared-memory bytes or barriers: through
-//    View's generic pointers a pair update pays 64-bit addresses and a
-//    split test, so a row that does not cross the split runs the local
-//    loops (apply_row<true>: 32-bit shared-memory addressing on
-//    smem_state).  Several rows a pass (a group of 8 amplitudes in
-//    registers across the rows on its 3 bits) halved sup-20's passes but
-//    not its time, and slowed hwe-16, so it is not kept.  The row table
-//    and the coefficient pool sit in shared memory, where they fit beside
-//    the state, and each label's entry row too.
-//  * State copies (the prefix at a run's start, a checkpoint's save and
-//    restore) issue a batch of 16-byte loads before their stores.
-//  * The epilogues.  Fold: out[k] = sum_h w(h) sign(h) |psi[h << d | k]|^2;
-//    the factor w(h) sign(h) is tabulated once a label (up to 1024 h).
-//    The split bit n - 1 is never a kept bit when d < n, so each CTA of a
-//    cluster sums its own share of the h range (a 1/csize slice) and the
-//    partials are added in rank order through distributed shared memory,
-//    each CTA writing a 1/csize share of the outputs.  Full rows: each
-//    CTA writes its own share of the row.
+//  * The state on chip (variant_rows_kernel).  A complex64 state is
+//    8 * 2^n bytes.  Up to n = 14 (128 KB) one CTA holds it in shared
+//    memory.  At n = 15 (256 KB, past a CTA's 227 KB) a cluster of two
+//    CTAs holds it, split on the top flat bit; a gate on that bit reads
+//    and writes the partner's half through distributed shared memory
+//    between two cluster barriers, every other row is local.  Each
+//    segment's start is kept in a global slice of the CTA's share
+//    (L2-resident: 66 clusters x 128 KB a segment at n = 15), written once
+//    when its segment starts and read once on resume.  A register
+//    checkpoint of the last segment's start (32 amplitudes a thread at
+//    512 threads, as the collapse kernel keeps) made ptxas spill the gate
+//    loops and was no faster on the card, so every start goes to the
+//    slice.
+//  * Rows in shared memory.  Every row is one pass over the state (or a
+//    tile) and one barrier, so the rewritten table cuts passes:
+//    identities go, a run of diagonal gates (cz, rz, cp) is one pass, a
+//    signed permutation (x, cx) a move.  The rows are bound by the
+//    instructions issued for each amplitude, so they run the local loops
+//    (apply_row<true>: 32-bit shared-memory addressing) wherever no row
+//    crosses a split.  Several rows a pass in registers (a group of 8
+//    amplitudes across the rows on its 3 bits) halved sup-20's passes
+//    but not its time, and slowed hwe-16: in shared memory a row's bytes
+//    cost little, its instructions the same, so it is not kept.  The row
+//    table and the coefficient pool sit in shared memory, where they fit,
+//    and each label's entry row too.
+//  * The state in global memory, in tiles (variant_rows_kernel_tiled,
+//    n = 16 to 20).  Applying each row to the whole state in global
+//    memory cost one HBM read and write of the [2, 2^n] state a row (and
+//    one more each checkpoint save, restore and prefix copy): 1216 GB a
+//    request of sup25-full, at the HBM limit.  Instead the host cuts each
+//    segment into passes (TilePlan in the wrapper): a pass's rows pair
+//    amplitudes on at most w flat bits, its window, padded with the
+//    lowest other bits (bits 0 and 1 always, so a tile moves in 16-byte
+//    pieces, most often in whole lines); a segment's rows take one pass
+//    unless their bits overflow a window, when they split in row order.
+//    w is the widest up to 14 whose tile (8 * 2^w bytes), fold sums and
+//    offsets fit a CTA's shared memory with the tables.  A tile is the
+//    2^w amplitudes that share the bits outside the window, in layout
+//    order (window bits below, ascending); the host gives every row its
+//    layout bits, and a diagonal run its own copy in the pool, so a
+//    diagonal row reads its bits from the layout index (tile << w) | x,
+//    View's rank and split.  A cluster's CTAs split each pass's tiles;
+//    each loads a tile with asynchronous copies (cp.async: no register on
+//    the way and every copy in flight at once, where a global row's
+//    dependent loads held a CTA to about 20 GB/s), applies the pass's
+//    rows with the local loops, and writes the tile where the next pass
+//    reads it.  The last pass of segment i writes segment i + 1's
+//    checkpoint slot, so the checkpoint costs nothing more; the passes
+//    of a segment between its first and last go through slot 0.  The
+//    last pass of the last segment never writes the state back: the
+//    epilogue reads its tile (below).  A label equal to the previous one
+//    (stage n_seg) replays the last segment from its checkpoint, the
+//    same arithmetic, so its row is the same bits.  A cluster barrier
+//    ends each pass (its release and acquire at cluster scope order one
+//    CTA's global writes before another's reads).  State traffic: one
+//    read and one write a pass, the last a read: 76 GB a request of
+//    sup25-full (23 ms at 3.35 TB/s), 44 GB of syc32-rcs, so the
+//    shared-memory row loops, not HBM, bound the path: of sup25's 138 ms
+//    of kernel a request the rows took about 100, the copies 13 (with
+//    the rows cut out, or the copies, on one H100).  Neither their
+//    barriers (about 7 ms) nor loops that issue every load of a few
+//    pairs before their stores (6 ms) moved them much.  One tile a CTA:
+//    a second, its copies in flight under the rows, fits only at w = 13,
+//    and lost to one at w = 14 in both cells (a request's rows calls:
+//    sup25 193-195 against 169-175 ms, syc32 85-89 against 82-86).  Each
+//    pair update does the same arithmetic as a row over the whole state,
+//    so full rows equal that design's bit for bit, whatever the cluster.
+//  * The epilogues.  Fold: out[k] = sum_h w(h) sign(h) |psi[h << d | k]|^2.
+//    In shared memory the factor w(h) sign(h) is tabulated once a label
+//    (up to 1024 h); the split bit n - 1 is never a kept bit when d < n,
+//    so each CTA of a cluster sums its own share of the h range (a
+//    1/csize slice) and the partials are added in rank order through
+//    distributed shared memory, each CTA writing a 1/csize share of the
+//    outputs.  In tiles, the last pass folds each tile as it leaves the
+//    rows: its kin kept bits inside the window are the low bits of its
+//    layout index, the kout = d - kin outside it the low bits of its
+//    tile number, so the tiles of one value of those (a group) add into
+//    the same 2^kin sums, kept in shared memory in tile order.  A factor
+//    is the product of its window bits' part, tabulated once a label,
+//    and its tile's (a table a tile took 25 of syc32's 63 ms a request).
+//    A CTA takes whole groups and writes their outputs; with fewer
+//    groups than CTAs, each CTA takes a share of each group's tiles and
+//    the partials are added in rank order, as above.
+//    Full rows: each CTA writes its own share (a tile's |psi|^2 at its
+//    flat indices).
 //  * Sums in a fixed order (per-thread partial in double, a shared-memory
-//    tree, the CTAs in rank order), no float atomics: a launch repeats bit
-//    for bit.  f32 state, IEEE arithmetic (no fast-math), no tensor cores,
-//    so no TF32.
+//    tree, tiles in order, the CTAs in rank order), no float atomics: a
+//    launch repeats bit for bit.  f32 state, IEEE arithmetic (no
+//    fast-math), no tensor cores, so no TF32.
 //
 // Layout: planar [2, 2^n] (re then im); flat bit j of the amplitude index
 // is the kernel's qubit j (the host maps circuit qubits to flat bits, with
@@ -104,12 +138,17 @@ constexpr int kMaxCluster = 8;      // the portable cluster
 constexpr int kMaxW = 64;           // fold weights
 constexpr int kMaxEntry = 1024;     // entry floats a label stages on chip
 constexpr int kMaxFac = 1024;       // fold factors a label tabulates on chip
+constexpr int kMinTile = 4;         // a tile's bits: bits 0 and 1, a 2q row
+constexpr int kMaxTile = 14;        // 128 KB of shared memory
 
 struct Params {
   const float* prefix;     // [2, N]
-  const int* rows;         // [n_rows, 6] rewritten op table
+  const int* rows;         // [n_rows, 6] rewritten op table (tiles: each
+                           //   row's bits at its pass's layout positions)
   const float* pool;       // fixed coefficients, diagonal runs
-  const int* seg_start;    // [n_seg + 1] first row of each segment
+  const int* seg_start;    // [n_seg + 1] first row (tiles: first pass) of
+                           //   each segment
+  const int* passes;       // tiles: [n_pass, 3] first row, end row, window
   const float* entries;    // [C, entry_stride] per-label slot coefficients
   const int* stage;        // [C] first segment to replay
   const float* wstack;     // [C, n_w, 2] fold weights (w0, w1)
@@ -119,23 +158,17 @@ struct Params {
   const int* runs;         // [C, 2]: first label, length
   const int* count;        // [1]: runs in the table
   float* scratch;          // [owners, n_slots, 2, L] checkpoints: a CTA's
-                           //   (use_smem) or a cluster's
+                           //   (shared memory) or a cluster's (tiles)
   float* out;              // [C, 2^d] (fold) or [C, N] (full rows)
   int n, d, fold, C, n_seg, entry_stride, n_w, n_wbits, zmask;
   int csize;               // CTAs a state is split over: 1, 2 at n = 15
-                           //   (use_smem), up to 8 in global memory
-  int use_smem;            // state in shared memory (n <= 15)
-  int n_slots;             // global [2, L] slots a CTA owns
-  int n_rows, pool_len;    // staged in shared memory after the state when
-  int stage_tables;        //   stage_tables (they fit)
+                           //   (shared memory), up to 8 (tiles)
+  int n_slots;             // global [2, L] slots an owner has
+  int n_rows, pool_len;    // staged in shared memory after the state (or
+  int stage_tables;        //   the tile's space) when stage_tables
+  int w, n_pass;           // tiles: a tile's bits, the passes
+  int tab_at;              // tiles: floats of shared memory before tables
 };
-
-// The global slot of segment i's start (i >= 1): slot i - 1 on the
-// shared-memory paths, slot i on the global path, after the working state
-// in slot 0.
-__device__ __forceinline__ int slot_of(const Params& p, int i) {
-  return p.use_smem ? i - 1 : i;
-}
 
 // dst[0, L) = re[0, L) and dst[L, 2L) = im[0, L) by the CTA's threads.
 // One side is in device memory, where a load waits about a microsecond,
@@ -257,24 +290,17 @@ __device__ void epilogue_fold(const Params& p, const View& v, const float* ws,
   }
 }
 
-__device__ void epilogue_rows(const Params& p, const View& v, float* orow) {
+__device__ void epilogue_rows(const View& v, float* orow) {
   const float* st = v.own;
   const int L = v.L, top = v.split >= 0 ? v.rank << v.split : 0;
   for (int x = v.t; x < L; x += v.T)
     orow[top + x] = st[x] * st[x] + st[L + x] * st[L + x];
 }
 
-// The barrier that ends a step on the state: the cluster's where its CTAs
-// share a global state (wide), else the CTA's.
-__device__ __forceinline__ void state_sync(bool wide) {
-  if (wide)
-    cg::this_cluster().sync();
-  else
-    __syncthreads();
-}
-
-// 512 threads and one CTA an SM: 128 registers a thread for the
-// interpreter (a dense 2q gate holds its 32 coefficients).
+// The state in shared memory: one CTA's (n <= 14) or split over a
+// cluster of two (n = 15).  512 threads and one CTA an SM: 128 registers
+// a thread for the interpreter (a dense 2q gate holds its 32
+// coefficients).
 __global__ void __launch_bounds__(kMaxThreads, 1)
 variant_rows_kernel(Params p) {
   extern __shared__ __align__(16) float smem_state[];
@@ -286,8 +312,6 @@ variant_rows_kernel(Params p) {
 
   const int N = 1 << p.n;
   const int T = blockDim.x, t = threadIdx.x;
-  // a cluster on the global path shares one state, split over its threads
-  const bool wide = !p.use_smem && p.csize > 1;
   int cluster_id = blockIdx.x, n_clusters = gridDim.x;
   View v;
   v.rank = 0;
@@ -296,31 +320,30 @@ variant_rows_kernel(Params p) {
     cluster_id = blockIdx.x / p.csize;
     n_clusters = gridDim.x / p.csize;
   }
-  v.L = wide ? N : N / p.csize;
-  v.t = wide ? v.rank * T + t : t;
-  v.T = wide ? p.csize * T : T;
-  v.split = p.use_smem && p.csize == 2 ? p.n - 1 : -1;
+  v.L = N / p.csize;
+  v.t = t;
+  v.T = T;
+  v.split = p.csize == 2 ? p.n - 1 : -1;
   const int L = v.L;
-  // the checkpoint slots: a cluster's on the global path, else a CTA's
-  const size_t owner = wide ? cluster_id : blockIdx.x;
-  float* slots = p.n_slots ? p.scratch + owner * p.n_slots * 2 * L : nullptr;
+  // the CTA's checkpoint slots: slot i - 1 holds segment i's start
+  float* slots =
+      p.n_slots ? p.scratch + (size_t)blockIdx.x * p.n_slots * 2 * L : nullptr;
   if (v.split >= 0) {
     cg::cluster_group cluster = cg::this_cluster();
     v.base[0] = cluster.map_shared_rank(smem_state, 0);
     v.base[1] = cluster.map_shared_rank(smem_state, 1);
-    v.own = smem_state;
   } else {
-    v.base[0] = v.base[1] = p.use_smem ? smem_state : slots;
-    v.own = v.base[0];
+    v.base[0] = v.base[1] = smem_state;
   }
-  float* st = v.own;
+  v.own = smem_state;
+  float* st = smem_state;
   const int top = v.split >= 0 ? v.rank << v.split : 0;
   for (int i = t; i < p.n_wbits; i += T) s_wb[i] = p.wbits[i];
   // the tables every row reads: on chip where they fit
   const int* rows = p.rows;
   const float* pool = p.pool;
   if (p.stage_tables) {
-    float* tab = smem_state + (p.use_smem ? 2 * L : 0);
+    float* tab = smem_state + 2 * L;
     for (int i = t; i < p.pool_len; i += T) tab[i] = p.pool[i];
     int* rtab = reinterpret_cast<int*>(tab + p.pool_len);
     for (int i = t; i < kRow * p.n_rows; i += T) rtab[i] = p.rows[i];
@@ -349,27 +372,21 @@ variant_rows_kernel(Params p) {
         }
         // the state at the start of segment s
         if (s == 0) {
-          copy_planes(st, p.prefix + top, p.prefix + N + top, L, v.t, v.T);
+          copy_planes(st, p.prefix + top, p.prefix + N + top, L, t, T);
         } else {
-          const float* src = slots + (size_t)slot_of(p, s) * 2 * L;
-          copy_planes(st, src, src + L, L, v.t, v.T);
+          const float* src = slots + (size_t)(s - 1) * 2 * L;
+          copy_planes(st, src, src + L, L, t, T);
         }
-        state_sync(wide);
+        __syncthreads();
         for (int i = s; i < p.n_seg; ++i) {
           if (i > s) {
             // segment i starts: keep its state for the labels after
-            float* dst = slots + (size_t)slot_of(p, i) * 2 * L;
-            copy_planes(dst, st, st + L, L, v.t, v.T);
-            state_sync(wide);  // saved before the next row rewrites it
+            float* dst = slots + (size_t)(i - 1) * 2 * L;
+            copy_planes(dst, st, st + L, L, t, T);
+            __syncthreads();  // saved before the next row rewrites it
           }
-          for (int o = p.seg_start[i]; o < p.seg_start[i + 1]; ++o) {
-            if (p.use_smem)  // the local loops address smem_state directly
-              apply_row<true>(v, rows + kRow * o, pool, erow, smem_state);
-            else if (wide)
-              apply_row<false, true>(v, rows + kRow * o, pool, erow);
-            else
-              apply_row(v, rows + kRow * o, pool, erow);
-          }
+          for (int o = p.seg_start[i]; o < p.seg_start[i + 1]; ++o)
+            apply_row<true>(v, rows + kRow * o, pool, erow, smem_state);
         }
       }
       if (p.fold) {
@@ -379,8 +396,327 @@ variant_rows_kernel(Params p) {
         epilogue_fold(p, v, s_ws, s_wb, p.out + ((size_t)row << p.d), red,
                       s_fac);
       } else {
-        epilogue_rows(p, v, p.out + (size_t)row * N);
-        state_sync(wide);  // read before the next label rewrites the state
+        epilogue_rows(v, p.out + (size_t)row * N);
+        __syncthreads();  // read before the next label rewrites the state
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The state in global memory, in tiles (n = 16 to 20)
+// ---------------------------------------------------------------------------
+
+// The low bits of v, one each, on the set bits of mask, lowest first.
+__device__ __forceinline__ int deposit(int v, int mask) {
+  int r = 0;
+  while (mask) {
+    const int low = mask & -mask;
+    if (v & 1) r |= low;
+    v >>= 1;
+    mask ^= low;
+  }
+  return r;
+}
+
+// 16 bytes from global to shared memory, no register on the way;
+// copies_wait() waits for the thread's copies (a barrier, the CTA's).
+__device__ __forceinline__ void copy16_async(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// A pass's tiles in a flat [2, N] state: amplitude x (layout order) of
+// the tile at offset off = deposit(tile, rest) is at flat index
+// (x & low) | hi[x >> r] | off, r the window's low run of bits 0, 1, ...
+struct Tiles {
+  int mask, rest, r, low, W, N;
+  const int* hi;  // [W >> r] the window's bits above the run
+};
+
+__device__ __forceinline__ int flat_of(const Tiles& m, int x, int off) {
+  return (x & m.low) | m.hi[x >> m.r] | off;
+}
+
+// The tile at off from the state src into tile [2, W]; ends with the
+// CTA's barrier.
+__device__ void load_tile(float* tile, const float* src, const Tiles& m,
+                          int off) {
+  for (int u = threadIdx.x; u < (m.W >> 2); u += blockDim.x) {
+    const int x = u << 2, f = flat_of(m, x, off);
+    copy16_async(tile + x, src + f);
+    copy16_async(tile + m.W + x, src + m.N + f);
+  }
+  copies_wait();
+  __syncthreads();
+}
+
+__device__ void store_tile(float* dst, const float* tile, const Tiles& m,
+                           int off) {
+  for (int u = threadIdx.x; u < (m.W >> 2); u += blockDim.x) {
+    const int x = u << 2, f = flat_of(m, x, off);
+    *reinterpret_cast<float4*>(dst + f) =
+        *reinterpret_cast<const float4*>(tile + x);
+    *reinterpret_cast<float4*>(dst + m.N + f) =
+        *reinterpret_cast<const float4*>(tile + m.W + x);
+  }
+}
+
+// Full rows: the tile's |psi|^2 at its amplitudes' flat indices.
+__device__ void rows_tile(float* orow, const float* tile, const Tiles& m,
+                          int off) {
+  for (int u = threadIdx.x; u < (m.W >> 2); u += blockDim.x) {
+    const int x = u << 2, f = flat_of(m, x, off);
+    const float4 a = *reinterpret_cast<const float4*>(tile + x);
+    const float4 b = *reinterpret_cast<const float4*>(tile + m.W + x);
+    float4 o;
+    o.x = a.x * a.x + b.x * b.x;
+    o.y = a.y * a.y + b.y * b.y;
+    o.z = a.z * a.z + b.z * b.z;
+    o.w = a.w * a.w + b.w * b.w;
+    *reinterpret_cast<float4*>(orow + f) = o;
+  }
+}
+
+// Rows [lo, hi) of a pass on the tile numbered tt: the local loops, a
+// diagonal row reading its bits from the layout index (tt << w) | x
+// (View's rank and split; no other row touches bit w or above).
+__device__ void tile_rows(float* tile, int tt, int w, const int* rows,
+                          const float* pool, const float* erow, int lo,
+                          int hi) {
+  View v;
+  v.base[0] = v.base[1] = v.own = tile;
+  v.L = 1 << w;
+  v.rank = tt;
+  v.split = w;
+  v.t = threadIdx.x;
+  v.T = blockDim.x;
+  for (int o = lo; o < hi; ++o)
+    apply_row<true>(v, rows + kRow * o, pool, erow, tile);
+}
+
+// The part of amplitude f's fold factor that the flat bits in sel give:
+// the weights on those bits (with scalars, also the weights of no bit),
+// and the z sign of f & sel.
+__device__ __forceinline__ float fold_fac_part(int f, const float* ws,
+                                               const int* wb, int n_wbits,
+                                               int zmask, int sel,
+                                               bool scalars) {
+  float fac = 1.f;
+  for (int t = 0; t < n_wbits; ++t) {
+    const int fb = wb[t];
+    if (fb >= 0 ? ((sel >> fb) & 1) : scalars)
+      fac *= (fb >= 0 && ((f >> fb) & 1)) ? ws[2 * t + 1] : ws[2 * t];
+  }
+  return (__popc(f & zmask & sel) & 1) ? -fac : fac;
+}
+
+// acc[k] += fo * sum_h fac[h] * |psi[h << kin | k]|^2 over one tile (k <
+// 2^kin, h < 2^hin; fo the tile's factor): per-thread partials in double,
+// a tree in red when several threads share an output.  Every thread of
+// the CTA calls it.
+__device__ void fold_tile(const float* tile, int W, float* acc,
+                          const float* fac, float fo, float* red, int kin,
+                          int hin) {
+  const int T = blockDim.x, t = threadIdx.x, Kn = 1 << kin, Hn = 1 << hin;
+  const int KT = Kn < T ? Kn : T, G = T / KT, kk = t % KT, g = t / KT;
+  for (int k0 = 0; k0 < Kn; k0 += KT) {
+    const int k = k0 + kk;
+    double a = 0.0;
+    for (int h = g; h < Hn; h += G) {
+      const int x = (h << kin) | k;
+      const float sq = tile[x] * tile[x] + tile[W + x] * tile[W + x];
+      a += sq * fac[h];
+    }
+    if (G == 1) {  // the thread's own output
+      acc[k] += (float)(a * fo);
+      continue;
+    }
+    red[t] = (float)a;
+    __syncthreads();
+    for (int s = G >> 1; s > 0; s >>= 1) {
+      if (g < s) red[t] += red[t + s * KT];
+      __syncthreads();
+    }
+    if (t < KT) acc[k0 + t] += red[t] * fo;
+    __syncthreads();
+  }
+}
+
+// The last pass of a label, folded: out[k] of its row orow from each
+// tile as it leaves the rows (see the design notes).  The kin kept bits
+// in the window are the tile's low bits, the kout outside it the low
+// bits of the tile number; a group is the tiles of one value of those,
+// summed into acc [2^kin] in tile order.  An amplitude's factor is its
+// window bits' (fac [2^hin], tabulated once a label) times its tile's.
+// Every thread of the cluster calls it; it ends with the CTA's barrier.
+__device__ void fold_pass(const Params& p, const Tiles& m, float* tile,
+                          float* acc, float* fac, float* red,
+                          const float* src, const int* rows,
+                          const float* pool, const float* erow, int lo,
+                          int hi, const float* ws, const int* wb,
+                          float* orow, int rank) {
+  const int T = blockDim.x, t = threadIdx.x, cs = p.csize, K = 1 << p.d;
+  const int kmask = m.mask & (K - 1), gmask = m.rest & (K - 1);
+  const int kin = __popc(kmask), kout = p.d - kin, hin = p.w - kin;
+  const int G = 1 << kout, H = 1 << (p.n - p.w - kout);
+  const int Kn = 1 << kin, Hn = 1 << hin;
+  // whole groups a CTA, or, fewer groups than CTAs, a share of each
+  // group's tiles a CTA and the partials added in rank order
+  const bool share = G < cs;
+  const int g0 = share ? 0 : G * rank / cs, g1 = share ? G : G * (rank + 1) / cs;
+  const int h0 = share ? H * rank / cs : 0, h1 = share ? H * (rank + 1) / cs : H;
+  for (int h = t; h < Hn; h += T)
+    fac[h] = fold_fac_part(deposit(h << kin, m.mask), ws, wb, p.n_wbits,
+                           p.zmask, m.mask, false);
+  for (int g = g0; g < g1; ++g) {
+    for (int x = t; x < Kn; x += T) acc[x] = 0.f;
+    for (int hh = h0; hh < h1; ++hh) {
+      const int tt = g | (hh << kout), off = deposit(tt, m.rest);
+      // its barrier orders fac and acc's zeros too
+      load_tile(tile, src, m, off);
+      tile_rows(tile, tt, p.w, rows, pool, erow, lo, hi);
+      const float fo =
+          fold_fac_part(off, ws, wb, p.n_wbits, p.zmask, m.rest, true);
+      fold_tile(tile, m.W, acc, fac, fo, red, kin, hin);
+      __syncthreads();  // read before the next tile's copies
+    }
+    const int base = deposit(g, gmask);
+    if (!share) {
+      for (int x = t; x < Kn; x += T) orow[base | deposit(x, kmask)] = acc[x];
+      __syncthreads();
+      continue;
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int x1 = Kn * (rank + 1) / cs;
+    for (int x = Kn * rank / cs + t; x < x1; x += T) {
+      float s = *cluster.map_shared_rank(acc + x, 0);
+      for (int q = 1; q < cs; ++q) s += *cluster.map_shared_rank(acc + x, q);
+      orow[base | deposit(x, kmask)] = s;
+    }
+    cluster.sync();  // the others have read acc
+  }
+}
+
+// The state in global scratch that a cluster of csize CTAs shares (n =
+// 16 to 20), a segment a pass over tiles of 2^w amplitudes in shared
+// memory.  Slot 0 of the cluster's scratch holds the state between the
+// passes of a segment that takes several, slot i (i >= 1) segment i's
+// start.
+__global__ void __launch_bounds__(kMaxThreads, 1)
+variant_rows_kernel_tiled(Params p) {
+  extern __shared__ __align__(16) float smem_state[];
+  __shared__ float red[kMaxThreads];
+  __shared__ float s_erow[kMaxEntry];
+  __shared__ float s_ws[2 * kMaxW];
+  __shared__ int s_wb[kMaxW];
+
+  const int N = 1 << p.n, W = 1 << p.w;
+  const int T = blockDim.x, t = threadIdx.x, cs = p.csize;
+  const int n_seg = p.n_seg > 1 ? p.n_seg : 1;  // no slot: a pass of no row
+  int rank = 0, cluster_id = blockIdx.x, n_clusters = gridDim.x;
+  if (cs > 1) {
+    rank = (int)cg::this_cluster().block_rank();
+    cluster_id = blockIdx.x / cs;
+    n_clusters = gridDim.x / cs;
+  }
+  // shared memory: the tile, the fold's sums and factors (of the last
+  // pass's window), a pass's offsets, then the tables
+  const int last = p.passes[3 * (p.n_pass - 1) + 2];
+  const int kin = p.fold ? __popc(last & ((1 << p.d) - 1)) : 0;
+  float* tile = smem_state;
+  float* acc = tile + 2 * W;
+  float* fac = acc + (p.fold ? 1 << kin : 0);
+  int* hi = reinterpret_cast<int*>(fac + (p.fold ? 1 << (p.w - kin) : 0));
+  const int* rows = p.rows;
+  const float* pool = p.pool;
+  if (p.stage_tables) {
+    float* tab = smem_state + p.tab_at;
+    for (int i = t; i < p.pool_len; i += T) tab[i] = p.pool[i];
+    int* rtab = reinterpret_cast<int*>(tab + p.pool_len);
+    for (int i = t; i < kRow * p.n_rows; i += T) rtab[i] = p.rows[i];
+    rows = rtab;
+    pool = tab;
+  }
+  for (int i = t; i < p.n_wbits; i += T) s_wb[i] = p.wbits[i];
+  const bool stage_entries = p.entry_stride <= kMaxEntry;
+  float* slots = p.scratch + (size_t)cluster_id * p.n_slots * 2 * N;
+  const int n_tiles = N >> p.w;
+  Tiles m;
+  m.W = W;
+  m.N = N;
+  m.hi = hi;
+  if (cs > 1) cg::this_cluster().sync();  // every CTA has started
+  __syncthreads();
+
+  const int R = *p.count;
+  for (int ri = cluster_id; ri < R; ri += n_clusters) {
+    const long long first = p.runs[2 * ri];
+    const int len = p.runs[2 * ri + 1];
+    for (int j = 0; j < len; ++j) {
+      const long long lab = first + j;
+      const long long row = p.order ? p.order[lab] : lab;
+      // a run opens from the prefix; a label equal to the previous one
+      // replays the last segment from its start
+      int s = j == 0 ? 0 : p.stage[lab];
+      if (s > n_seg - 1) s = n_seg - 1;
+      const float* erow = p.entries + (size_t)row * p.entry_stride;
+      // the previous label's passes have read s_erow and s_ws (a barrier
+      // ends each); the offsets' barrier below orders these writes
+      if (stage_entries) {
+        for (int i = t; i < p.entry_stride; i += T) s_erow[i] = erow[i];
+        erow = s_erow;
+      }
+      if (p.fold) {
+        const float* ws = p.wstack + (size_t)row * p.n_w * 2;
+        for (int i = t; i < 2 * p.n_wbits; i += T) s_ws[i] = ws[i];
+      }
+      int i = s;
+      for (int q = p.seg_start[s]; q < p.n_pass; ++q) {
+        if (q == p.seg_start[i + 1]) ++i;
+        const int lo = p.passes[3 * q], end = p.passes[3 * q + 1];
+        m.mask = p.passes[3 * q + 2];
+        m.rest = ~m.mask & (N - 1);
+        m.r = __ffs(~m.mask) - 1;
+        m.low = (1 << m.r) - 1;
+        for (int e = t; e < (W >> m.r); e += T)
+          hi[e] = deposit(e << m.r, m.mask);
+        __syncthreads();
+        // from segment i's start (the prefix, or its slot) or slot 0; to
+        // segment i + 1's slot, slot 0, or, the last pass, the row
+        const float* src = q > p.seg_start[i]
+                               ? slots
+                               : (i == 0 ? p.prefix : slots + (size_t)i * 2 * N);
+        float* dst = nullptr;
+        if (q + 1 < p.seg_start[i + 1])
+          dst = slots;
+        else if (i + 1 < n_seg)
+          dst = slots + (size_t)(i + 1) * 2 * N;
+        if (dst == nullptr && p.fold) {
+          fold_pass(p, m, tile, acc, fac, red, src, rows, pool, erow, lo, end,
+                    s_ws, s_wb, p.out + ((size_t)row << p.d), rank);
+        } else {
+          for (int tt = rank; tt < n_tiles; tt += cs) {
+            const int off = deposit(tt, m.rest);
+            load_tile(tile, src, m, off);
+            tile_rows(tile, tt, p.w, rows, pool, erow, lo, end);
+            if (dst != nullptr)
+              store_tile(dst, tile, m, off);
+            else
+              rows_tile(p.out + (size_t)row * N, tile, m, off);
+            __syncthreads();  // read before the next tile's copies
+          }
+        }
+        // the pass is written before any CTA reads it
+        if (cs > 1) cg::this_cluster().sync();
       }
     }
   }
@@ -543,27 +879,35 @@ extern "C" int variant_schedule_launch(const long long* key,
 }
 
 // CTAs (csize 1) or clusters of csize CTAs the card runs at once for a
-// launch of this shape; 0 when it cannot run at all.
-extern "C" int variant_kernel_capacity(int threads, int smem, int csize) {
-  return launch_capacity(variant_rows_kernel, threads, smem, csize);
+// launch of this shape (tiled: the global path's kernel); 0 when it
+// cannot run at all.
+extern "C" int variant_kernel_capacity(int threads, int smem, int csize,
+                                       int tiled) {
+  return tiled ? launch_capacity(variant_rows_kernel_tiled, threads, smem,
+                                 csize)
+               : launch_capacity(variant_rows_kernel, threads, smem, csize);
 }
 
 // Returns a cudaError_t: 0 on success.  Refused with cudaErrorInvalidValue:
 // a width outside [0, 20], a block size that is not a power of two in
 // [32, 512], a grid that is not a multiple of the cluster, a cluster
-// outside [1, 8] in global memory or other than 2 at n = 15 and 1 below
-// it in shared memory, a shared-memory state past n = 15, a global one
-// without scratch, more than 64 fold weights, or fewer scratch slots than
-// the checkpoints need.  Dynamic shared memory: the state
-// (when use_smem), then the pool and the row table (when stage_tables).
+// other than 2 at n = 15 and 1 below it in shared memory, a shared-memory
+// state past n = 15, more than 64 fold weights, fewer scratch slots than
+// the checkpoints need; in global memory (use_smem 0): a cluster outside
+// [1, 8], no scratch or no pass table, a tile outside [4, 14] bits or not
+// narrower than the state, or a tile's shared memory below its planes.
+// Dynamic shared memory: the state (use_smem) or tile_smem bytes (the
+// tile, the fold's sums and factors, a pass's offsets), then the pool
+// and the row table (when stage_tables).
 extern "C" int variant_rows_launch(
     const float* prefix, const int* rows, const float* pool,
-    const int* seg_start, const float* entries, const int* stage,
-    const float* wstack, const int* wbits, const int* order, const int* runs,
-    const int* count, float* scratch, float* out, int n, int d, int fold,
-    int C, int n_seg, int entry_stride, int n_w, int n_wbits, int zmask,
-    int csize, int use_smem, int n_slots, int n_rows, int pool_len,
-    int stage_tables, int grid, int threads, void* stream) {
+    const int* seg_start, const int* passes, const float* entries,
+    const int* stage, const float* wstack, const int* wbits,
+    const int* order, const int* runs, const int* count, float* scratch,
+    float* out, int n, int d, int fold, int C, int n_seg, int entry_stride,
+    int n_w, int n_wbits, int zmask, int csize, int use_smem, int n_slots,
+    int n_rows, int pool_len, int stage_tables, int w, int n_pass,
+    int tile_smem, int grid, int threads, void* stream) {
   if (n < 0 || n > kMaxQubits || threads < 32 || threads > kMaxThreads ||
       (threads & (threads - 1)) || C < 1 || grid < 1 || n_seg < 0 ||
       d < 0 || d > n || n_wbits < 0 || n_wbits > kMaxW || n_wbits > n_w ||
@@ -574,19 +918,28 @@ extern "C" int variant_rows_launch(
   if (use_smem &&
       (n > kMaxSmemQubits || csize != (n == kMaxSmemQubits ? 2 : 1)))
     return (int)cudaErrorInvalidValue;
+  if (!use_smem &&
+      (passes == nullptr || n_pass < 1 || w < kMinTile || w > kMaxTile ||
+       w >= n || tile_smem < (int)(2 * sizeof(float)) << w ||
+       (tile_smem & 3)))
+    return (int)cudaErrorInvalidValue;
   const int need = use_smem ? (n_seg > 1 ? n_seg - 1 : 0)
                              : (n_seg > 1 ? n_seg : 1);
   if (n_slots < need || (n_slots > 0 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
-      (use_smem ? ((size_t)2 * sizeof(float) << n) / csize : 0) +
+      (use_smem ? ((size_t)2 * sizeof(float) << n) / csize
+                : (size_t)tile_smem) +
       (stage_tables ? 4 * ((size_t)pool_len + kRow * (size_t)n_rows) : 0);
-  Params p{prefix, rows, pool, seg_start, entries, stage, wstack, wbits,
-           order, runs, count, scratch, out, n, d, fold, C, n_seg,
-           entry_stride, n_w, n_wbits, zmask, csize, use_smem, n_slots,
-           n_rows, pool_len, stage_tables};
-  return (int)launch_clustered(variant_rows_kernel, p, grid, threads, smem,
-                               csize, stream);
+  Params p{prefix, rows, pool, seg_start, passes, entries, stage, wstack,
+           wbits, order, runs, count, scratch, out, n, d, fold, C, n_seg,
+           entry_stride, n_w, n_wbits, zmask, csize, n_slots, n_rows,
+           pool_len, stage_tables, w, n_pass, tile_smem / 4};
+  return (int)(use_smem ? launch_clustered(variant_rows_kernel, p, grid,
+                                           threads, smem, csize, stream)
+                        : launch_clustered(variant_rows_kernel_tiled, p,
+                                           grid, threads, smem, csize,
+                                           stream));
 }
 
 extern "C" const char* variant_kernel_error_string(int code) {

@@ -61,8 +61,13 @@ from .kernel_build import (
     upload,
 )
 from .op_rewrite import (
+    DIAG_FLOATS,
+    OP_DIAG,
     OP_GATE1,
     OP_GATE2,
+    OP_PERM1,
+    OP_PERM2,
+    ROW,
     OpTable,
     SlotEntries,
     _plan_ops,
@@ -72,6 +77,10 @@ from .op_rewrite import (
 from .statevector import marginalize_flat
 
 MAX_CLUSTER = 8      # CTAs a portable cluster holds
+TILE_PINNED = 2      # flat bits every tile spans (0 and 1): 16-byte copies
+TILE_MAX_BITS = 14   # a tile of 2^14 amplitudes fills 128 KB
+_SMEM_TABLES = 200 * 1024  # dynamic shared memory a CTA may fill with the
+                           # state (or a tile) and the staged tables
 _BLOCKED_ITEM = (
     "the segmented blocked kernel serves 21..24 qubits "
     "(ops/blocked_kernel.make_blocked_chunk_kernel; ROADMAP H100 port, "
@@ -95,7 +104,9 @@ class VariantPlan:
     ``table`` is what the kernel interprets, the suffix rewritten by
     ``ops/op_rewrite``, and ``row_segments`` its row ranges, cut at the
     same slots (a slot row ends any diagonal run, so they line up).
-    ``fold`` is None (full rows) or ``(wbits, zmask, d)``."""
+    ``fold`` is None (full rows) or ``(wbits, zmask, d)``.  ``tiles``:
+    the global-memory path's :class:`TilePlan` (past
+    ``CLUSTER_QUBITS``), else None."""
 
     n: int
     prefix_ops: list               # [("u", mat, axes)] before the slots
@@ -109,6 +120,7 @@ class VariantPlan:
     staged: bool                   # one segment per slot
     table: op_rewrite.Table        # the kernel's rewritten rows
     row_segments: list             # [(start, end)] rewritten row ranges
+    tiles: TilePlan | None = None
 
     @property
     def out_width(self) -> int:
@@ -172,14 +184,148 @@ def build_plan(virt: VirtualCircuit, frag_name: str, fold=None,
     k_starts = [i for i, r in enumerate(ktable.rows.tolist())
                 if r[0] in (OP_GATE1, OP_GATE2) and r[3] < 0]
     assert len(k_starts) == len(table.slot_rows)
+    row_segments = _segments(k_starts, len(ktable.rows), staged)
+    tiles = None
+    if n > CLUSTER_QUBITS:
+        tiles = plan_tiles(ktable, row_segments, n,
+                           None if fold_desc is None else fold_desc[2])
     return VariantPlan(
         n=n, prefix_ops=prefix, ops=ops, fixed=fixed,
         segments=_segments(table.slot_rows, len(ops), staged),
         entry_tables=table.entry_tables,
         entry_gids=table.entry_gids, entry_stride=table.entry_stride,
         fold=fold_desc, staged=staged, table=ktable,
-        row_segments=_segments(k_starts, len(ktable.rows), staged),
+        row_segments=row_segments, tiles=tiles,
     )
+
+
+@dataclass
+class TilePlan:
+    """Kernel 1's global-memory path: each segment's rows applied to
+    tiles of ``2^window`` amplitudes in shared memory, one pass over the
+    state a segment, more where its rows pair amplitudes on more bits
+    than a tile spans.  ``passes [P, 3]`` int32: each pass's first row,
+    end row and window mask (the flat bits a tile spans);
+    ``seg_pass [n_seg + 1]`` int32: each segment's first pass (a plan
+    without a slot: one pass of no row).  In a pass, an amplitude's
+    layout index holds the window's bits, ascending, below the others,
+    ascending, so tile ``t`` is layout indices ``[t << window, (t + 1)
+    << window)``.  ``rows`` are the rewritten rows with their bits at
+    layout positions; ``pool`` is the table's pool followed by each
+    diagonal run at layout positions.  ``smem``: the bytes of shared
+    memory a CTA needs beside the tables (the tile, the fold's sums and
+    factors, a pass's offsets)."""
+
+    window: int
+    passes: np.ndarray
+    seg_pass: np.ndarray
+    rows: np.ndarray
+    pool: np.ndarray
+    smem: int
+
+    @property
+    def table_bytes(self) -> int:
+        return 4 * (self.pool.size + self.rows.size)
+
+    @property
+    def segment_passes(self) -> list:
+        return np.diff(self.seg_pass).tolist()
+
+
+def row_bits(row) -> tuple:
+    """The flat bits on which a rewritten row pairs amplitudes; none for
+    a diagonal run, which a tile applies by its amplitudes' indices."""
+    kind = int(row[0])
+    if kind in (OP_GATE2, OP_PERM2):
+        return int(row[1]), int(row[2])
+    if kind in (OP_GATE1, OP_PERM1):
+        return (int(row[1]),)
+    return ()
+
+
+def split_passes(rows, row_segments, w: int) -> list:
+    """``[(segment, first row, end row, bits)]``: each segment's rows,
+    in order, cut into passes whose bits, with the ``TILE_PINNED``
+    lowest, number at most ``w``; a pass ends only where the next row's
+    bits would overflow it.  A plan without a slot has one pass of no
+    row."""
+    pinned = set(range(TILE_PINNED))
+    out = []
+    for i, (a, b) in enumerate(row_segments or [(0, 0)]):
+        lo, bits = a, pinned
+        for o in range(a, b):
+            more = bits.union(row_bits(rows[o]))
+            if len(more) > w:
+                out.append((i, lo, o, bits))
+                lo, more = o, pinned.union(row_bits(rows[o]))
+            bits = more
+        out.append((i, lo, b, bits))
+    return out
+
+
+def _low_run(mask: int) -> int:
+    """The flat bits 0, 1, ... a window holds without a gap."""
+    r = 0
+    while (mask >> r) & 1:
+        r += 1
+    return r
+
+
+def _tile_plan(table, row_segments, n: int, d, w: int) -> TilePlan:
+    rows = table.rows.copy()
+    pools, at = [table.pool], table.pool.size
+    passes, seg_pass = [], []
+    for i, lo, hi, bits in split_passes(table.rows, row_segments, w):
+        if i == len(seg_pass):
+            seg_pass.append(len(passes))
+        # the window: the pass's bits, then the lowest others
+        pad = [j for j in range(n) if j not in bits][:w - len(bits)]
+        win = sorted(set(bits).union(pad))
+        pos = np.empty(n, np.int64)
+        pos[win] = np.arange(w)
+        pos[[j for j in range(n) if j not in win]] = np.arange(w, n)
+        for o in range(lo, hi):
+            if rows[o, 0] == OP_DIAG:
+                count, a0 = int(rows[o, 1]), int(rows[o, 3])
+                run = table.pool[a0:a0 + DIAG_FLOATS * count].reshape(
+                    count, DIAG_FLOATS).copy()
+                run[:, :2] = pos[run[:, :2].astype(np.int64)]
+                rows[o, 3] = at
+                pools.append(run.ravel())
+                at += run.size
+            else:
+                k = len(row_bits(rows[o]))
+                rows[o, 1:1 + k] = pos[rows[o, 1:1 + k]]
+        passes.append((lo, hi, sum(1 << j for j in win)))
+    seg_pass.append(len(passes))
+    hi_len = max(1 << (w - _low_run(m)) for _, _, m in passes)
+    fold_len = 0
+    if d is not None:   # the fold's sums and factors of the last pass
+        kin = bin(passes[-1][2] & ((1 << d) - 1)).count("1")
+        fold_len = (1 << kin) + (1 << (w - kin))
+    return TilePlan(
+        window=w, passes=np.asarray(passes, np.int32).reshape(-1, 3),
+        seg_pass=np.asarray(seg_pass, np.int32), rows=rows,
+        pool=np.concatenate(pools).astype(np.float32),
+        smem=4 * ((2 << w) + fold_len + hi_len))
+
+
+def plan_tiles(table, row_segments, n: int, d=None,
+               window: int | None = None) -> TilePlan:
+    """The :class:`TilePlan` of a rewritten ``table`` cut into
+    ``row_segments`` at width ``n``; ``d``: the fold's kept bits (None:
+    full rows).  ``window`` (tests): the tile's bits.  By default the
+    widest window up to ``TILE_MAX_BITS`` and ``n - 3`` (8 tiles a pass
+    at least) whose shared memory fits ``_SMEM_TABLES`` with the tables
+    staged beside it, else without them."""
+    if window is not None:
+        return _tile_plan(table, row_segments, n, d, window)
+    for staged in (True, False):
+        for w in range(min(TILE_MAX_BITS, n - 3), TILE_PINNED + 1, -1):
+            t = _tile_plan(table, row_segments, n, d, w)
+            if t.smem + (t.table_bytes if staged else 0) <= _SMEM_TABLES:
+                return t
+    raise RuntimeError(f"no tile of the variant kernel fits at n = {n}")
 
 
 def _segments(starts: list, end: int, staged: bool) -> list:
@@ -195,22 +341,32 @@ def _segments(starts: list, end: int, staged: bool) -> list:
 
 class DevicePlan:
     """A :class:`VariantPlan` with its tables on one device: the kernel's
-    rewritten rows, pool and segment starts, the entry tables and the
-    fold's weight bits (the plain version reads the plan's original
-    table), and the shared prefix state ``prefix`` (``[2, 2^n]``) built
-    there by ``blocked_kernel.build_prefix``: kernel 4's segment launches
-    on a card (``prefix_launches`` of them), its plain version on the
-    CPU (none)."""
+    rewritten rows, pool and segment starts (on the global-memory path
+    the :class:`TilePlan`'s rows and pool, each segment's first pass in
+    ``seg_start`` and the ``passes``), the entry tables and the fold's
+    weight bits (the plain version reads the plan's original table), and
+    the shared prefix state ``prefix`` (``[2, 2^n]``) built there by
+    ``blocked_kernel.build_prefix``: kernel 4's segment launches on a
+    card (``prefix_launches`` of them), its plain version on the CPU
+    (none)."""
 
     def __init__(self, plan: VariantPlan, device):
         self.plan = plan
         self.device = torch.device(device)
-        self.rows = upload(plan.table.rows, device)
-        self.pool = upload(plan.table.pool, device)
-        bounds = [s for s, _ in plan.row_segments] + (
-            [plan.row_segments[-1][1]] if plan.row_segments else [0]
-        )
-        self.seg_start = upload(np.asarray(bounds, np.int32), device)
+        tiles = plan.tiles
+        self.passes = None
+        if tiles is None:
+            self.rows = upload(plan.table.rows, device)
+            self.pool = upload(plan.table.pool, device)
+            bounds = [s for s, _ in plan.row_segments] + (
+                [plan.row_segments[-1][1]] if plan.row_segments else [0]
+            )
+            self.seg_start = upload(np.asarray(bounds, np.int32), device)
+        else:
+            self.rows = upload(tiles.rows, device)
+            self.pool = upload(tiles.pool, device)
+            self.seg_start = upload(tiles.seg_pass, device)
+            self.passes = upload(tiles.passes, device)
         # [C, entry_stride] slot entries of a [C, num_vgates] label block
         self.gather_entries = SlotEntries(plan.entry_tables,
                                           plan.entry_gids, device)
@@ -347,10 +503,10 @@ def replay_kernel_table(dp: DevicePlan, entries, wstack, stage,
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.variant_rows_launch.argtypes = [p] * 13 + [i] * 17 + [p]
+    lib.variant_rows_launch.argtypes = [p] * 14 + [i] * 20 + [p]
     lib.variant_rows_launch.restype = i
     lib.variant_kernel_max_weights.restype = i
-    lib.variant_kernel_capacity.argtypes = [i] * 3
+    lib.variant_kernel_capacity.argtypes = [i] * 4
     lib.variant_kernel_capacity.restype = i
     lib.variant_kernel_max_schedule.restype = i
     lib.variant_schedule_launch.argtypes = [p, p, i, p, i, i, i, p, p, p, p,
@@ -413,14 +569,17 @@ def run_table(stage: torch.Tensor, n_seg: int, cap: int):
 
 
 _CAPACITY: dict = {}
-_SMEM_TABLES = 200 * 1024  # dynamic shared memory a CTA may fill with the
-                           # state and the staged tables (of 227 KB)
 
 
-def _capacity(lib, threads: int, smem: int, csize: int) -> int:
-    key = (torch.cuda.current_device(), threads, smem, csize)
+def _capacity(lib, threads: int, smem: int, csize: int,
+              tiled: bool) -> int:
+    """Clusters of ``csize`` CTAs of the rows kernel the card runs at
+    once: the shared-memory path's kernel, or (``tiled``) the global
+    path's."""
+    key = (torch.cuda.current_device(), threads, smem, csize, tiled)
     if key not in _CAPACITY:
-        _CAPACITY[key] = lib.variant_kernel_capacity(threads, smem, csize)
+        _CAPACITY[key] = lib.variant_kernel_capacity(threads, smem, csize,
+                                                     int(tiled))
     return _CAPACITY[key]
 
 
@@ -439,7 +598,8 @@ def _launch(dp: DevicePlan, entries, wstack, stage, cap, key=None,
         check_tensor(stage, "stage", torch.int32, (c,), dev)
     else:
         check_tensor(key, "key", torch.int64, (c,), dev)
-    for name in ("prefix", "rows", "pool", "seg_start", "wbits"):
+    for name in ("prefix", "rows", "pool", "seg_start", "wbits") + (
+            ("passes",) if dp.passes is not None else ()):
         if getattr(dp, name).device != dev:
             raise ValueError(f"plan table {name} is not on {dev}")
     if c < 1:
@@ -461,13 +621,16 @@ def _launch(dp: DevicePlan, entries, wstack, stage, cap, key=None,
                          f"global-memory path takes 1 to {MAX_CLUSTER}, "
                          "shared memory its own")
     big = 1 << plan.n
-    smem = (8 * big) // on_chip if use_smem else 0
+    tiles = plan.tiles
+    tiled = tiles is not None
+    smem = tiles.smem if tiled else (8 * big) // on_chip
     # the row table and the pool beside the state, where they fit
-    n_rows, pool_len = len(plan.table.rows), plan.table.pool.size
-    tables = 4 * (pool_len + op_rewrite.ROW * n_rows)
+    src = tiles if tiled else plan.table
+    n_rows, pool_len = len(src.rows), src.pool.size
+    tables = 4 * (pool_len + ROW * n_rows)
     stage_tables = smem + tables <= _SMEM_TABLES
     smem += tables if stage_tables else 0
-    capacity = _capacity(lib, threads, smem, on_chip)
+    capacity = _capacity(lib, threads, smem, on_chip, tiled)
     if capacity < 1:
         raise RuntimeError(f"the variant kernel cannot run at n = {plan.n} "
                            f"({threads} threads, {smem} B of shared memory)")
@@ -479,8 +642,8 @@ def _launch(dp: DevicePlan, entries, wstack, stage, cap, key=None,
     cap = cap or max(group, -(-c // capacity))
     if csize is None:
         csize = cluster_size(plan.n, c, cap, lambda g: _capacity(
-            lib, threads, smem, g))
-    clusters = _capacity(lib, threads, smem, csize)
+            lib, threads, smem, g, tiled))
+    clusters = _capacity(lib, threads, smem, csize, tiled)
     if clusters < 1:
         raise RuntimeError(f"the card holds no cluster of {csize} CTAs of "
                            f"the variant kernel at n = {plan.n}")
@@ -500,8 +663,9 @@ def _launch(dp: DevicePlan, entries, wstack, stage, cap, key=None,
             "variant schedule launch failed: " + LIBRARY.error_text(rc))
     grid = min(c, clusters) * csize
     # every segment's start but the first (the prefix), and on the
-    # global path the working state: a CTA's share of the state on chip,
-    # a cluster's whole state in global memory
+    # global path the state between the passes of a segment that takes
+    # several: a CTA's share of the state on chip, a cluster's whole
+    # state in global memory
     n_slots = max(0, n_seg - 1) if use_smem else max(1, n_seg)
     owners, share = (grid, big // csize) if use_smem else (grid // csize,
                                                            big)
@@ -511,14 +675,16 @@ def _launch(dp: DevicePlan, entries, wstack, stage, cap, key=None,
     wbits, zmask, d = plan.fold if plan.fold is not None else ([], 0, 0)
     rc = lib.variant_rows_launch(
         dp.prefix.data_ptr(), dp.rows.data_ptr(), dp.pool.data_ptr(),
-        dp.seg_start.data_ptr(), entries.data_ptr(), stage.data_ptr(),
+        dp.seg_start.data_ptr(), dp.passes.data_ptr() if tiled else 0,
+        entries.data_ptr(), stage.data_ptr(),
         wstack.data_ptr(), dp.wbits.data_ptr(),
         0 if key is None else order.data_ptr(), runs.data_ptr(),
         count.data_ptr(), scratch.data_ptr(), out.data_ptr(), plan.n, d,
         int(plan.fold is not None), c, n_seg, plan.entry_stride, n_w,
         n_wbits, zmask, csize, int(use_smem), n_slots, n_rows, pool_len,
-        int(stage_tables), grid, threads,
-        torch.cuda.current_stream(dev).cuda_stream,
+        int(stage_tables), tiles.window if tiled else 0,
+        len(tiles.passes) if tiled else 0, tiles.smem if tiled else 0,
+        grid, threads, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(
@@ -526,10 +692,13 @@ def _launch(dp: DevicePlan, entries, wstack, stage, cap, key=None,
         )
     variant_rows.launches += 1
     variant_rows.clustered += int(not use_smem and csize > 1)
+    variant_rows.tiled += int(tiled)
     variant_rows.last_launch = {
         "runs": count, "cap": cap, "grid": grid, "threads": threads,
         "smem": smem, "cluster": csize, "scratch_bytes": 4 * scratch.numel(),
-        "tables_on_chip": stage_tables,
+        "tables_on_chip": stage_tables, "tiled": tiled,
+        "window": tiles.window if tiled else None,
+        "tile_passes": tiles.segment_passes if tiled else None,
         "order": order if key is not None else None, "stage": stage,
         "table": runs.view(c, 2),
     }
@@ -542,10 +711,12 @@ def variant_rows(dp: DevicePlan, entries, wstack, stage,
     """Rows ``[C, out_width]`` for a chunk of labels, in the order given.
     CUDA tensors launch the hand-written kernel: its schedule launch cuts
     the runs (:func:`run_table` is its plain version), its rows launch
-    computes the rows (counted in ``variant_rows.launches``, and in
+    computes the rows (counted in ``variant_rows.launches``, in
     ``variant_rows.clustered`` where a cluster of CTAs shares each
-    global-memory state; ``variant_rows.last_launch`` says runs, cap,
-    grid, cluster, scratch bytes and holds the schedule's tensors); CPU
+    global-memory state, and in ``variant_rows.tiled`` where it takes
+    tile passes; ``variant_rows.last_launch`` says runs, cap, grid,
+    cluster, scratch bytes, the tile's bits (``window``) and each
+    segment's ``tile_passes``, and holds the schedule's tensors); CPU
     tensors run :func:`plain_variant_rows`.  ``entries [C,
     entry_stride]`` (from ``DevicePlan.gather_entries``), ``wstack
     [C, n_w, 2]`` f32, ``stage [C]`` int32 (:meth:`DevicePlan.stages` of
@@ -563,6 +734,7 @@ def variant_rows(dp: DevicePlan, entries, wstack, stage,
 
 variant_rows.launches = 0
 variant_rows.clustered = 0
+variant_rows.tiled = 0
 variant_rows.last_launch = None
 
 
@@ -707,18 +879,29 @@ def work_counts(plan: VariantPlan, stage: np.ndarray, n_w: int,
     f32 operations it performs: each gate of the original table what its
     matrix needs (:func:`op_costs`; a slot gate from the label's own row
     of ``entries [C, entry_stride]``, dense without it), ``|psi|^2`` 3
-    and the fold another ``n_wbits + 2``.  ``passes`` counts the passes
-    over the state the kernel makes (rows of the rewritten table),
-    ``passes_before`` those the original table would make on the same
-    stages; ``pass_bytes`` is the state traffic the kernel's design adds:
-    each pass reads and writes the ``[2, 2^n]`` f32 state once, the
-    epilogue reads it once."""
+    and the fold another ``n_wbits + 2``.  ``passes`` counts the rows of
+    the rewritten table the stages replay, ``passes_before`` those of the
+    original table; ``pass_bytes`` is the state traffic of a design that
+    makes one pass over the state a row: each pass reads and writes the
+    ``[2, 2^n]`` f32 state once, the epilogue reads it once.
+    ``tile_passes`` and ``tile_bytes`` are those of the global-memory
+    path's tile passes (0 on the shared-memory path): a label replays
+    the passes from its stage's segment (the last segment where nothing
+    changed), each reads and writes the state once, but the last, which
+    only reads it."""
     c = len(stage)
     big = 1 << plan.n
     n_ops = len(plan.ops)
     cost = op_costs(plan.ops, plan.fixed, plan.n, entries)
     tail = np.concatenate([np.cumsum(cost[:, ::-1], axis=1)[:, ::-1],
                            np.zeros((len(cost), 1), np.int64)], axis=1)
+    tile_passes = 0
+    if plan.tiles is not None:
+        seg_pass = plan.tiles.seg_pass
+        # stage n_seg (nothing changed) replays the last segment
+        first = seg_pass[np.minimum(np.asarray(stage, np.int64),
+                                    len(seg_pass) - 2)]
+        tile_passes = int((len(plan.tiles.passes) - first).sum())
     stage = np.minimum(np.asarray(stage, np.int64), len(plan.segments))
     starts = np.asarray([a for a, _ in plan.segments] + [n_ops], np.int64)
     at = starts[stage]
@@ -736,4 +919,7 @@ def work_counts(plan: VariantPlan, stage: np.ndarray, n_w: int,
     )
     return {"bytes": int(nbytes), "flops": int(gate_flops + c * epi),
             "passes": passes, "passes_before": int((n_ops - at).sum()),
-            "pass_bytes": int(passes * big * 16 + c * big * 8)}
+            "pass_bytes": int(passes * big * 16 + c * big * 8),
+            "tile_passes": tile_passes,
+            "tile_bytes": int(tile_passes * big * 16 - c * big * 8)
+            if tile_passes else 0}

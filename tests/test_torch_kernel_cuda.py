@@ -206,7 +206,7 @@ def test_kernel_width_classes_on_card(card, n, order, mode):
     if n > kernel_build.CLUSTER_QUBITS:
         def caps(g):
             return vk._capacity(vk.LIBRARY.lib, launch["threads"],
-                                launch["smem"], g)
+                                launch["smem"], g, True)
 
         assert launch["cluster"] == vk.cluster_size(n, 216, launch["cap"],
                                                     caps)
@@ -236,7 +236,8 @@ def test_kernel_clusters_engage_on_card(card, n):
     """The scan's chunk as the cell ``syc32-rcs`` sends it: 64 labels of
     syc-32 d3 (the stored P2 Q17 plan, two 20-qubit fragments) in natural
     order take a cluster of CTAs on the global-memory path and count in
-    ``variant_rows.clustered``; a 13-qubit chunk does neither."""
+    ``variant_rows.clustered`` and ``variant_rows.tiled``; a 13-qubit
+    chunk does neither."""
     if n == 20:
         virt = _stored_cut("syc", 32, 3, 17, "syc32_d3_p2_q17")
     else:
@@ -249,6 +250,7 @@ def test_kernel_clusters_engage_on_card(card, n):
         if fn.plan.plan.n != n:
             continue
         before = vk.variant_rows.clustered
+        tiled = vk.variant_rows.tiled
         got = vk.label_rows(fn.plan, blk, fn.weigh)
         torch.cuda.synchronize()
         launch = vk.variant_rows.last_launch
@@ -257,6 +259,100 @@ def test_kernel_clusters_engage_on_card(card, n):
         assert (got - want).abs().max().item() <= TOL
         assert (launch["cluster"] > 1) == (n == 20)
         assert vk.variant_rows.clustered == before + (n == 20)
+        assert vk.variant_rows.tiled == tiled + (n == 20)
+
+
+_TILE_CASES: dict = {}
+
+
+def _tile_case(card, n, mode):
+    """A chunk of 216 labels of ``_wide_chain`` drawn with repeats, in
+    launch order (sorted by slot digits), its stages, entries and
+    weights, and the plain version's rows and the kernel schedule's
+    replay (cap 4: runs open inside label groups)."""
+    if (n, mode) in _TILE_CASES:
+        return _TILE_CASES[n, mode]
+    if n not in _WIDE_CHAINS:
+        _WIDE_CHAINS[n] = _wide_chain(n - 3)
+    virt = _WIDE_CHAINS[n]
+    if mode == "fold":
+        fn, _ = vk.make_folded_chunk_kernel(virt, "frag0", 216, device=card)
+    else:
+        fn, _ = vk.make_chunk_kernel(virt, "frag0", 216, device=card)
+    dp = fn.plan
+    specs = [vg.spec for vg in virt.vgates]
+    strides, n_inst, total = label_strides(specs, range(len(specs)))
+    vidx = variant_index_table(range(len(specs)), strides, n_inst, total)
+    pick = np.sort(np.random.default_rng(n).integers(0, total, 216))
+    blk = torch.as_tensor(vidx[pick], dtype=torch.int64, device=card)
+    blk = blk[dp.order(blk)]
+    ent, ws, st = dp.gather_entries(blk), fn.weigh(blk), dp.stages(blk)
+    want = vk.plain_variant_rows(dp, ent, ws)
+    replay = vk.replay_kernel_table(dp, ent, ws, st, 4)
+    _TILE_CASES[n, mode] = (dp, ent, ws, st, want, replay)
+    return _TILE_CASES[n, mode]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("csize", [1, 2, 8])
+@pytest.mark.parametrize("mode", ["fold", "full"])
+@pytest.mark.parametrize("n", [16, 18, 20])
+def test_kernel_tile_passes_on_card(card, n, mode, csize):
+    """The global-memory path's tile passes: a segment whose bits
+    overflow the window splits into two passes, the fold keeps bits
+    outside the last pass's window, labels repeat (stage n_seg: the last
+    segment replayed from its checkpoint) and runs open inside label
+    groups (cap 4).  Each launch counts in ``variant_rows.tiled``; rows
+    within 1e-5 of the plain version and of the schedule's replay, a
+    second launch equal bit for bit, full rows equal to one CTA's bit
+    for bit and folded rows within ``CLUSTER_TOL``."""
+    dp, ent, ws, st, want, replay = _tile_case(card, n, mode)
+    tiles, n_seg = dp.plan.tiles, len(dp.plan.row_segments)
+    assert tiles is not None and tiles.segment_passes[0] > 1
+    assert (st == n_seg).any()
+    heads = vk.run_heads(st, n_seg, 4)
+    assert (st[heads] > 0).any()
+    if mode == "fold":
+        d = dp.plan.fold[2]
+        assert int(tiles.passes[-1, 2]) & ((1 << d) - 1) != (1 << d) - 1
+    before = vk.variant_rows.tiled
+    got = vk.variant_rows(dp, ent, ws, st, 4, csize=csize)
+    torch.cuda.synchronize()
+    launch = vk.variant_rows.last_launch
+    assert vk.variant_rows.tiled == before + 1 and launch["tiled"]
+    assert launch["cluster"] == csize
+    assert launch["window"] == tiles.window
+    assert launch["tile_passes"] == tiles.segment_passes
+    assert (got - want).abs().max().item() <= TOL
+    assert (got - replay).abs().max().item() <= TOL
+    assert torch.equal(vk.variant_rows(dp, ent, ws, st, 4, csize=csize), got)
+    one = vk.variant_rows(dp, ent, ws, st, 4, csize=1)
+    if mode == "full":
+        assert torch.equal(got, one)
+    else:
+        assert (got - one).abs().max().item() <= CLUSTER_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [13, 15, 16])
+def test_kernel_tiles_count_on_the_global_path_only(card, n):
+    """``variant_rows.tiled`` counts a rows launch that takes tile passes
+    (16 to 20 qubits), and none on the shared-memory path (13, 15)."""
+    if n not in _WIDE_CHAINS:
+        _WIDE_CHAINS[n] = _wide_chain(n - 3)
+    virt = _WIDE_CHAINS[n]
+    fn, _ = vk.make_folded_chunk_kernel(virt, "frag0", 36, device=card)
+    blk = _block(virt, 36, 2).to(card)
+    before = vk.variant_rows.tiled
+    got = vk.label_rows(fn.plan, blk, fn.weigh)
+    torch.cuda.synchronize()
+    tiled = n > kernel_build.CLUSTER_QUBITS
+    assert vk.variant_rows.tiled == before + tiled
+    assert vk.variant_rows.last_launch["tiled"] == tiled
+    assert (vk.variant_rows.last_launch["window"] is None) != tiled
+    want = vk.plain_variant_rows(fn.plan, fn.plan.gather_entries(blk),
+                                 fn.weigh(blk))
+    assert (got - want).abs().max().item() <= TOL
 
 
 @pytest.mark.cuda

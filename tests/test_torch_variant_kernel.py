@@ -374,6 +374,116 @@ def test_work_counts_follow_replayed_segments():
     assert full["bytes"] == last["bytes"]
 
 
+def _layered_chain(nbig: int = 6):
+    """A port circuit whose frag0 (``nbig + 3`` simulated qubits) has
+    three cuts with entangling layers between them, so a narrow tile
+    window splits its segments into several passes."""
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.circuit.circuit import (  # noqa: E501
+        Circuit,
+        Instruction,
+        Register,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.virt.virtual_gates import (  # noqa: E501
+        VirtualGateOp,
+    )
+
+    cut = Circuit([Register("frag0", nbig), Register("frag1", 2)], nbig + 2)
+    for q in range(nbig):
+        cut.h(q)
+    for i in range(nbig - 1):
+        cut.cx(i, i + 1)
+    cut.append(Instruction("vgate", [nbig - 1, nbig],
+                           op=VirtualGateOp("cz")))
+    for i in range(nbig - 1):
+        cut.ry(0.3 + 0.05 * i, i)
+        cut.cx(i + 1, i)
+    cut.append(Instruction("vgate", [0, nbig],
+                           op=VirtualGateOp("cp", params=(0.7,))))
+    for i in range(0, nbig - 2, 2):
+        cut.cz(i, i + 2)
+        cut.rx(0.2 + 0.1 * i, i + 1)
+    cut.append(Instruction("vgate", [nbig // 2, nbig + 1],
+                           op=VirtualGateOp("cz")))
+    cut.cx(0, nbig - 1)
+    cut.cx(nbig, nbig + 1)
+    for q in range(nbig + 2):
+        cut.measure(q, q)
+    return TVirtualCircuit(cut)
+
+
+def _layout_of(mask: int, n: int) -> np.ndarray:
+    """``[2^n]``: the flat index of each layout index of a pass whose
+    window is ``mask`` (window bits, ascending, below the others)."""
+    win = [j for j in range(n) if (mask >> j) & 1]
+    order = win + [j for j in range(n) if not (mask >> j) & 1]
+    idx = np.arange(1 << n)
+    return sum(((idx >> p) & 1) << j for p, j in enumerate(order))
+
+
+@pytest.mark.parametrize("window", [4, 5, 7])
+def test_tile_passes_hold_each_segments_rows(window):
+    """The global-memory path's tile planner on a 9-qubit plan at forced
+    windows: each segment's rows stay in order, cut into passes only
+    where the next row's bits would overflow the window (with bits 0 and
+    1, which every window holds); every row's bits lie inside its pass's
+    window; and the rows at their layout bits, applied to the state in
+    each pass's layout order, give the plain replay of the table."""
+    virt = _layered_chain(6)
+    plan = vk.build_plan(virt, "frag0")
+    n, table, segs = plan.n, plan.table, plan.row_segments
+    assert plan.tiles is None and n == 9 and len(segs) == 3
+    tiles = vk.plan_tiles(table, segs, n, window=window)
+    assert tiles.window == window
+    passes, seg_pass = tiles.passes.tolist(), tiles.seg_pass.tolist()
+    assert len(seg_pass) == len(segs) + 1 and seg_pass[-1] == len(passes)
+    pinned = set(range(vk.TILE_PINNED))
+    for i, (a, b) in enumerate(segs):
+        mine = passes[seg_pass[i]:seg_pass[i + 1]]
+        assert mine and mine[0][0] == a and mine[-1][1] == b
+        for (lo, hi, mask), nxt in zip(mine, mine[1:] + [None]):
+            win = {j for j in range(n) if (mask >> j) & 1}
+            assert len(win) == window and pinned <= win
+            bits = set(pinned)
+            for o in range(lo, hi):
+                assert set(vk.row_bits(table.rows[o])) <= win
+                bits |= set(vk.row_bits(table.rows[o]))
+            if nxt is not None:   # split where the next row overflows
+                assert nxt[0] == hi
+                assert len(bits | set(vk.row_bits(table.rows[hi]))) > window
+    if window < 7:
+        assert max(tiles.segment_passes) > 1
+    entries = torch.rand((3, max(1, plan.entry_stride)), dtype=torch.float32)
+    st = torch.rand((3, 2, 1 << n), dtype=torch.float32)
+    want = op_rewrite.replay(st, table, n, entries)
+    got = st
+    for lo, hi, mask in passes:
+        at = torch.as_tensor(_layout_of(mask, n))
+        lay = got[:, :, at]
+        for row in tiles.rows[lo:hi]:
+            lay = op_rewrite.apply_row(lay, row, n, tiles.pool, entries)
+        got = torch.empty_like(lay).index_copy_(2, at, lay)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+
+
+def test_work_counts_tile_bytes_by_hand():
+    """``tile_passes`` and ``tile_bytes`` of a plan whose segments take
+    several passes: each label replays the passes from its stage's
+    segment, the last segment where its stage says nothing changed; each
+    pass reads and writes the 2^n complex64 state, but the last, which
+    reads it.  Without tiles (the shared-memory path) both are 0."""
+    virt = _layered_chain(6)
+    plan = vk.build_plan(virt, "frag0")
+    assert vk.work_counts(plan, np.zeros(2, np.int64), 1)["tile_bytes"] == 0
+    plan.tiles = vk.plan_tiles(plan.table, plan.row_segments, plan.n,
+                               window=4)
+    a, b, c = plan.tiles.segment_passes
+    stage = np.array([0, 1, 2, 3, 3])
+    got = vk.work_counts(plan, stage, 1)
+    passes = (a + b + c) + (b + c) + c + c + c
+    assert got["tile_passes"] == passes
+    assert got["tile_bytes"] == passes * 2 * 8 * 512 - 5 * 8 * 512
+
+
 def test_wrapper_counts_only_cuda_launches():
     """The CPU path runs the plain version and leaves the launch counter
     alone; a CUDA launch is the only place it moves."""
