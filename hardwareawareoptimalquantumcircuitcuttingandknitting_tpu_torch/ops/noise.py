@@ -807,7 +807,10 @@ def run_noisy_virtual_circuit(
     plan's Hoeffding budget for eps = 0.05 capped at 2,000,000; then the
     nearest probability distribution.  ``engine="pallas"`` (no kernel
     runs noise) and unknown engines raise ``ValueError``.  Returns
-    ``(Distribution, RunTimeInfo)``."""
+    ``(Distribution, RunTimeInfo)``; on ``engine="streamed"``
+    ``RunTimeInfo.noise`` holds the scan's record of its noise, the
+    routed op streams and the branch indices drawn
+    (``ops.streamed.make_streamed_knit``'s ``meta["noise"]``)."""
     from ..run import RunTimeInfo
 
     if engine not in ("auto", "xla", "streamed", "sampled"):
@@ -841,12 +844,14 @@ def run_noisy_virtual_circuit(
         from .streamed import run_virtual_circuit_streamed
 
         now = clock()
+        record: dict = {}
         dist = run_virtual_circuit_streamed(
             virt, chunk=chunk_size, project=True, noise=models,
             shots=shots, seed=seed, checkpoint_dir=checkpoint_dir,
-            device=dev,
+            device=dev, noise_record=record,
         )
-        return dist, RunTimeInfo(clock() - now, 0.0)
+        return dist, RunTimeInfo(clock() - now, 0.0,
+                                 noise=record or None)
     from .knit import knit_values, smolin_project
     from .variant_engine import run_fragment
 

@@ -298,23 +298,30 @@ class _SimRows:
         """Rows ``[chunk, 2^k]`` of one chunk of labels under trajectory
         noise: ``pidx [chunk, T, S]`` branch indices; each (label,
         trajectory) row gathers its sites' blocks, the rows are averaged
-        over T, then the readout channel."""
+        over T, then the readout channel.  Counts the (label, trajectory)
+        rows simulated in ``_SimRows.noisy_rows.rows`` and the active
+        sites applied to them, summed over the rows, in
+        ``.site_passes``."""
         from .noise import readout_rows
 
-        c, t = pidx.shape[:2]
-        mats = [tuple(tab[vidx_chunk[:, g]].repeat_interleave(t, dim=0)
-                      for tab in tabs)
-                for g, tabs in zip(self.gcols, self.tables)]
-        flat = pidx.reshape(c * t, -1)
-        pauli = {s: bank[flat[:, s]] for s, bank in self.site_banks.items()}
-        if mats or pauli:
-            rows = self.sim_fn(mats, self.dev, pauli)
-            rows = rows.reshape(c, t, -1).mean(dim=1)
-        else:
-            rows = self.sim_fn([], self.dev).expand(c, -1)
-        if self.readout is not None:
-            rows = readout_rows(rows, self.readout)
-        return rows
+        with span("port.noise.rows"):
+            c, t = pidx.shape[:2]
+            mats = [tuple(tab[vidx_chunk[:, g]].repeat_interleave(t, dim=0)
+                          for tab in tabs)
+                    for g, tabs in zip(self.gcols, self.tables)]
+            flat = pidx.reshape(c * t, -1)
+            pauli = {s: bank[flat[:, s]]
+                     for s, bank in self.site_banks.items()}
+            if mats or pauli:
+                rows = self.sim_fn(mats, self.dev, pauli)
+                rows = rows.reshape(c, t, -1).mean(dim=1)
+                _SimRows.noisy_rows.rows += c * t
+                _SimRows.noisy_rows.site_passes += len(pauli) * c * t
+            else:
+                rows = self.sim_fn([], self.dev).expand(c, -1)
+            if self.readout is not None:
+                rows = readout_rows(rows, self.readout)
+            return rows
 
     def rows(self, vidx_chunk, bank=None, pidx=None):
         """Rows ``[chunk, 2^k]`` (float32) of one chunk of labels."""
@@ -349,6 +356,10 @@ class _SimRows:
         rows = finish_row(states, m, sim_fn.active_final, sim_fn.sources)
         # rows of a group are equal: repeat them, not the states
         return rows.repeat_interleave(cur, dim=0) if cur != 1 else rows
+
+
+_SimRows.noisy_rows.rows = 0
+_SimRows.noisy_rows.site_passes = 0
 
 
 @spanned("port.build")
@@ -406,9 +417,18 @@ def make_streamed_knit(
     chunk multiple at which staging engages fully), ``fuse_qubits``,
     ``pallas_fragments`` (fragment -> kernel-backed), ``fragment_kernels``
     (fragment -> ``"variant"`` | ``"blocked"`` | None),
-    ``fragment_plans`` (fragment -> the kernel's device plan, or None)
-    and ``fragment_rows`` (per fragment the function the scan calls a
-    chunk: ``fn(vidx_chunk, bank, pidx_chunk)`` -> folded rows).
+    ``fragment_plans`` (fragment -> the kernel's device plan, or None),
+    ``fragment_rows`` (per fragment the function the scan calls a
+    chunk: ``fn(vidx_chunk, bank, pidx_chunk)`` -> folded rows) and
+    ``noise``: None without noise, else the record of what the noisy
+    scan simulates, made of the host objects the build made anyway:
+    ``trajectories``, ``labels`` (before padding) and ``fragments``,
+    per fragment None (noise-free) or a dict of its routed op stream
+    (``ops``, ``phys``: per op the device nodes, None unrouted;
+    ``clbit_sources``; ``slot_device``: compact slot -> device node,
+    None unrouted), ``positions`` and ``readout_qubits`` (the device
+    qubit whose readout each position takes) and ``draws``, the
+    ``[padded labels, T, S]`` int32 branch indices.
 
     ``blocked_window``: test hook of the kernel route: send EVERY
     fragment through the blocked kernel at this window."""
@@ -451,7 +471,7 @@ def make_streamed_knit(
 
     frag_names = [r.name for r in virt.fragments]
     rng = np.random.default_rng(seed)
-    rows_fns, data_positions, pidx = [], [], []
+    rows_fns, data_positions, pidx, record = [], [], [], []
     kernels, plans, splits, fqs = {}, {}, [], {}
     sims: list[_SimRows | None] = []
     for name, nm in zip(frag_names, models):
@@ -484,6 +504,7 @@ def make_streamed_knit(
         site_banks = readout = None
         if nm is None:
             pidx.append(np.zeros((padded, 0, 0), np.int32))
+            record.append(None)
         else:
             if any(w is not None for (*_, w) in sim_fn.noise_sites):
                 raise ValueError(
@@ -491,17 +512,27 @@ def make_streamed_knit(
                     "run_noisy_virtual_circuit(engine='auto')")
             site_tabs = [(pr, bank)
                          for (_, _, pr, bank, _) in sim_fn.noise_sites]
-            pidx.append(_sample_pauli_indices(
-                rng, site_tabs, padded, trajectories or nm.trajectories))
+            with span("port.noise.draw"):
+                pidx.append(_sample_pauli_indices(
+                    rng, site_tabs, padded,
+                    trajectories or nm.trajectories))
             site_banks = {s: to_device(sim_fn.site_banks[s], dev)
                           for s in sim_fn.active_sites}
             from .noise import _readout_mats, fragment_readout_qubits
 
             cq = fragment_readout_qubits(virt, name, sim_fn)
+            ro_qubits = [cq.get(c, j) for j, c in enumerate(positions)]
             if positions:
-                readout = to_device(_readout_mats(
-                    nm, [cq.get(c, j) for j, c in enumerate(positions)]),
-                    dev)
+                readout = to_device(_readout_mats(nm, ro_qubits), dev)
+            rt = sim_fn.routed
+            record.append({
+                "ops": prog.ops if rt is None else rt.ops,
+                "phys": None if rt is None else rt.phys,
+                "clbit_sources": (prog.clbit_sources if rt is None
+                                  else rt.clbit_sources),
+                "slot_device": None if rt is None else rt.slot_device,
+                "positions": positions, "readout_qubits": ro_qubits,
+                "draws": pidx[-1]})
         split = None
         if share_prefix and nm is None:
             # sized against the labels that actually run
@@ -617,6 +648,9 @@ def make_streamed_knit(
         "fragment_kernels": kernels,
         "fragment_plans": plans,
         "fragment_rows": rows_fns,
+        "noise": ({"trajectories": max(a.shape[1] for a in pidx),
+                   "labels": n_labels, "fragments": record}
+                  if noisy else None),
     }
     log = get_logger(__name__)
     if pallas_variant and log.isEnabledFor(logging.INFO):
@@ -797,6 +831,7 @@ def run_virtual_circuit_streamed(
     keep_clbits=None,
     pallas_variant: bool = False,
     device=None,
+    noise_record: dict | None = None,
 ) -> Distribution:
     """End-to-end streamed execution on ``device`` (None = "cuda").
     ``chunk`` is capped by :func:`auto_chunk` (never rounded to
@@ -819,7 +854,11 @@ def run_virtual_circuit_streamed(
     inverse-CDF draw from a ``torch.Generator`` seeded with ``seed`` run
     on the device, and only the ``[shots]`` outcome indices and the mass
     are fetched; with it, numpy's :func:`~.sampling.sample_distribution`
-    on the fetched values.  A non-positive mass raises ValueError."""
+    on the fetched values.  A non-positive mass raises ValueError.
+
+    ``noise_record``: a dict, filled with the scan's record of its noise
+    (:func:`make_streamed_knit`'s ``meta["noise"]``) where it has
+    noise."""
     models = _resolve_noise(virt, noise)
     chunk = auto_chunk(virt, chunk, _traj_eff(models, trajectories),
                        noisy=any(m is not None for m in models))
@@ -831,6 +870,8 @@ def run_virtual_circuit_streamed(
         device=device,
     )
     positions = meta["positions"]
+    if noise_record is not None and meta["noise"] is not None:
+        noise_record.update(meta["noise"])
     if checkpoint_dir is None and shots is not None:
         from .sampling import sample_indices_device
 

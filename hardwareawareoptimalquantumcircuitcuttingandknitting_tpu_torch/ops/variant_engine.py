@@ -811,7 +811,9 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
     slots, no fused gate runs), routed onto ``noise.coupling`` when the
     model has one (``sim_fn.readout_device``: clbit -> device node
     holding it), with the physical-gate noise sites
-    (ops/noise.fragment_noise_sites; ``sim_fn.noise_sites``) as
+    (ops/noise.fragment_noise_sites; ``sim_fn.noise_sites``;
+    ``sim_fn.routed``: the ``circuit.routing.RoutedProgram``, None
+    without a coupling map or noise) as
     ``("pauli", site, axes)`` steps at their op's width.
     ``sim_fn(slot_mats, device, pauli_mats)`` then takes ``pauli_mats``:
     site id -> the sampled branch block of every row ``[V, 2, k, 2, k]``,
@@ -852,6 +854,7 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
     fused_slots = fused_slots and noise is None
     phys = None
     readout_device = None
+    routed = None
 
     if noise is None:
         # fuse contiguous fixed-gate runs between slots into blocks of up
@@ -873,8 +876,9 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
     elif noise.coupling is not None:
         from ..circuit.routing import route_stream
 
-        routed = route_stream(prog.ops, prog.num_data_qubits,
-                              prog.clbit_sources, noise.coupling)
+        with span("port.route"):
+            routed = route_stream(prog.ops, prog.num_data_qubits,
+                                  prog.clbit_sources, noise.coupling)
         prog_ops = routed.ops
         phys = routed.phys
         clbit_sources = routed.clbit_sources
@@ -1024,6 +1028,7 @@ def make_sim_fn(virt: VirtualCircuit, frag_name: str, noise=None,
     sim_fn.active_sites = sorted({stp[1] for stp in run_plan
                                   if stp[0] == "pauli"})
     sim_fn.readout_device = readout_device
+    sim_fn.routed = routed
     sim_fn.slot_masks = slot_masks
     sim_fn.run_plan = run_plan
     sim_fn.prefix_width = m0

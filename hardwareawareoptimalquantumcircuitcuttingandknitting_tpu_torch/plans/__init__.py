@@ -24,6 +24,12 @@ the pure-Python search minutes):
   simulated qubits — the streamed engine's configuration (the
   pure-Python search takes some 12 s on it).  The supremacy circuit's
   single-qubit gates do not enter the plan.
+* ``sup20_p2_q10`` — ``genCirc("sup", 20, 1, seed=0)`` cut into 2
+  partitions of at most 10 qubits (the three limits at 5), solved by
+  this package's native solver (some 6 s): five cz gate cuts, 7776
+  labels, two fragments of 15 simulated qubits (10 data qubits and 5
+  deferral ancillas each) — the noisy streamed configuration on the
+  calibrated 27-qubit model (``ops.noise.fake_kolkata_v2``).
 * ``syc32_d3_p2_q17`` — ``genCirc("syc", 32, 3)`` (BASELINE config #4 at
   depth 3) cut into 2 partitions of at most 17 qubits (``maxNQpdCuts =
   maxNCuts = maxCutsPerPartitions = 6``), solved by this package's native

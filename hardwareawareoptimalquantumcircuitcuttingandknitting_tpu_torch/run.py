@@ -98,12 +98,17 @@ class RunTimeInfo:
     before ``project``), where it computes the variance anyway; else
     None.  ``probe``: with ``sample_probe``, the trajectory rows
     ``ops.qpd_sampling.sampled_knit`` describes under ``probe``; else
+    None.  ``noise``: ``ops.noise.run_noisy_virtual_circuit(engine=
+    "streamed")``'s record of what its scan simulated, the routed op
+    streams and the branch indices drawn
+    (``ops.streamed.make_streamed_knit``'s ``meta["noise"]``); else
     None."""
 
     run_time: float
     knit_time: float
     stderr: np.ndarray | None = None
     probe: dict | None = None
+    noise: dict | None = None
 
 
 def _run_sampled(virt, shots, seed, project, head_labels, sample_method,

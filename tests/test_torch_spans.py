@@ -4,8 +4,11 @@ build and its prefix, scan with its rows and knit, projection, fetch)
 appears, nested and counted as the plan says, as a host-only event; a
 traced answer equals the untraced one bit for bit; with no profiler
 running a span is the shared null context, builds no record and never
-waits for the card; a ``Tracer`` phase appears as ``port.phase.<name>``.
+waits for the card; a ``Tracer`` phase appears as ``port.phase.<name>``;
+the trajectory-noise scan's spans (draws, routing, noisy rows) and row
+counters, which the exact routes never enter.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -15,6 +18,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.cutter.cutter import (  # noqa: E501
     Cutter,
+)
+from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+    noise,
+    streamed,
 )
 from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.streamed import (  # noqa: E501
     auto_chunk,
@@ -103,6 +110,52 @@ def test_spans_nest_and_count_as_the_plan_says(traced):
         "port.build.prefix": {"port.build"}, "port.scan": {None},
         "port.rows": {"port.scan"}, "port.knit": {"port.scan"},
         "port.project": {None}, "port.fetch": {None}}
+
+
+NOISY_SPANS = ("port.noise.draw", "port.noise.rows", "port.route")
+
+
+def test_exact_routes_have_no_noise_spans(traced):
+    assert not {e.name for e in traced[-1]} & set(NOISY_SPANS)
+
+
+def test_noisy_run_records_its_spans_and_counts_its_rows(monkeypatch):
+    """The trajectory-noise scan: one draw and one routing a fragment in
+    the build, one ``port.noise.rows`` a fragment and chunk inside its
+    ``port.rows``; ``noisy_rows.rows`` counts padded labels x
+    trajectories a noisy fragment, ``.site_passes`` those rows x the
+    fragment's active sites."""
+    virt, _ = _request(_circuit(), "pallas")
+    model = dataclasses.replace(noise.fake_kolkata_v2(27), trajectories=2)
+    counted = streamed._SimRows.noisy_rows
+    monkeypatch.setattr(counted, "rows", 0)
+    monkeypatch.setattr(counted, "site_passes", 0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, info = noise.run_noisy_virtual_circuit(
+            virt, model, engine="streamed", chunk_size=CHUNK, seed=3,
+            device="cpu")
+    events = [e for e in prof.events() if e.name in NOISY_SPANS]
+    names = [e.name for e in events]
+    frags = len(virt.fragments)
+    labels = 1
+    for vg in virt.vgates:
+        labels *= vg.spec.num_instantiations
+    chunk = auto_chunk(virt, CHUNK, 2, noisy=True)
+    chunks = math.ceil(labels / chunk)
+    assert chunks > 1
+    assert {n: names.count(n) for n in NOISY_SPANS} == {
+        "port.noise.draw": frags, "port.noise.rows": chunks * frags,
+        "port.route": frags}
+    parents = {}
+    for e in events:
+        parents.setdefault(e.name, set()).add(_port_parent(e))
+    assert parents == {"port.noise.draw": {"port.build"},
+                       "port.noise.rows": {"port.rows"},
+                       "port.route": {"port.build"}}
+    padded = chunks * chunk
+    sites = [f["draws"].shape[2] for f in info.noise["fragments"]]
+    assert counted.rows == padded * 2 * frags
+    assert counted.site_passes == padded * 2 * sum(sites)
 
 
 def test_spans_are_host_only_events(traced):
