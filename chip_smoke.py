@@ -128,10 +128,17 @@ Phases (any failure exits non-zero without the result line):
              against the distribution's Z within 1e-5; splits, stages,
              times, a device-only trace (busy, idle share) and the peak
              memory;
-10. noise  — plain PyTorch, no kernel launched.  sup-20 under
+10. noise  — the streamed scan's noisy rows on kernel 1, the rest plain
+             PyTorch.  One chunk of sup-20's fragment 0 (32 labels x 8
+             trajectories, 15 qubits: a two-CTA cluster) through
+             variant_kernel.make_noisy_chunk_kernel against the
+             per-gate plan without a kernel (within 1e-5; kernel and
+             plain ms, variant_rows.noisy).
+             sup-20 under
              fake_kolkata_v2 with 8 trajectories (chunk 32: 243 chunks)
              through run_noisy_virtual_circuit(engine="streamed",
-             shots=1000, seed=7) cold and warm: mass 1, support <= 1000,
+             shots=1000, seed=7) cold and warm (one kernel 1 launch a
+             chunk and fragment): mass 1, support <= 1000,
              peak memory, a device-only trace of the scan's first 16
              chunks; without shots: non-negative
              with the unprojected knit's mass, and the first chunk's rows
@@ -721,6 +728,7 @@ def _count_plan_prefixes(plan):
 def _reset_counts():
     _port("ops.blocked_kernel").blocked_rows.launches = 0
     _port("ops.variant_kernel").variant_rows.launches = 0
+    _port("ops.variant_kernel").variant_rows.noisy = 0
     _port("ops.collapse_kernel").collapse_rows.launches = 0
     _port("ops.collapse_kernel").collapse_rows.rows = 0
     _port("ops.sv_kernel").sv_rows.launches = 0
@@ -728,11 +736,13 @@ def _reset_counts():
 
 
 def _counts():
-    """Each kernel's launches, counted where they launch, and ``prefix``:
-    what the kernel 1, 3 and 5 plans built meanwhile say their prefixes
-    took."""
+    """Each kernel's launches, counted where they launch, ``noisy``: the
+    (label, trajectory) rows kernel 1 computed for the streamed scan's
+    noisy rows, and ``prefix``: what the kernel 1, 3 and 5 plans built
+    meanwhile say their prefixes took."""
     return {"blocked": _port("ops.blocked_kernel").blocked_rows.launches,
             "variant": _port("ops.variant_kernel").variant_rows.launches,
+            "noisy": _port("ops.variant_kernel").variant_rows.noisy,
             "collapse": _port("ops.collapse_kernel").collapse_rows.launches,
             "sv": _port("ops.sv_kernel").sv_rows.launches,
             "prefix": _PREFIX["launches"]}
@@ -743,8 +753,8 @@ def _only(prefix=0, **launched):
     besides ``prefix`` blocked launches: the shared prefixes of the
     kernel 1, 3 and 5 plans it built, each a plan's
     ``prefix_launches``."""
-    out = {"blocked": 0, "variant": 0, "collapse": 0, "sv": 0, **launched,
-           "prefix": prefix}
+    out = {"blocked": 0, "variant": 0, "noisy": 0, "collapse": 0, "sv": 0,
+           **launched, "prefix": prefix}
     out["blocked"] += prefix
     return out
 
@@ -2567,11 +2577,95 @@ NOISY_ROWS_TOL = 2e-5    # the batched and streamed routes, same model
 NOISY_TRACE_CHUNKS = 16  # chunks of the noisy streamed scan traced
 
 
+NOISY_ROWS_REPS = 10     # kernel 1's noisy chunk, timed
+NOISY_PLAIN_REPS = 3     # the per-gate plan without a kernel, timed
+
+
+def phase_noisy_rows_sup20(virt, report):
+    """Kernel 1's noisy rows on one chunk of the streamed scan: sup-20's
+    fragment 0 (15 qubits: a two-CTA cluster) under ``fake_kolkata_v2``
+    with 8 trajectories, the scan's 32 labels of its first chunk and
+    their draws (256 rows), through
+    ``variant_kernel.make_noisy_chunk_kernel``: within 1e-5 of the
+    per-gate plan without a kernel (``make_sim_fn``'s rows on the
+    gathered blocks, as ``_SimRows.noisy_rows`` runs it off a card; the
+    card tests hold the kernel to its plan's plain replay too), a second
+    launch bit for bit, ``variant_rows.noisy`` counting 256; the kernel's
+    ms and the plain route's for the chunk."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    noise = _port("ops.noise")
+    streamed = _port("ops.streamed")
+    ve = _port("ops.variant_engine")
+    vk = _port("ops.variant_kernel")
+    nm = dataclasses.replace(noise.fake_kolkata_v2(), trajectories=NOISY_TRAJ)
+    name = virt.fragments[0].name
+    prog = virt.programs[name]
+    specs = [vg.spec for vg in virt.vgates]
+    chunk = streamed.auto_chunk(virt, NOISY_CHUNK, NOISY_TRAJ, noisy=True)
+    sim_fn = ve.make_sim_fn(virt, name, noise=nm, build_matrices=False)[0]
+    fn = vk.make_noisy_chunk_kernel(sim_fn, prog, specs, DEV)
+    dp = fn.plan
+    strides, n_inst, _ = ve.label_strides(specs, range(len(specs)))
+    vidx = torch.as_tensor(ve.variant_index_table(
+        range(len(specs)), strides, n_inst, chunk), device=DEV)
+    pidx = torch.as_tensor(streamed._sample_pauli_indices(
+        np.random.default_rng(NOISY_SEED),
+        [(pr, bank) for (_, _, pr, bank, _) in sim_fn.noise_sites], chunk,
+        NOISY_TRAJ), device=DEV, dtype=torch.int64)
+    rows = chunk * NOISY_TRAJ
+    tables = [[torch.as_tensor(t, device=DEV) for t in tabs]
+              for tabs in ve._slot_tables(prog, specs, fused=False)]
+    banks = {s: torch.as_tensor(sim_fn.site_banks[s], device=DEV)
+             for s in sim_fn.active_sites}
+
+    def plain():
+        mats = [tuple(t[vidx[:, sl.vgate_idx]].repeat_interleave(
+            NOISY_TRAJ, dim=0) for t in tabs)
+            for sl, tabs in zip(prog.slots, tables)]
+        flat = pidx.reshape(rows, -1)
+        return sim_fn(mats, DEV, {s: b[flat[:, s]] for s, b in banks.items()})
+
+    before = vk.variant_rows.noisy
+    got = fn(vidx, pidx)
+    torch.cuda.synchronize()
+    counted = vk.variant_rows.noisy - before
+    launch = dict(vk.variant_rows.last_launch)
+    again = fn(vidx, pidx)
+    per_gate = plain()
+    torch.cuda.synchronize()
+    out = {"fragment": name, "n": dp.plan.n, "rows": rows,
+           "plan_rows": len(dp.plan.table.rows),
+           "entry_stride": dp.plan.entry_stride, "noisy_counted": counted,
+           "cluster": launch["cluster"], "grid": launch["grid"],
+           "runs": int(launch["runs"]),
+           "max_abs_err_plain": (got - per_gate).abs().max().item(),
+           "repeats": bool(torch.equal(got, again))}
+    del got, again, per_gate
+    out["kernel_ms"] = _time_ms(lambda: fn(vidx, pidx), NOISY_ROWS_REPS)
+    out["plain_ms"] = _time_ms(plain, NOISY_PLAIN_REPS, warm=1)
+    report["noisy_rows_sup20"] = out
+    print(f"noisy rows sup20 ({name}, n = {out['n']}, {rows} rows, "
+          f"{out['plan_rows']} plan rows, {out['entry_stride']} entry "
+          f"floats a row, cluster {out['cluster']}, grid {out['grid']}): "
+          f"kernel_ms={out['kernel_ms']:.4f} plain_ms="
+          f"{out['plain_ms']:.4f} max_abs_err "
+          f"{out['max_abs_err_plain']:.3e} variant_rows.noisy +{counted}",
+          flush=True)
+    if not (out["max_abs_err_plain"] <= TOL and out["repeats"]
+            and counted == rows and out["cluster"] == 2):
+        raise RuntimeError(f"noisy rows sup20: {out}")
+
+
 def phase_main_noisy_sup20(circ, virt, report):
     """sup-20 under ``fake_kolkata_v2`` with 8 trajectories, as the JAX
     package's noisy serving run (benchmarks/noisy_streamed_tpu.py "sup20")
     calls it: ``run_noisy_virtual_circuit(engine="streamed", shots=1000,
-    seed=7)`` cold and warm (mass 1, support <= 1000, peak memory, a
+    seed=7)`` cold and warm (its noisy rows one kernel 1 launch a chunk
+    and fragment; mass 1, support <= 1000, peak memory, a
     device-only trace of the scan's first chunks); the same call without
     shots (non-negative, the projection keeping the unprojected knit's
     mass) and the first chunk's rows of each fragment, from the scan's own
@@ -2696,7 +2790,11 @@ def phase_main_noisy_sup20(circ, virt, report):
 
     need(out["labels"] == 7776 and chunk == 32,
          f"labels {out['labels']}, chunk {chunk}")
-    need(out["launches"] == _only(), f"launched {out['launches']}")
+    frags = len(virt.fragments)
+    need(out["launches"] == _only(
+        variant=frags * out["n_chunks"],
+        noisy=frags * out["n_chunks"] * chunk * NOISY_TRAJ),
+        f"launched {out['launches']}")
     need(abs(out["shots_mass"] - 1.0) <= 1e-6
          and out["shots_support"] <= NOISY_SHOTS,
          f"shots mass {out['shots_mass']!r}, support "
@@ -4770,6 +4868,8 @@ def main() -> int:
         phase("streamed_sup20", phase_streamed_sup20, *cuts["sup20"], report)
         phase("streamed_sup20_dp1", phase_streamed_sup20_dp1,
               cuts["sup20"][1], report, card)
+        phase("noisy_rows_sup20", phase_noisy_rows_sup20, cuts["sup20"][1],
+              report)
         streamed = phase("main_noisy_sup20", phase_main_noisy_sup20,
                          *cuts["sup20"], report)
         if streamed is not None:

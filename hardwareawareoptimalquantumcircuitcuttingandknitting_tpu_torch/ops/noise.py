@@ -6,9 +6,11 @@ Port of the JAX package's ``ops/noise.py``.  The host half (the
 :class:`NoiseModel`, the fake-backend calibrations, the insertion sites
 and the balanced trajectory samplers) is numpy, as there, so both
 packages draw the same branch indices from the same
-``np.random.default_rng`` seeds.  The device half runs in plain PyTorch
-on ``device`` (None = "cuda"): the JAX package runs noise through plain
-XLA and no Pallas kernel, so no kernel is on this path either.
+``np.random.default_rng`` seeds.  The device half runs on ``device``
+(None = "cuda") in plain PyTorch, as the JAX package runs noise through
+plain XLA and no Pallas kernel, but for the streamed scan's noisy rows:
+on a card the variant kernel computes them
+(ops/variant_kernel.make_noisy_chunk_kernel).
 
 Model: per-gate depolarising noise simulated by Pauli-twirl trajectories
 (each trajectory inserts one sampled Pauli per physical gate site; the
@@ -38,7 +40,7 @@ batched engine, ops/variant_engine.py) behind
 scan (ops/streamed.py, ``noise=``) behind ``engine="streamed"``, and the
 sampled engine's noisy rows (ops/qpd_sampling.py, the sampled labels'
 trajectories averaged a block at a time) behind ``engine="sampled"``.
-Noise has no kernel route (``engine="pallas"`` raises ``ValueError``).
+``engine="pallas"``, the exact kernel route, raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -799,14 +801,16 @@ def run_noisy_virtual_circuit(
     i), ``shots`` drawn per variant row, then the knit and the Smolin
     projection on the device.  ``engine="streamed"``: the constant-memory
     label scan with trajectory noise and readout in its body
-    (ops/streamed.py), shot-sampled and checkpointable
+    (ops/streamed.py; on a card each chunk's label x trajectory rows are
+    one launch of the variant kernel), shot-sampled and checkpointable
     (``checkpoint_dir``).  ``engine="sampled"``: Monte-Carlo QPD sampling
     of the NOISY knit (ops/qpd_sampling.sampled_knit, ``noise_seed =
     seed``): ``shots`` is the label-sample budget (each QPD sample is one
     circuit execution on hardware, so the budgets coincide), None the
     plan's Hoeffding budget for eps = 0.05 capped at 2,000,000; then the
-    nearest probability distribution.  ``engine="pallas"`` (no kernel
-    runs noise) and unknown engines raise ``ValueError``.  Returns
+    nearest probability distribution.  ``engine="pallas"`` (the exact
+    kernel route: noise takes ``"streamed"``, whose rows the variant
+    kernel computes) and unknown engines raise ``ValueError``.  Returns
     ``(Distribution, RunTimeInfo)``; on ``engine="streamed"``
     ``RunTimeInfo.noise`` holds the scan's record of its noise, the
     routed op streams and the branch indices drawn
@@ -816,8 +820,9 @@ def run_noisy_virtual_circuit(
     if engine not in ("auto", "xla", "streamed", "sampled"):
         raise ValueError(
             f"noisy execution runs on engine='auto', 'xla', 'streamed' or "
-            f"'sampled', not engine={engine!r} (no kernel runs trajectory "
-            "noise: ROADMAP H100 port, section C, 'On purpose')")
+            f"'sampled', not engine={engine!r} (engine='pallas' is the "
+            "exact kernel route; on 'streamed' the variant kernel computes "
+            "the noisy rows: ROADMAP H100 port, section C, 'On purpose')")
     dev = resolve_device(device)
     models = _resolve_models(virt, noise)
 

@@ -313,13 +313,23 @@ def _to_complex(block: np.ndarray) -> np.ndarray:
     return block[0, :, 0, :] + 1j * block[1, :, 0, :]
 
 
+def _check_width(js) -> None:
+    if len(js) not in (1, 2):
+        raise NotImplementedError(
+            f"{len(js)}-qubit op in the fused suffix: the kernels "
+            "apply 1q and 2q gates only"
+        )
+
+
 class OpTable:
     """Accumulates a kernel's op table: rows ``(nq, ja, jb, coef)`` over
     flat bits (``ja`` = the gate-index MSB), the fixed-coefficient pool
-    and the per-slot entry tables.  ``coef >= 0`` is an offset into the
-    pool (re ``[m*m]`` then im ``[m*m]``), ``coef < 0`` is ``-1 -
-    offset`` into the label's entry row (the concatenated per-slot ``[2,
-    m, m]`` entries).  A row with ``nq == 0`` is a collapse site on flat
+    and the entry tables, one per gate whose matrix each row picks (a
+    slot's, by the label's variant; on kernel 1's noisy rows also a noise
+    site's, by the trajectory's branch).  ``coef >= 0`` is an offset into
+    the pool (re ``[m*m]`` then im ``[m*m]``), ``coef < 0`` is ``-1 -
+    offset`` into the row's entry row (the concatenated ``[2, m, m]``
+    entries).  A row with ``nq == 0`` is a collapse site on flat
     bit ``ja`` whose per-label scalars sit at site index ``jb`` (the
     collapse kernel alone reads such rows; ``sites`` lists their slot
     ids in row order).  One table format serves every circuit, so one
@@ -332,50 +342,56 @@ class OpTable:
         self.sites: list = []          # slot id per collapse row
         self.ops: list = []
         self.fixed: list = []
-        self.entry_tables: list = []   # per slot [nI, 2*m*m] float32
-        self.entry_gids: list = []     # per slot: global vgate id
+        self.entry_tables: list = []   # per entry gate [nI, 2*m*m] float32
+        self.entry_gids: list = []     # per entry gate: its index column
         self.entry_stride = 0          # floats per label entry row
-        self.slot_rows: list = []      # op rows that are slots
+        self.slot_rows: list = []      # op rows that read the entry row
 
     def _slot_table(self, sid: int, kind: str) -> np.ndarray:
         """``[nI, 2, m, 2, m]`` real blocks of one slot op: the composed
-        block (``"slot"``) or the unfused pre / post endpoint gate."""
+        block (``"slot"``) or the unfused pre / measure / post endpoint
+        gate."""
         fused = kind == "slot"
         if fused not in self._tabs:
             self._tabs[fused] = _slot_tables(self._prog, self._specs,
                                              fused=fused)
         return self._tabs[fused][sid][{"slot": 0, "slot_pre": 0,
+                                       "slot_meas": 1,
                                        "slot_post": 2}[kind]]
 
     def add(self, op, js) -> None:
         """Append ``("u", complex mat, axes)``, ``("slot" | "slot_pre" |
-        "slot_post", slot_id, axes)`` or ``("collapse", slot_id, axes)``
-        acting on flat bits ``js``."""
+        "slot_meas" | "slot_post", slot_id, axes)`` or ``("collapse",
+        slot_id, axes)`` acting on flat bits ``js``."""
         if op[0] == "collapse":
             self.ops.append((0, js[0], len(self.sites), 0))
             self.sites.append(op[1])
             return
-        if len(js) not in (1, 2):
-            raise NotImplementedError(
-                f"{len(js)}-qubit op in the fused suffix: the kernels "
-                "apply 1q and 2q gates only"
-            )
-        ja, jb = js[0], (js[1] if len(js) == 2 else 0)
-        if op[0] == "u":
-            mat = np.asarray(op[1], complex)
-            coef = len(self.fixed)
-            self.fixed.extend(mat.real.astype(np.float32).ravel())
-            self.fixed.extend(mat.imag.astype(np.float32).ravel())
-        else:
-            self.slot_rows.append(len(self.ops))
-            tab = self._slot_table(op[1], op[0])
-            cx = np.stack([_to_complex(t) for t in tab])  # [nI, m, m]
-            ent = np.stack([cx.real, cx.imag], axis=1).astype(np.float32)
-            self.entry_tables.append(ent.reshape(ent.shape[0], -1))
-            self.entry_gids.append(self._prog.slots[op[1]].vgate_idx)
-            coef = -1 - self.entry_stride
-            self.entry_stride += self.entry_tables[-1].shape[1]
-        self.ops.append((len(js), ja, jb, coef))
+        if op[0] != "u":
+            self.add_entries(self._slot_table(op[1], op[0]),
+                             self._prog.slots[op[1]].vgate_idx, js)
+            return
+        _check_width(js)
+        mat = np.asarray(op[1], complex)
+        coef = len(self.fixed)
+        self.fixed.extend(mat.real.astype(np.float32).ravel())
+        self.fixed.extend(mat.imag.astype(np.float32).ravel())
+        self.ops.append((len(js), js[0], js[1] if len(js) == 2 else 0, coef))
+
+    def add_entries(self, blocks, gid: int, js) -> None:
+        """Append a gate on flat bits ``js`` whose matrix each row picks
+        from ``blocks`` (``[nI, 2, m, 2, m]`` real blocks) by column
+        ``gid`` of its index row: a slot's variants, read by the label's
+        global vgate column, or a noise site's branches."""
+        _check_width(js)
+        self.slot_rows.append(len(self.ops))
+        cx = np.stack([_to_complex(t) for t in np.asarray(blocks)])
+        ent = np.stack([cx.real, cx.imag], axis=1).astype(np.float32)
+        self.entry_tables.append(ent.reshape(ent.shape[0], -1))
+        self.entry_gids.append(gid)
+        coef = -1 - self.entry_stride
+        self.entry_stride += self.entry_tables[-1].shape[1]
+        self.ops.append((len(js), js[0], js[1] if len(js) == 2 else 0, coef))
 
     def ops_array(self) -> np.ndarray:
         return np.asarray(self.ops, np.int32).reshape(-1, 4)

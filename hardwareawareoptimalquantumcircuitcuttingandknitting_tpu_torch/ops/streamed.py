@@ -28,11 +28,14 @@ dtype.  Two routes make the rows:
   (a NoiseModel, or one per fragment) runs a fragment's unfused plan with
   ``trajectories`` balanced trajectories a label: the branch indices are
   drawn on the host with numpy (the JAX package's draws, from
-  ``default_rng(seed)``) and streamed with the chunk, each row gathers
-  its sites' Kraus blocks on the device, the rows are averaged over the
-  trajectories and go through the per-bit readout channel before the
-  fold.  Noisy fragments take no bank, and noise refuses bf16,
-  ``trunc_eps`` and PEC models, as in the JAX package.
+  ``default_rng(seed)``) and streamed with the chunk; on a card a
+  chunk's label x trajectory rows are one launch of the variant kernel
+  (ops/variant_kernel.make_noisy_chunk_kernel: each site's block picked
+  from its bank by the row's branch), elsewhere each row gathers its
+  sites' Kraus blocks and runs the plan in plain PyTorch; the rows are
+  averaged over the trajectories and go through the per-bit readout
+  channel before the fold.  Noisy fragments take no bank, and noise
+  refuses bf16, ``trunc_eps`` and PEC models, as in the JAX package.
 * ``pallas_variant=True`` (``engine="pallas"``): every fragment's rows
   from a hand-written kernel, routed by simulated width as in the JAX
   package: up to 20 qubits the fold-fused variant kernel
@@ -40,7 +43,8 @@ dtype.  Two routes make the rows:
   segmented blocked kernel (ops/blocked_kernel.py, rows folded here in
   torch).  A fragment no kernel serves raises, and so do a bf16
   ``dtype`` and ``noise`` (the JAX package would quietly run the route
-  without a kernel instead): the kernels are exact and noise-free.
+  without a kernel instead; noisy rows run on kernel 1 under
+  ``pallas_variant=False``, above).
 
 :func:`run_virtual_circuit_streamed` adds carry checkpoints
 (``checkpoint_dir``: the scan in segments, ``stream_carry.npz`` written
@@ -86,7 +90,11 @@ from .variant_engine import (
     truncate_labels,
     variant_index_table,
 )
-from .variant_kernel import make_folded_chunk_kernel
+from .variant_kernel import (
+    build_noisy_plan,
+    make_folded_chunk_kernel,
+    make_noisy_chunk_kernel,
+)
 
 
 def _resolve_noise(virt: VirtualCircuit, noise):
@@ -247,15 +255,32 @@ def _fragment_rows(virt, name, chunk, keep_clbits, z_clbits, dev,
     return "blocked", folded_rows, kept, rows_fn.plan
 
 
+def _noisy_kernel(sim_fn, prog, specs, dev):
+    """``(rows_fn, None)`` where kernel 1 computes a noisy fragment's
+    (label, trajectory) rows (:func:`~.variant_kernel.
+    make_noisy_chunk_kernel`), else ``(None, why)``: where its plan cannot
+    take the fragment (built on any device, so the reason is the same
+    everywhere), or on tensors of another device than a card."""
+    try:
+        if dev.type == "cuda":
+            return make_noisy_chunk_kernel(sim_fn, prog, specs, dev), None
+        build_noisy_plan(sim_fn, prog, specs)
+    except NotImplementedError as exc:
+        return None, str(exc)
+    return None, f"{dev.type} tensors"
+
+
 class _SimRows:
-    """One fragment's rows without a kernel: the flat per-label plan, or
-    an ancestor bank plus a staged suffix, or with noise the flat plan
-    over every (label, trajectory) (the JAX package's
-    ``_rows_for_fragment``, with the batched closures of
-    :func:`~.variant_engine.make_sim_fn` in place of ``vmap``)."""
+    """One fragment's rows on the scan's route without the exact kernels
+    (``pallas_variant=False``): the flat per-label plan, or an ancestor
+    bank plus a staged suffix (the JAX package's ``_rows_for_fragment``,
+    with the batched closures of :func:`~.variant_engine.make_sim_fn` in
+    place of ``vmap``), or with noise every (label, trajectory) row: on a
+    card one launch of kernel 1 a chunk (``kernel``), else the flat plan
+    in plain PyTorch."""
 
     def __init__(self, sim_fn, tables, gcols, split, chunk, specs, dev,
-                 dtype, site_banks=None, readout=None):
+                 dtype, site_banks=None, readout=None, kernel=None):
         self.sim_fn = sim_fn
         self.tables = tables        # per slot: tuple of [nI, ...] blocks
         self.gcols = gcols          # per slot: its global vgate column
@@ -267,6 +292,7 @@ class _SimRows:
         self.dtype = dtype
         self.site_banks = site_banks  # noise: site -> its plan's bank
         self.readout = readout        # noise: [k, 2, 2] per-bit channel
+        self.kernel = kernel          # noise: kernel 1's rows, or None
 
     def _mats(self, sids, reps):
         return {sid: tuple(t[reps[:, self.gcols[sid]]]
@@ -294,29 +320,39 @@ class _SimRows:
             parts.append(prefix_fn(mats))
         return torch.cat(parts) if len(parts) > 1 else parts[0]
 
+    def _trajectory_rows(self, vidx_chunk, pidx):
+        """``[chunk * T, 2^k]`` rows, one a (label, trajectory), trajectory
+        fastest: one launch of kernel 1 where ``kernel`` is set, else the
+        plan in plain PyTorch on the gathered blocks; None where no step
+        varies by row."""
+        if self.kernel is not None:
+            return self.kernel(vidx_chunk, pidx)
+        c, t = pidx.shape[:2]
+        mats = [tuple(tab[vidx_chunk[:, g]].repeat_interleave(t, dim=0)
+                      for tab in tabs)
+                for g, tabs in zip(self.gcols, self.tables)]
+        flat = pidx.reshape(c * t, -1)
+        pauli = {s: bank[flat[:, s]] for s, bank in self.site_banks.items()}
+        return self.sim_fn(mats, self.dev, pauli) if mats or pauli else None
+
     def noisy_rows(self, vidx_chunk, pidx):
         """Rows ``[chunk, 2^k]`` of one chunk of labels under trajectory
         noise: ``pidx [chunk, T, S]`` branch indices; each (label,
-        trajectory) row gathers its sites' blocks, the rows are averaged
-        over T, then the readout channel.  Counts the (label, trajectory)
-        rows simulated in ``_SimRows.noisy_rows.rows`` and the active
-        sites applied to them, summed over the rows, in
-        ``.site_passes``."""
+        trajectory) row takes its sites' blocks by its branches, the rows
+        are averaged over T, then the readout channel.  Counts the
+        (label, trajectory) rows simulated in
+        ``_SimRows.noisy_rows.rows`` and the active sites applied to
+        them, summed over the rows, in ``.site_passes``."""
         from .noise import readout_rows
 
         with span("port.noise.rows"):
             c, t = pidx.shape[:2]
-            mats = [tuple(tab[vidx_chunk[:, g]].repeat_interleave(t, dim=0)
-                          for tab in tabs)
-                    for g, tabs in zip(self.gcols, self.tables)]
-            flat = pidx.reshape(c * t, -1)
-            pauli = {s: bank[flat[:, s]]
-                     for s, bank in self.site_banks.items()}
-            if mats or pauli:
-                rows = self.sim_fn(mats, self.dev, pauli)
+            rows = self._trajectory_rows(vidx_chunk, pidx)
+            if rows is not None:
                 rows = rows.reshape(c, t, -1).mean(dim=1)
                 _SimRows.noisy_rows.rows += c * t
-                _SimRows.noisy_rows.site_passes += len(pauli) * c * t
+                _SimRows.noisy_rows.site_passes += (
+                    len(self.site_banks) * c * t)
             else:
                 rows = self.sim_fn([], self.dev).expand(c, -1)
             if self.readout is not None:
@@ -437,9 +473,10 @@ def make_streamed_knit(
     dtype = torch.float32 if dtype is None else dtype
     if noisy and pallas_variant:
         raise ValueError(
-            "noise runs on the route without a kernel (pallas_variant="
-            "False, engine=\"streamed\"): the kernels are exact and "
-            "noise-free (ROADMAP H100 port, section C, 'On purpose')")
+            "noise runs on the scan's other route (pallas_variant=False, "
+            "engine=\"streamed\"), whose noisy rows kernel 1 computes on "
+            "a card: this route's kernels are exact and noise-free (ROADMAP "
+            "H100 port, section C, 'On purpose')")
     if noisy and dtype != torch.float32:
         raise ValueError("bf16 serving mode is exact-path only")
     if noisy and trunc_eps > 0.0:
@@ -501,7 +538,7 @@ def make_streamed_knit(
         )
         tables = [to_device(list(t), dev, dtype)
                   for t in _slot_tables(prog, specs, fused=fused)]
-        site_banks = readout = None
+        site_banks = readout = kernel = None
         if nm is None:
             pidx.append(np.zeros((padded, 0, 0), np.int32))
             record.append(None)
@@ -518,6 +555,11 @@ def make_streamed_knit(
                     trajectories or nm.trajectories))
             site_banks = {s: to_device(sim_fn.site_banks[s], dev)
                           for s in sim_fn.active_sites}
+            kernel, why = _noisy_kernel(sim_fn, prog, specs, dev)
+            if kernel is None:
+                get_logger(__name__).info(
+                    "noisy fragment %r: rows in plain PyTorch, not on "
+                    "kernel 1 (%s)", name, why)
             from .noise import _readout_mats, fragment_readout_qubits
 
             cq = fragment_readout_qubits(virt, name, sim_fn)
@@ -549,7 +591,8 @@ def make_streamed_knit(
                 split = (sp, prefix_fn, stages, r_anc)
         splits.append(split)
         sim = _SimRows(sim_fn, tables, [s.vgate_idx for s in prog.slots],
-                       split, chunk, specs, dev, dtype, site_banks, readout)
+                       split, chunk, specs, dev, dtype, site_banks, readout,
+                       kernel)
         sims.append(sim)
         steps, w_tabs, kept = _fold_plan(virt, name, positions,
                                          keep_clbits, z_clbits)

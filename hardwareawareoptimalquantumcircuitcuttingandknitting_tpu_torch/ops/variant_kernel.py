@@ -1,4 +1,5 @@
-"""Whole-variant statevector kernel for the ``engine="pallas"`` label scan.
+"""Whole-variant statevector kernel for the ``engine="pallas"`` label scan,
+and for the noisy rows of the ``engine="streamed"`` scan.
 
 Counterpart of the JAX package's ``ops/pallas_variant.py`` (the Pallas
 kernel built by ``_build_call`` and entered through
@@ -6,7 +7,12 @@ kernel built by ``_build_call`` and entered through
 a chunk: shared prefix state -> fused suffix (fixed 1q/2q gates, slot
 gates with the label's own entries) -> epilogue, either the fold (vgate
 weights, z signs and dropped bits contracted into a ``[2^d]`` knit row) or
-full ``|psi|^2`` rows.
+full ``|psi|^2`` rows.  A third entry point, which the JAX package has
+not (its noisy scan is XLA), :func:`make_noisy_chunk_kernel`, runs the
+same kernel on one row a (label, trajectory) of a noisy fragment: the
+routed, unfused per-gate plan (:func:`build_noisy_plan`), each noise
+site a gate whose entries the row picks from the site's bank by its
+drawn branch, as a slot gate's come from the label's variant.
 
 Three layers:
 
@@ -75,6 +81,7 @@ from .op_rewrite import (
     op_costs,
 )
 from .statevector import marginalize_flat
+from .variant_engine import splice_zero_bits
 
 MAX_CLUSTER = 8      # CTAs a portable cluster holds
 TILE_PINNED = 2      # flat bits every tile spans (0 and 1): 16-byte copies
@@ -106,7 +113,10 @@ class VariantPlan:
     same slots (a slot row ends any diagonal run, so they line up).
     ``fold`` is None (full rows) or ``(wbits, zmask, d)``.  ``tiles``:
     the global-memory path's :class:`TilePlan` (past
-    ``CLUSTER_QUBITS``), else None."""
+    ``CLUSTER_QUBITS``), else None.  ``prefix_state``: a start state
+    ``[2, 2^n]`` in the plan's flat layout that the host already holds
+    (:func:`build_noisy_plan`), uploaded in place of ``prefix_ops``'
+    launches; None for a prefix of ``prefix_ops``."""
 
     n: int
     prefix_ops: list               # [("u", mat, axes)] before the slots
@@ -121,6 +131,7 @@ class VariantPlan:
     table: op_rewrite.Table        # the kernel's rewritten rows
     row_segments: list             # [(start, end)] rewritten row ranges
     tiles: TilePlan | None = None
+    prefix_state: np.ndarray | None = None
 
     @property
     def out_width(self) -> int:
@@ -348,7 +359,7 @@ class DevicePlan:
     the shared prefix state ``prefix`` (``[2, 2^n]``) built there by
     ``blocked_kernel.build_prefix``: kernel 4's segment launches on a
     card (``prefix_launches`` of them), its plain version on the CPU
-    (none)."""
+    (none); or the plan's ``prefix_state``, uploaded (no launch)."""
 
     def __init__(self, plan: VariantPlan, device):
         self.plan = plan
@@ -380,9 +391,13 @@ class DevicePlan:
             self.key_strides = upload(np.asarray(
                 [math.prod(radix[i + 1:]) for i in range(len(radix))],
                 np.int64), device)
-        with span("port.build.prefix"):
-            self.prefix, self.prefix_launches = build_prefix(
-                plan.prefix_ops, plan.n, self.device)
+        if plan.prefix_state is not None:
+            self.prefix = upload(plan.prefix_state, device)
+            self.prefix_launches = 0
+        else:
+            with span("port.build.prefix"):
+                self.prefix, self.prefix_launches = build_prefix(
+                    plan.prefix_ops, plan.n, self.device)
 
     def stages(self, vidx_chunk: torch.Tensor) -> torch.Tensor:
         """Per-label resume stage: the first chain-order slot whose variant
@@ -714,8 +729,9 @@ def variant_rows(dp: DevicePlan, entries, wstack, stage,
     computes the rows (counted in ``variant_rows.launches``, in
     ``variant_rows.clustered`` where a cluster of CTAs shares each
     global-memory state, and in ``variant_rows.tiled`` where it takes
-    tile passes; ``variant_rows.last_launch`` says runs, cap, grid,
-    cluster, scratch bytes, the tile's bits (``window``) and each
+    tile passes; :func:`make_noisy_chunk_kernel` counts its rows in
+    ``variant_rows.noisy``; ``variant_rows.last_launch`` says runs, cap,
+    grid, cluster, scratch bytes, the tile's bits (``window``) and each
     segment's ``tile_passes``, and holds the schedule's tensors); CPU
     tensors run :func:`plain_variant_rows`.  ``entries [C,
     entry_stride]`` (from ``DevicePlan.gather_entries``), ``wstack
@@ -735,6 +751,7 @@ def variant_rows(dp: DevicePlan, entries, wstack, stage,
 variant_rows.launches = 0
 variant_rows.clustered = 0
 variant_rows.tiled = 0
+variant_rows.noisy = 0
 variant_rows.last_launch = None
 
 
@@ -850,6 +867,128 @@ def make_chunk_kernel(
     rows_fn.plan = dp
     rows_fn.weigh = ones
     return rows_fn, positions
+
+
+def build_noisy_plan(sim_fn, prog, specs) -> VariantPlan:
+    """Host build of the kernel for one noisy fragment's (label,
+    trajectory) rows: the routed, unfused plan of
+    ``variant_engine.make_sim_fn(noise=...)`` (``sim_fn.run_plan``, the
+    steps after its shared host prefix, which becomes ``prefix_state``),
+    every qubit on a flat bit from the start (an ``"ins"`` step's qubit is
+    ``|0>`` until its first gate either way).  A fixed gate is a pool
+    row; every other step reads the row's entry row: a slot step
+    (``slot_pre``, ``slot_meas``, ``slot_post``) its slot's table by the
+    label's global vgate column, a noise site (``("pauli", site, axes)``,
+    its gate inside the bank where it carries one) the site's bank
+    ``sim_fn.site_banks[site]`` by column ``len(specs) + site`` of an
+    index row ``[vidx | the row's branch indices]``.  Unstaged (the
+    trajectories part at every site): one segment.  The written clbits'
+    source qubits sit on flat bits 0, 1, ... in ``positions`` order, so
+    full rows (every qubit written) or the fold epilogue with no weight
+    (a marginal) come out in :func:`~.variant_engine.finish_row`'s order,
+    less the bits of sources that no op touches.  Raises
+    NotImplementedError where the kernel cannot take the fragment: past
+    ``MAX_QUBITS``, a gate on more than 2 qubits, a step of another kind,
+    no step that varies by row."""
+    n = len(sim_fn.active_final)
+    if n > MAX_QUBITS:
+        raise NotImplementedError(
+            f"{n} qubits, past the variant kernel's {MAX_QUBITS}-qubit "
+            "width gate")
+    run_plan = sim_fn.run_plan
+    # the qubit each "ins" step brings, walked back from the final ones;
+    # what is left is the prefix's
+    act = list(sim_fn.active_final)
+    brings = {}
+    for i in range(len(run_plan) - 1, -1, -1):
+        if run_plan[i][0] == "ins":
+            brings[i] = act.pop(run_plan[i][1])
+    start = list(act)
+    kept = [q for q in sim_fn.sources if q in sim_fn.active_final]
+    if len(set(kept)) < len(kept):
+        raise NotImplementedError("a qubit written to two clbits")
+    flat_of_q = {q: j for j, q in enumerate(kept)}
+    for q in sim_fn.active_final:
+        flat_of_q.setdefault(q, len(flat_of_q))
+    table = OpTable(prog, specs)
+    for i, stp in enumerate(run_plan):
+        kind = stp[0]
+        if kind == "ins":
+            act.insert(stp[1], brings[i])
+            continue
+        js = [flat_of_q[act[a]] for a in stp[2]]
+        if kind == "u":
+            table.add(("u", op_rewrite._to_complex(stp[1]), None), js)
+        elif kind == "pauli":
+            table.add_entries(sim_fn.site_banks[stp[1]],
+                              len(specs) + stp[1], js)
+        elif kind in ("slot_pre", "slot_meas", "slot_post"):
+            table.add(stp, js)
+        else:
+            raise NotImplementedError(f"a {kind!r} step")
+    if not table.slot_rows:
+        raise NotImplementedError("no step varies by row")
+    # the prefix state, axis i (the MSB first) on qubit start[i]'s bit
+    m0 = len(start)
+    x = np.arange(1 << m0)
+    at = np.zeros(1 << m0, np.int64)
+    for i, q in enumerate(start):
+        at |= ((x >> (m0 - 1 - i)) & 1) << flat_of_q[q]
+    prefix = np.zeros((2, 1 << n), np.float32)
+    prefix[:, at] = sim_fn.prefix_state
+    d = len(kept)
+    fold = None if d == n else ([], 0, d)
+    ops, fixed = table.ops_array(), table.fixed_array()
+    ktable = op_rewrite.rewrite(generic_ops(ops, fixed))
+    row_segments = [(0, len(ktable.rows))]
+    tiles = None
+    if n > CLUSTER_QUBITS:
+        tiles = plan_tiles(ktable, row_segments, n,
+                           None if fold is None else d)
+    return VariantPlan(
+        n=n, prefix_ops=[], ops=ops, fixed=fixed,
+        segments=[(0, len(ops))], entry_tables=table.entry_tables,
+        entry_gids=table.entry_gids, entry_stride=table.entry_stride,
+        fold=fold, staged=False, table=ktable, row_segments=row_segments,
+        tiles=tiles, prefix_state=prefix,
+    )
+
+
+def make_noisy_chunk_kernel(sim_fn, prog, specs, device=None):
+    """``rows_fn(vidx_chunk, pidx)``: the rows of a noisy fragment's chunk
+    of labels ``vidx_chunk [C, num_vgates]`` under their branch indices
+    ``pidx [C, T, S]`` (every noise site of ``sim_fn.noise_sites``), one
+    row a (label, trajectory), trajectory fastest: ``[C * T, 2^k]`` over
+    the written clbits in ``positions`` order, as
+    :func:`~.variant_engine.finish_row` gives them (a source that no op
+    touches a zero bit).  The entries of a chunk are one gather
+    (``DevicePlan.gather_entries``) of the index rows ``[vidx repeated
+    T | pidx]``; CUDA tensors launch the kernel on
+    :func:`build_noisy_plan`'s plan (the rows counted in
+    ``variant_rows.noisy``), CPU tensors run :func:`plain_variant_rows`.
+    ``sim_fn``: ``variant_engine.make_sim_fn(virt, name, noise=...)``'s,
+    ``prog`` the fragment's program, ``specs`` the circuit's vgate specs.
+    ``rows_fn.plan`` is the :class:`DevicePlan`.  Raises
+    NotImplementedError where :func:`build_noisy_plan` does."""
+    plan = build_noisy_plan(sim_fn, prog, specs)
+    dev = resolve_device(device)
+    dp = DevicePlan(plan, dev)
+    present = [q in sim_fn.active_final for q in sim_fn.sources]
+
+    def rows_fn(vidx_chunk, pidx):
+        c, t = pidx.shape[:2]
+        idx = torch.cat([vidx_chunk.repeat_interleave(t, dim=0),
+                         pidx.reshape(c * t, -1)], dim=1)
+        rows = variant_rows(
+            dp, dp.gather_entries(idx),
+            torch.ones((c * t, 1, 2), dtype=torch.float32, device=dev),
+            torch.zeros((c * t,), dtype=torch.int32, device=dev))
+        if rows.is_cuda:
+            variant_rows.noisy += c * t
+        return rows if all(present) else splice_zero_bits(rows, present)
+
+    rows_fn.plan = dp
+    return rows_fn
 
 
 # ---------------------------------------------------------------------------

@@ -1356,6 +1356,61 @@ def test_noisy_sampled_rows_on_card_match_cpu(card):
 
 
 @pytest.mark.cuda
+def test_noisy_rows_kernel_matches_plain_on_card(card):
+    """Kernel 1's noisy rows (``variant_kernel.make_noisy_chunk_kernel``)
+    on one chunk of the ``sup20-kolkata-noisy`` cell's fragment 0: 15
+    qubits, a two-CTA cluster, the chunk's 32 labels x 8 trajectories
+    (256 rows) under the scan's draws, against the plain replay of the
+    same plan on the card and against the per-gate plan without a kernel,
+    within 1e-5 absolute; ``variant_rows.noisy`` counts the 256 rows."""
+    from portbench.cell import Port, instances, load_cell
+    from portbench.entries import noisy as entry
+
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops import (  # noqa: E501
+        streamed,
+    )
+    from hardwareawareoptimalquantumcircuitcuttingandknitting_tpu_torch.ops.variant_engine import (  # noqa: E501
+        _slot_tables,
+        make_sim_fn,
+    )
+
+    cell = load_cell("sup20-kolkata-noisy")
+    virt = Port().front_end(cell, instances(cell, 0)[0])
+    nm = entry.model(cell)
+    name = virt.fragments[0].name
+    prog = virt.programs[name]
+    specs = [vg.spec for vg in virt.vgates]
+    sim_fn = make_sim_fn(virt, name, noise=nm, build_matrices=False)[0]
+    c, t = 32, nm.trajectories
+    vidx = _block(virt, c, 5).to(card)
+    pidx = torch.as_tensor(streamed._sample_pauli_indices(
+        np.random.default_rng(9),
+        [(pr, bank) for (_, _, pr, bank, _) in sim_fn.noise_sites], c, t),
+        dtype=torch.int64, device=card)
+    fn = vk.make_noisy_chunk_kernel(sim_fn, prog, specs, card)
+    assert fn.plan.plan.n == 15 and fn.plan.plan.fold is None
+    before = vk.variant_rows.noisy
+    got = fn(vidx, pidx)
+    assert vk.variant_rows.noisy - before == c * t == 256
+    assert vk.variant_rows.last_launch["cluster"] == 2
+    idx = torch.cat([vidx.repeat_interleave(t, dim=0),
+                     pidx.reshape(c * t, -1)], dim=1)
+    dp = fn.plan
+    replay = vk.plain_variant_rows(dp, dp.gather_entries(idx),
+                                   torch.ones((c * t, 1, 2), device=card))
+    assert (got - replay).abs().max().item() <= TOL
+    tables = [[torch.as_tensor(x, device=card) for x in tabs]
+              for tabs in _slot_tables(prog, specs, fused=False)]
+    mats = [tuple(x[vidx[:, sl.vgate_idx]].repeat_interleave(t, dim=0)
+                  for x in tabs) for sl, tabs in zip(prog.slots, tables)]
+    flat = pidx.reshape(c * t, -1)
+    pauli = {s: torch.as_tensor(sim_fn.site_banks[s], device=card)[
+        flat[:, s]] for s in sim_fn.active_sites}
+    plain = sim_fn(mats, card, pauli)
+    assert (got - plain).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
 def test_streamed_pallas_staged_false_equals_staged_on_card(card):
     """``make_streamed_knit(pallas_staged=False)``: the variant kernel
     without its per-slot checkpoints gives the staged kernel's values."""
