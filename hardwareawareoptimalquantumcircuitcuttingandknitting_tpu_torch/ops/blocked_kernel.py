@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ..convert import resolve_device
+from ..utils.profiling import span
 from ..virt.virtual_circuit import VirtualCircuit
 from . import op_rewrite
 from .kernel_build import MAX_QUBITS, KernelLibrary, check_tensor, upload
@@ -432,14 +433,17 @@ def device_plan(virt: VirtualCircuit, frag_name: str, window: int,
     """The fragment's :class:`BlockedDevicePlan`, built once per
     ``(fragment, window, pinned bits, device)`` and kept on the
     ``VirtualCircuit``, so a later call on the same circuit builds
-    nothing (the plan and the prefix state depend on nothing else)."""
+    nothing (the plan and the prefix state depend on nothing else).  A
+    build runs inside the span ``port.blocked.build``: the plan, its
+    tables, the uploads and the prefix launches."""
     n = virt.programs[frag_name].num_sim_qubits
     w = min(window, n - 1)
     key = (frag_name, w, max(0, min(pinned, w - 2)), str(device))
     cache = virt.__dict__.setdefault(_CACHE, {})
     if key not in cache:
-        cache[key] = BlockedDevicePlan(
-            build_plan(virt, frag_name, window, pinned), device)
+        with span("port.blocked.build"):
+            cache[key] = BlockedDevicePlan(
+                build_plan(virt, frag_name, window, pinned), device)
     return cache[key]
 
 
@@ -692,11 +696,20 @@ def segment_rows(dp: BlockedDevicePlan, k: int, state,
 def blocked_rows(dp: BlockedDevicePlan, entries) -> torch.Tensor:
     """``|psi|^2`` rows ``[C, 2^n]`` of a chunk of labels in the canonical
     layout: one :func:`apply_segment` per segment, nothing between them,
-    the last one :func:`segment_rows`."""
-    return _run_segments(dp, entries, apply_segment, segment_rows)
+    the last one :func:`segment_rows`.  On either device
+    ``blocked_rows.rows`` counts the C label rows computed, and
+    ``blocked_rows.last[n]`` is the ``(window, pinned bits, C)`` of the
+    last chunk of an n-qubit fragment."""
+    rows = _run_segments(dp, entries, apply_segment, segment_rows)
+    blocked_rows.rows += entries.shape[0]
+    blocked_rows.last[dp.plan.n] = (dp.plan.w, dp.plan.pinned,
+                                    entries.shape[0])
+    return rows
 
 
 blocked_rows.launches = 0
+blocked_rows.rows = 0
+blocked_rows.last = {}
 
 
 # ---------------------------------------------------------------------------
@@ -716,7 +729,9 @@ def make_blocked_chunk_kernel(
     n = 21..24 gate (``force=True`` lifts the lower bound, for small
     tests) or the window ``min(window, n - 1)`` is outside 2..14.
     ``rows_fn.plan`` is the :class:`BlockedDevicePlan` (cached,
-    :func:`device_plan`)."""
+    :func:`device_plan`); ``rows_fn`` is ``rows_fn.marginal(
+    rows_fn.kernel_rows(vidx_chunk))``, the chunk's :func:`blocked_rows`
+    and then their marginal, which a caller may also call apart."""
     dev = resolve_device(device)
     prog = virt.programs[frag_name]
     n = prog.num_sim_qubits
@@ -730,11 +745,17 @@ def make_blocked_chunk_kernel(
     axes = [prog.clbit_sources[c] for c in positions]
     memo: dict = {}  # the marginal's bit-order index, built once a scan
 
-    def rows_fn(vidx_chunk):
-        rows = blocked_rows(dp, dp.gather_entries(vidx_chunk))
+    def kernel_rows(vidx_chunk):
+        return blocked_rows(dp, dp.gather_entries(vidx_chunk))
+
+    def marginal(rows):
         return marginalize_flat(rows, dp.plan.n, axes, memo)
 
+    def rows_fn(vidx_chunk):
+        return marginal(kernel_rows(vidx_chunk))
+
     rows_fn.plan = dp
+    rows_fn.kernel_rows, rows_fn.marginal = kernel_rows, marginal
     return rows_fn, positions
 
 

@@ -66,7 +66,7 @@ import torch
 
 from ..convert import resolve_device, to_device
 from ..utils.logger import get_logger
-from ..utils.profiling import span, spanned
+from ..utils.profiling import device_span, span, spanned
 from ..virt.virtual_circuit import VirtualCircuit
 from .bits import permute_bits_flat
 from .blocked_kernel import MAX_BLOCKED_QUBITS, make_blocked_chunk_kernel
@@ -250,7 +250,10 @@ def _fragment_rows(virt, name, chunk, keep_clbits, z_clbits, dev,
     w_dev = [(g, to_device(t, dev)) for g, t in w_tabs]
 
     def folded_rows(vidx_chunk):
-        return _apply_fold(rows_fn(vidx_chunk), steps, w_dev, vidx_chunk)
+        rows = rows_fn.kernel_rows(vidx_chunk)
+        with device_span("port.blocked.fold"):
+            return _apply_fold(rows_fn.marginal(rows), steps, w_dev,
+                               vidx_chunk)
 
     return "blocked", folded_rows, kept, rows_fn.plan
 

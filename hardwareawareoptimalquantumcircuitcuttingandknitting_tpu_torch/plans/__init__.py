@@ -9,6 +9,13 @@ the pure-Python search minutes):
   partitions of at most 21 qubits (``maxNQpdCuts = maxNCuts =
   maxCutsPerPartitions = 5``): two gate cuts, 36 labels, two fragments of
   22 simulated qubits.
+* ``hwe40_d4_p2_q20`` — ``genCirc("hwe", 40, 4, seed=0)`` cut into 2
+  partitions of at most 20 qubits (the same three limits at 5), solved
+  by this package's native solver (under 0.1 s): four cx gate cuts, on
+  ``cx(19, 20)`` of each layer, 1296 labels, two fragments of 24
+  simulated qubits (20 data qubits and 4 deferral ancillas each) — the
+  blocked kernel at its widest.  The rotation angles do not enter the
+  plan.
 * ``ghz40_p2_q20`` — ``genCirc("ghz", 40, 1)`` cut into 2 partitions of at
   most 20 qubits (the same three limits at 5): one gate cut, 6 labels, two
   fragments of 21 simulated qubits.

@@ -23,10 +23,13 @@ enters a function-scope record (``_RecordFunctionFast``): a host-only
 event.  ``record_function`` would not do: it is a user annotation, and
 with CUDA activity on the profiler gives it a device-side copy that runs
 from the first to the last kernel it launched, so a span around a scan
-would count the idle gaps between its launches as device work.  A span
-never synchronises.  With the profiler off, ``span`` reads one module
-flag and returns a shared null context: no record is built and no clock
-is read (0.2-0.4 us a span on the host CPU of an H100 machine).
+would count the idle gaps between its launches as device work.
+:func:`device_span` is that user annotation, for a stretch whose kernels
+run back to back and whose device time is read as the time of the
+kernels inside its device-side copy.  A span never synchronises.  With
+the profiler off, ``span`` and ``device_span`` read one module flag and
+return a shared null context: no record is built and no clock is read
+(0.2-0.4 us a span on the host CPU of an H100 machine).
 """
 from __future__ import annotations
 
@@ -54,6 +57,18 @@ def span(name: str):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _Record(name)
+
+
+def device_span(name: str):
+    """A context naming its block ``name`` with a user annotation
+    (``record_function``) in a running ``torch.profiler`` trace: a host
+    event and, with CUDA activity on, a device-side copy from the start
+    of the first kernel the block launched to the end of its last, so a
+    trace can tell the block's kernels from those launched before and
+    after it.  The shared null context when no profiler runs."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _autograd_profiler.record_function(name)
 
 
 def spanned(name: str):

@@ -685,6 +685,32 @@ def test_blocked_prefix_through_the_shared_routine(card):
             <= TOL
 
 
+@pytest.mark.cuda
+def test_hwe40_depth4_request_on_card_equals_two_blocks(card):
+    """A request of the benchmark's cell ``hwe40-sweep`` at full size:
+    hwe-40 at depth 4, fresh angles, through ``run_virtual_circuit(
+    engine="pallas")``; kernel 4 computes every row (1296 labels x 2
+    fragments of 24 qubits), kernel 1 none, and the 2^20 marginal is
+    within the cell's limit of the two-block reference (complex128)."""
+    import pathlib
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from portbench.cell import Port, instances, load_cell, run_kwargs
+
+    cell = load_cell("hwe40-sweep")
+    inst = instances(cell, 3)[0]
+    rows, variant = bk.blocked_rows.rows, vk.variant_rows.launches
+    answer, _ = Port().serve(cell, inst, card, **run_kwargs(cell))
+    assert bk.blocked_rows.rows - rows == 1296 * 2
+    assert vk.variant_rows.launches == variant
+    assert len(answer["values"]) == 1 << 20
+    assert cell.check.compare(cell, inst, answer, card) <= \
+        cell.config["limit"]
+
+
 # ---------------------------------------------------------------------------
 # The collapse kernel (csrc/collapse_kernel.cu)
 # ---------------------------------------------------------------------------

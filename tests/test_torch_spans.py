@@ -192,6 +192,19 @@ def test_off_span_is_the_shared_null_context_and_never_waits(monkeypatch):
     assert waits == []
 
 
+def test_device_span_is_a_user_annotation_only_under_a_profiler():
+    """``device_span`` builds nothing with the profiler off; under it,
+    a ``record_function`` (the annotation the profiler copies to the
+    card) named as asked."""
+    assert profiling.device_span("port.x") is profiling._OFF
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        block = profiling.device_span("port.x")
+        assert isinstance(block, torch.autograd.profiler.record_function)
+        with block:
+            pass
+    assert [e.name for e in prof.events()].count("port.x") == 1
+
+
 def test_tracer_phase_is_a_span():
     tracer = profiling.Tracer()
     circ = _circuit()
